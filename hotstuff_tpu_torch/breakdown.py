@@ -1,0 +1,138 @@
+"""Where a generic verification batch spends its time on the card.
+
+    python -m hotstuff_tpu_torch.breakdown [--batch 16384] [--chunk 4096] [--iters 5]
+
+Times `TorchBackend`'s verifier end to end on one batch of seeded random
+wire bytes (the cost does not depend on validity: no step has
+data-dependent control flow), then each layer of one chunk in the order
+the verifier runs them: host staging, upload, the wire unpack, kernels K2,
+K3, K1, K4, and the mask readback. Finally `torch.profiler` over one batch
+gives the device's busy share (device time / wall time of the batch).
+Prints one JSON line. Needs a CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .ops import ed25519 as ed
+from .ops import ladder, sha512
+from .ops.verifier import Ed25519TorchVerifier
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    """Mean device ms per call of `fn` over `reps` calls (CUDA events on the
+    current stream), after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=16384)
+    ap.add_argument("--chunk", type=int, default=4096)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(args.seed)
+    wire = rng.integers(0, 256, (args.batch, 128), np.uint8)
+    msgs = [bytes(r[96:]) for r in wire]
+    keys = [bytes(r[:32]) for r in wire]
+    sigs = [bytes(r[32:96]) for r in wire]
+    v = Ed25519TorchVerifier(device=dev, max_bucket=max(args.chunk, 8192), chunk=args.chunk)
+
+    v.verify_batch_mask(msgs, keys, sigs)  # builds and binds the kernels
+    e2e = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        v.verify_batch_mask(msgs, keys, sigs)
+        e2e.append((time.perf_counter() - t0) * 1e3)
+
+    n = args.chunk
+    staged = {}
+
+    def stage():
+        st = ed.prepare_batch_packed_dh(msgs[:n], keys[:n], sigs[:n])
+        packed = np.zeros((128, v._bucket(n)), np.uint8)
+        packed[:, :n] = st["packed"]
+        staged["packed"] = packed
+
+    stage_ms = _host_ms(stage)
+    host = torch.from_numpy(staged["packed"])
+    upload_ms = events_ms(lambda: host.to(dev))
+    packed = host.to(dev)
+    a, r, s, m = ed.split_packed128(packed)
+    unpack_ms = events_ms(lambda: sha512.nibble_rows(s))
+    sd = sha512.nibble_rows(s)
+    hd = sha512.h_digits(r, a, m)
+    table, valid = ed.decompress_table(a)
+    point = ladder.ladder(sd, hd, table)
+    mask = ed.compress_eq(point, r, valid)
+    layers = {
+        "stage_ms": stage_ms,
+        "upload_ms": upload_ms,
+        "unpack_ms": unpack_ms,
+        "h_digits_ms": events_ms(lambda: sha512.h_digits(r, a, m)),
+        "decompress_table_ms": events_ms(lambda: ed.decompress_table(a)),
+        "ladder_ms": events_ms(lambda: ladder.ladder(sd, hd, table)),
+        "compress_eq_ms": events_ms(lambda: ed.compress_eq(point, r, valid)),
+        "readback_ms": _host_ms(lambda: mask.cpu()),
+    }
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        v.verify_batch_mask(msgs, keys, sigs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us = 0.0
+    by_kernel = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        if t:
+            device_us += t
+            by_kernel[evt.key] = t
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "batch": args.batch, "chunk": n, "chunks": -(-args.batch // n),
+        "e2e_ms": e2e, "e2e_ms_median": statistics.median(e2e),
+        "sigs_per_s": args.batch / statistics.median(e2e) * 1e3,
+        "chunk_layers": layers,
+        "profiled_wall_ms": wall_us / 1e3,
+        "device_busy_share": (device_us / wall_us) if device_us else "not measured",
+        "device_ms_by_op": {k: t / 1e3 for k, t in top},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

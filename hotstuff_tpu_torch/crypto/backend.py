@@ -1,0 +1,79 @@
+"""The `CryptoBackend` seam: pluggable batch signature verification.
+
+A copy of `hotstuff_tpu/crypto/backend.py:19-83` for the port. The
+reference hard-wires ed25519_dalek's `verify_batch`
+(crypto/src/lib.rs:194-220); here every batch verification dispatches
+through an interchangeable backend — the host (`HostBackend`, exact
+Python integers) or the card (`torch_backend.TorchBackend`).
+"""
+
+from __future__ import annotations
+
+import abc
+import threading
+from typing import Sequence
+
+from . import pysigner
+from .primitives import PublicKey, Signature
+
+
+class CryptoBackend(abc.ABC):
+    """Batch signature verification engine.
+
+    Contract (matching ed25519_dalek `verify_batch`): returns True iff ALL
+    (message, key, signature) triples verify. `verify_batch_mask`
+    additionally reports per-item validity."""
+
+    name: str = "abstract"
+
+    @abc.abstractmethod
+    def verify_batch_mask(
+        self,
+        messages: Sequence[bytes],
+        keys: Sequence[PublicKey],
+        signatures: Sequence[Signature],
+    ) -> list[bool]: ...
+
+    def verify_batch(
+        self,
+        messages: Sequence[bytes],
+        keys: Sequence[PublicKey],
+        signatures: Sequence[Signature],
+    ) -> bool:
+        if not messages:
+            return True
+        return all(self.verify_batch_mask(messages, keys, signatures))
+
+
+class HostBackend(CryptoBackend):
+    """Host verification, one signature at a time, with the exact-integer
+    RFC 8032 verifier (`pysigner.verify`)."""
+
+    name = "host"
+
+    def verify_batch_mask(
+        self,
+        messages: Sequence[bytes],
+        keys: Sequence[PublicKey],
+        signatures: Sequence[Signature],
+    ) -> list[bool]:
+        return [
+            pysigner.verify(pk.data, msg, sig.data)
+            for msg, pk, sig in zip(messages, keys, signatures, strict=True)
+        ]
+
+
+_lock = threading.Lock()
+_backend: CryptoBackend = HostBackend()
+
+
+def get_backend() -> CryptoBackend:
+    return _backend
+
+
+def set_backend(backend: CryptoBackend) -> CryptoBackend:
+    """Install the active backend (e.g. TorchBackend); returns the previous one."""
+    global _backend
+    with _lock:
+        prev, _backend = _backend, backend
+    return prev

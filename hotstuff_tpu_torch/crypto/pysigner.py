@@ -1,0 +1,147 @@
+"""Dependency-free ed25519 (RFC 8032) in exact host integers.
+
+A trimmed copy of `hotstuff_tpu/crypto/pysigner.py` (exact scheme only):
+`keypair_from_seed`, `sign` and strict `verify`. The port's host verifier —
+`TorchBackend` sends sub-crossover batches here — and the signer of test
+and smoke corpora; it needs no `cryptography` wheel.
+
+Strict verification: s >= L, undecompressable or non-canonical A and R,
+and x = 0 with the sign bit set all reject. The device path reduces a key's
+y mod p and lets x = 0 take either sign (ops/ed25519.py:decompress), so
+the two differ only on such malformed keys.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+P = 2**255 - 19
+L = 2**252 + 27742317777372353535851937790883648493
+D = -121665 * pow(121666, P - 2, P) % P
+
+_BY = 4 * pow(5, P - 2, P) % P
+
+
+def _sqrt_mod_p(x2: int) -> int | None:
+    """Square root mod P (P = 5 mod 8), or None when x2 is a non-residue."""
+    x = pow(x2, (P + 3) // 8, P)
+    if (x * x - x2) % P != 0:
+        x = x * pow(2, (P - 1) // 4, P) % P
+    if (x * x - x2) % P != 0:
+        return None
+    return x
+
+
+def _recover_x(y: int, sign_bit: int) -> int | None:
+    if y >= P:
+        return None
+    x2 = (y * y - 1) * pow(D * y * y + 1, P - 2, P) % P
+    x = _sqrt_mod_p(x2)
+    if x is None:
+        return None
+    if x == 0 and sign_bit:
+        return None  # -0 is not canonical
+    if x & 1 != sign_bit:
+        x = P - x
+    return x
+
+
+# Extended homogeneous coordinates (X:Y:Z:T) with x=X/Z, y=Y/Z, xy=T/Z.
+_IDENT = (0, 1, 1, 0)
+
+
+def _pt_add(p, q):
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % P
+    b = (y1 + x1) * (y2 + x2) % P
+    c = 2 * t1 * t2 * D % P
+    d = 2 * z1 * z2 % P
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+
+def _pt_mul(k: int, pt):
+    acc = _IDENT
+    while k:
+        if k & 1:
+            acc = _pt_add(acc, pt)
+        pt = _pt_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def _pt_compress(pt) -> bytes:
+    x, y, z, _ = pt
+    zinv = pow(z, P - 2, P)
+    x, y = x * zinv % P, y * zinv % P
+    return (y | ((x & 1) << 255)).to_bytes(32, "little")
+
+
+def _pt_decompress(data: bytes):
+    """Compressed 32 bytes -> extended point, or None (off-curve / non-
+    canonical y)."""
+    if len(data) != 32:
+        return None
+    enc = int.from_bytes(data, "little")
+    y = enc & ((1 << 255) - 1)
+    x = _recover_x(y, enc >> 255)
+    if x is None:
+        return None
+    return (x, y, 1, x * y % P)
+
+
+_BX = _recover_x(_BY, 0)
+_B_POINT = (_BX, _BY, 1, _BX * _BY % P)
+
+
+def _clamp(h: bytes) -> int:
+    a = int.from_bytes(h[:32], "little")
+    a &= (1 << 254) - 8
+    a |= 1 << 254
+    return a
+
+
+def keypair_from_seed(seed: bytes) -> tuple[bytes, bytes]:
+    """32-byte seed -> (compressed public key, seed). The seed IS the
+    secret (RFC 8032 private key); signing re-derives the scalar."""
+    if len(seed) != 32:
+        raise ValueError("ed25519 seed must be 32 bytes")
+    h = hashlib.sha512(seed).digest()
+    return _pt_compress(_pt_mul(_clamp(h), _B_POINT)), seed
+
+
+def sign(seed: bytes, message: bytes, public_key: bytes | None = None) -> bytes:
+    """RFC 8032 Ed25519 signature (64 bytes) over `message`. Passing the
+    seed's `public_key` saves re-deriving it (one scalar multiplication)."""
+    if len(seed) != 32:
+        raise ValueError("ed25519 seed must be 32 bytes")
+    h = hashlib.sha512(seed).digest()
+    a, prefix = _clamp(h), h[32:]
+    pk = public_key or _pt_compress(_pt_mul(a, _B_POINT))
+    r = int.from_bytes(hashlib.sha512(prefix + message).digest(), "little") % L
+    r_enc = _pt_compress(_pt_mul(r, _B_POINT))
+    k = int.from_bytes(hashlib.sha512(r_enc + pk + message).digest(), "little") % L
+    s = (r + k * a) % L
+    return r_enc + s.to_bytes(32, "little")
+
+
+def verify(public_key: bytes, message: bytes, signature: bytes) -> bool:
+    """STRICT verification: canonical s < L, on-curve canonical A and R,
+    full sB == R + hA."""
+    if len(signature) != 64 or len(public_key) != 32:
+        return False
+    a_pt = _pt_decompress(public_key)
+    if a_pt is None:
+        return False
+    r_enc = signature[:32]
+    r_pt = _pt_decompress(r_enc)
+    if r_pt is None:
+        return False
+    s = int.from_bytes(signature[32:], "little")
+    if s >= L:
+        return False
+    h = int.from_bytes(hashlib.sha512(r_enc + public_key + message).digest(), "little") % L
+    lhs = _pt_compress(_pt_mul(s, _B_POINT))
+    rhs = _pt_compress(_pt_add(r_pt, _pt_mul(h, a_pt)))
+    return lhs == rhs

@@ -1,0 +1,6 @@
+"""Batched ed25519 verification ops: GF(2^255 - 19) on integer limbs, the
+device hash, curve arithmetic, the Straus ladder and the verifier.
+
+Each CUDA kernel has a wrapper beside its plain PyTorch version: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel (or
+raises). Kernels are built from `csrc/` on first use (`_build`)."""

@@ -1,0 +1,335 @@
+"""ed25519 curve arithmetic, key decompression, compression, the packed
+wire format and host staging — kernels K3 (`decompress_table`) and K4
+(`compress_eq`) with their plain versions.
+
+Counterpart of `hotstuff_tpu/ops/ed25519.py` (generic path). Verification
+is the strict cofactorless equation of the JAX package:
+
+    valid_i  <=>  enc([s_i]B - [h_i]A_i) == R_i,  h_i = SHA-512(R||A||M) mod L
+
+Curve ops are the extended-coordinate formulas for a = -1 twisted Edwards
+(dbl-2008-hwcd, madd-2008-hwcd-3, add-2008-hwcd-3) with the JAX package's
+`with_t` schedule; `csrc/curve.cuh` runs the same steps on the card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import _build
+from . import field as f
+from .sha512 import h_digits, nibble_rows
+
+P = f.P
+NL = f.NL
+L_ORDER = 2**252 + 27742317777372353535851937790883648493
+
+# --- curve constants (host Python ints -> limbs) ----------------------------
+D_INT = (-121665 * pow(121666, P - 2, P)) % P
+D2_INT = (2 * D_INT) % P
+SQRTM1_INT = pow(2, (P - 1) // 4, P)
+
+BY_INT = (4 * pow(5, P - 2, P)) % P
+_u = (BY_INT * BY_INT - 1) % P
+_v = (D_INT * BY_INT * BY_INT + 1) % P
+_x2 = (_u * pow(_v, P - 2, P)) % P
+BX_INT = pow(_x2, (P + 3) // 8, P)
+if (BX_INT * BX_INT - _x2) % P != 0:
+    BX_INT = (BX_INT * SQRTM1_INT) % P
+if BX_INT % 2 != 0:
+    BX_INT = P - BX_INT
+
+D = f.limbs_of_int(D_INT)
+D2 = f.limbs_of_int(D2_INT)
+SQRTM1 = f.limbs_of_int(SQRTM1_INT)
+
+WINDOW = 4
+NGROUPS = 64  # 4-bit windows of a 256-bit scalar; s, h < 2^253
+
+Point = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]  # X,Y,Z,T
+
+
+def _c(name: str, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return f.const(name, t, like.device)
+
+
+def point_identity(batch: int, device: torch.device) -> Point:
+    zero = torch.zeros((NL, batch), dtype=torch.int64, device=device)
+    one = zero.clone()
+    one[0] = 1
+    return zero, one, one.clone(), zero.clone()
+
+
+def point_dbl(p: Point, with_t: bool = True) -> Point:
+    """dbl-2008-hwcd for a = -1. Doubling never reads T, so a doubling
+    feeding another doubling skips producing it (`with_t=False`: T is
+    zeros and must not feed an addition)."""
+    X, Y, Z, _ = p
+    xx = f.sqr(X)
+    yy = f.sqr(Y)
+    zz = f.sqr(Z)
+    zz2 = f.add(zz, zz)
+    aa = f.sqr(f.add(X, Y))
+    yp = f.add(yy, xx)
+    zp = f.sub(yy, xx)
+    xp = f.sub(aa, yp)
+    tp = f.sub(zz2, zp)
+    t_out = f.mul(xp, yp) if with_t else torch.zeros_like(xp)
+    return f.mul(xp, tp), f.mul(yp, zp), f.mul(zp, tp), t_out
+
+
+def point_madd(p: Point, q_ypx, q_ymx, q_xy2d, with_t: bool = True) -> Point:
+    """Unified mixed addition (madd-2008-hwcd-3): P + affine precomp Q."""
+    X1, Y1, Z1, T1 = p
+    a = f.mul(f.add(Y1, X1), q_ypx)
+    b = f.mul(f.sub(Y1, X1), q_ymx)
+    c = f.mul(T1, q_xy2d)
+    d2z = f.add(Z1, Z1)
+    x3 = f.sub(a, b)
+    y3 = f.add(a, b)
+    z3 = f.add(d2z, c)
+    t3 = f.sub(d2z, c)
+    t_out = f.mul(x3, y3) if with_t else torch.zeros_like(x3)
+    return f.mul(x3, t3), f.mul(y3, z3), f.mul(z3, t3), t_out
+
+
+def point_add_cached(p: Point, q_ypx, q_ymx, q_z, q_t2d, with_t: bool = True) -> Point:
+    """Unified addition with a cached point (Y2+X2, Y2-X2, Z2, 2d*T2)
+    (add-2008-hwcd-3). Cached identity is (1, 1, 1, 0)."""
+    X1, Y1, Z1, T1 = p
+    a = f.mul(f.add(Y1, X1), q_ypx)
+    b = f.mul(f.sub(Y1, X1), q_ymx)
+    c = f.mul(T1, q_t2d)
+    zz = f.mul(Z1, q_z)
+    d2z = f.add(zz, zz)
+    x3 = f.sub(a, b)
+    y3 = f.add(a, b)
+    z3 = f.add(d2z, c)
+    t3 = f.sub(d2z, c)
+    t_out = f.mul(x3, y3) if with_t else torch.zeros_like(x3)
+    return f.mul(x3, t3), f.mul(y3, z3), f.mul(z3, t3), t_out
+
+
+# --- shared k*B table ---------------------------------------------------------
+
+
+def _edwards_add_int(p1, p2):
+    """Exact affine Edwards addition over Python ints (host precompute)."""
+    (x1, y1), (x2, y2) = p1, p2
+    dxy = D_INT * x1 * x2 % P * y1 * y2 % P
+    x3 = (x1 * y2 + x2 * y1) * pow(1 + dxy, P - 2, P) % P
+    y3 = (y1 * y2 + x1 * x2) * pow(1 - dxy, P - 2, P) % P
+    return x3, y3
+
+
+def _base_table() -> torch.Tensor:
+    """(3, 16, NL) int32 canonical limbs of k*B, k = 0..15, in affine
+    precomp form (y+x, y-x, 2d*x*y); row 0 is the identity (1, 1, 0)."""
+    pts = [(0, 1)]
+    for _ in range(15):
+        pts.append(_edwards_add_int(pts[-1], (BX_INT, BY_INT)))
+    coords = (
+        [(y + x) % P for x, y in pts],
+        [(y - x) % P for x, y in pts],
+        [D2_INT * x * y % P for x, y in pts],
+    )
+    return torch.stack([f.limbs_of_int(c).T for c in coords]).to(torch.int32)
+
+
+BASE_TABLE = _base_table()
+
+# --- decompression and the per-item -A table ---------------------------------
+
+
+def decompress(y: torch.Tensor, sign: torch.Tensor):
+    """Compressed y limbs (value < 2^255, not necessarily < p) + sign of x
+    -> (x, -x, valid), x and -x canonical (as ops/ed25519.py:561-588).
+
+    ref10 recipe: x = u v^3 (u v^7)^((p-5)/8) with u = y^2 - 1,
+    v = d y^2 + 1; times sqrt(-1) when v x^2 == -u; invalid when
+    v x^2 != +-u. y >= p is reduced, not rejected; x = 0 takes either sign."""
+    yy = f.sqr(y)
+    u = f.sub(yy, _c("one", f.ONE, y))
+    v = f.add(f.mul(_c("d", D, y), yy), _c("one", f.ONE, y))
+    v3 = f.mul(f.sqr(v), v)
+    v7 = f.mul(f.sqr(v3), v)
+    w = f.pow2523(f.mul(u, v7))
+    r = f.mul(f.mul(u, v3), w)
+    chk = f.canonical(f.mul(v, f.sqr(r)))
+    u_c = f.canonical(u)
+    negu_c = f.canonical(f.sub(_c("zero", f.ZERO, y), u))
+    is_pos = f.eq_canonical(chk, u_c)
+    is_neg = f.eq_canonical(chk, negu_c) & ~is_pos
+    valid = is_pos | is_neg
+    x = f.select(is_neg, f.mul(r, _c("sqrtm1", SQRTM1, y)), r)
+    x_c = f.canonical(x)
+    xneg_c = f.canonical(f.sub(_c("zero", f.ZERO, y), x_c))
+    flip = f.parity(x_c) != sign.long()
+    return f.select(flip, xneg_c, x_c), f.select(flip, x_c, xneg_c), valid
+
+
+def build_neg_a_table(x_neg: torch.Tensor, a_y: torch.Tensor) -> torch.Tensor:
+    """(4, 16, NL, B) int32 cached table of k*(-A), k = 0..15: components
+    (y+x, y-x, z, 2d*t) — as `_build_neg_a_table` (ops/ed25519.py:242-264),
+    stacked into one lane-fastest tensor."""
+    d2 = _c("d2", D2, a_y)
+    na_ypx = f.add(a_y, x_neg)
+    na_ymx = f.sub(a_y, x_neg)
+    na_xy2d = f.mul(d2, f.mul(x_neg, a_y))
+    pts = [point_identity(a_y.shape[1], a_y.device)]
+    cur = (x_neg, a_y, _c("one", f.ONE, a_y).expand_as(a_y), f.mul(x_neg, a_y))
+    pts.append(cur)
+    for _ in range(14):
+        cur = point_madd(cur, na_ypx, na_ymx, na_xy2d)
+        pts.append(cur)
+    ypx = torch.stack([f.add(p[1], p[0]) for p in pts])
+    ymx = torch.stack([f.sub(p[1], p[0]) for p in pts])
+    z = torch.stack([p[2] for p in pts])
+    t2d = torch.stack([f.mul(d2, p[3]) for p in pts])
+    return torch.stack([ypx, ymx, z, t2d]).to(torch.int32)
+
+
+def unpack_key(a_bytes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(32, B) uint8 key rows -> (y limbs (NL, B) int64, sign (B,) int64)."""
+    return f.from_bytes(a_bytes), (a_bytes[31] >> 7).long()
+
+
+def decompress_table_plain(a_bytes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(32, B) uint8 keys -> ((4, 16, NL, B) int32 -A table, (B,) bool valid)."""
+    y, sign = unpack_key(a_bytes)
+    _, x_neg, valid = decompress(y, sign)
+    return build_neg_a_table(x_neg, y), valid
+
+
+def decompress_table(a_bytes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K3 wrapper (replaces `decompress` + `_build_neg_a_table`):
+    CPU tensors -> `decompress_table_plain`; CUDA tensors ->
+    `csrc/decompress_table.cu`."""
+    if a_bytes.device.type == "cpu":
+        return decompress_table_plain(a_bytes)
+    batch = a_bytes.shape[1]
+    _build.check(a_bytes, (32, batch), torch.uint8, a_bytes.device)
+    table = torch.empty((4, 16, NL, batch), dtype=torch.int32, device=a_bytes.device)
+    valid = torch.empty((batch,), dtype=torch.bool, device=a_bytes.device)
+    _build.KERNELS["decompress_table"].launch(a_bytes, table, valid, batch)
+    return table, valid
+
+
+# --- compression and the R compare -------------------------------------------
+
+
+def compress(xyzt: torch.Tensor) -> torch.Tensor:
+    """(4, NL, B) point -> (32, B) uint8 canonical encoding (y, with the
+    sign of x in bit 255), as `compress` (ops/ed25519.py:591-596)."""
+    X, Y, Z = xyzt[0].long(), xyzt[1].long(), xyzt[2].long()
+    zinv = f.invert(Z)
+    x_c = f.canonical(f.mul(X, zinv))
+    enc = f.to_bytes(f.canonical(f.mul(Y, zinv)))
+    enc[31] |= (f.parity(x_c) << 7).to(torch.uint8)
+    return enc
+
+
+def compress_eq_plain(xyzt: torch.Tensor, r_bytes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: valid & (enc(point) == R byte for byte)."""
+    return valid & (compress(xyzt) == r_bytes).all(dim=0)
+
+
+def compress_eq(xyzt: torch.Tensor, r_bytes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Kernel K4 wrapper (replaces `compress` + the R compare,
+    pallas_ladder.py:160-161): CPU -> `compress_eq_plain`; CUDA ->
+    `csrc/compress_eq.cu`."""
+    if xyzt.device.type == "cpu":
+        return compress_eq_plain(xyzt, r_bytes, valid)
+    batch = xyzt.shape[-1]
+    dev = xyzt.device
+    _build.check(xyzt, (4, NL, batch), torch.int32, dev)
+    _build.check(r_bytes, (32, batch), torch.uint8, dev)
+    _build.check(valid, (batch,), torch.bool, dev)
+    out = torch.empty((batch,), dtype=torch.bool, device=dev)
+    _build.KERNELS["compress_eq"].launch(xyzt, r_bytes, valid, out, batch)
+    return out
+
+
+# --- packed (u8) wire format -------------------------------------------------
+#
+# (128, B) uint8 per chunk: rows 0-31 = A, 32-63 = R, 64-95 = S, 96-127 =
+# h = SHA-512(R||A||M) mod L (host-hash) or the 32-byte message M
+# (device-hash). 128 B per signature on the host->device link.
+
+
+def split_packed128(packed: torch.Tensor) -> tuple:
+    """(128, B) u8 wire array -> (a, r, s, h_or_m) (32, B) row groups."""
+    return packed[0:32], packed[32:64], packed[64:96], packed[96:128]
+
+
+def unpack_packed_inputs(a_bytes, r_bytes, s_bytes, h_bytes):
+    """Host-hash rows -> (a bytes, r bytes, s digits, h digits); the kernels
+    read the key and R bytes directly, so only the scalars are unpacked."""
+    return a_bytes, r_bytes, nibble_rows(s_bytes), nibble_rows(h_bytes)
+
+
+def unpack_packed_inputs_dh(packed: torch.Tensor):
+    """Device-hash wire array -> (a bytes, r bytes, s digits, h digits) with
+    h = SHA-512(R||A||M) mod L computed on the device (kernel K2)."""
+    a_b, r_b, s_b, m_b = split_packed128(packed)
+    return a_b, r_b, nibble_rows(s_b), h_digits(r_b, a_b, m_b)
+
+
+# ---------------------------------------------------------------------------
+# Host staging (numpy; Python hashlib for the host-hash format)
+# ---------------------------------------------------------------------------
+
+_L_BE = np.frombuffer(L_ORDER.to_bytes(32, "big"), np.uint8)
+
+
+def _s_canonical_mask(s: np.ndarray) -> np.ndarray:
+    """(B, 32) little-endian s rows -> (B,) bool s < L, vectorized."""
+    diff = s[:, ::-1].astype(np.int16) - _L_BE.astype(np.int16)
+    nz = diff != 0
+    first = nz.argmax(axis=1)
+    return nz.any(axis=1) & (diff[np.arange(len(s)), first] < 0)
+
+
+def _stage_scalars(messages, a, r, s) -> tuple[np.ndarray, np.ndarray]:
+    """Per-item host scalar work: s < L and h = SHA-512(R||A||M) mod L."""
+    n = len(messages)
+    h_bytes = np.empty((n, 32), np.uint8)
+    for i in range(n):
+        hd = hashlib.sha512(r[i].tobytes() + a[i].tobytes() + messages[i]).digest()
+        h = int.from_bytes(hd, "little") % L_ORDER
+        h_bytes[i] = np.frombuffer(h.to_bytes(32, "little"), np.uint8)
+    return _s_canonical_mask(s), h_bytes
+
+
+def _rows(keys, signatures):
+    n = len(keys)
+    a = np.frombuffer(b"".join(keys), np.uint8).reshape(n, 32)
+    sig = np.frombuffer(b"".join(signatures), np.uint8).reshape(n, 64)
+    return a, sig[:, :32], sig[:, 32:]
+
+
+def prepare_batch_packed(
+    messages: Sequence[bytes], keys: Sequence[bytes], signatures: Sequence[bytes]
+) -> dict:
+    """Host-hash staging: dict(packed=(128, B) u8, s_ok=(B,) bool), rows
+    96-127 = h computed on the host."""
+    a, r, s = _rows(keys, signatures)
+    s_ok, h_bytes = _stage_scalars(messages, a, r, s)
+    packed = np.ascontiguousarray(np.vstack([a.T, r.T, s.T, h_bytes.T]))
+    return dict(packed=packed, s_ok=s_ok)
+
+
+def prepare_batch_packed_dh(
+    messages: Sequence[bytes], keys: Sequence[bytes], signatures: Sequence[bytes]
+) -> dict:
+    """Device-hash staging: rows 96-127 = the 32-byte message; only byte
+    concatenation and the vectorized s < L check run on the host. Every
+    message must be 32 bytes."""
+    a, r, s = _rows(keys, signatures)
+    m = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), 32)
+    packed = np.ascontiguousarray(np.vstack([a.T, r.T, s.T, m.T]))
+    return dict(packed=packed, s_ok=_s_canonical_mask(s))

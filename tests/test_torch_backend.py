@@ -1,0 +1,153 @@
+"""The slice as a whole: `TorchBackend(device="cpu")` (every kernel wrapper
+on its plain version) against the JAX package's `TpuBackend` on the same
+batches — valid lanes mixed with every adversarial class of ROADMAP.md §C —
+on both wire formats (device hash for 32-byte messages, host hash
+otherwise), plus the RFC 8032 vectors. Masks must be identical."""
+
+import random
+
+import pytest
+
+from hotstuff_tpu.crypto import primitives as jprim
+from hotstuff_tpu.crypto import pysigner as jpysigner
+from hotstuff_tpu.crypto.tpu_backend import TpuBackend
+from hotstuff_tpu_torch.crypto import pysigner
+from hotstuff_tpu_torch.crypto.backend import HostBackend, get_backend, set_backend
+from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+from tests.test_rfc8032_vectors import VECTORS
+
+P = pysigner.P
+L = pysigner.L
+
+
+def _signed(n, msg_len, seed):
+    rng = random.Random(seed)
+    msgs, keys, sigs = [], [], []
+    for _ in range(n):
+        sk = rng.randbytes(32)
+        pk, _ = pysigner.keypair_from_seed(sk)
+        m = rng.randbytes(msg_len)
+        msgs.append(m)
+        keys.append(pk)
+        sigs.append(pysigner.sign(sk, m, public_key=pk))
+    return msgs, keys, sigs
+
+
+def _adversarial(msgs, keys, sigs):
+    """One lane per class; returns the names of the corrupted lanes."""
+    bad_y = next(y for y in range(2, 100) if pysigner._recover_x(y, 0) is None)
+    y_a = int.from_bytes(keys[5], "little") & ((1 << 255) - 1)
+    classes = {
+        0: "flipped R byte", 1: "flipped S byte", 2: "s >= L", 3: "wrong message",
+        4: "undecompressable key", 5: "non-canonical A (y >= p)", 6: "non-canonical R",
+        7: "x = 0 key with sign bit", 8: "zero signature", 9: "S from another lane",
+    }
+    s = sigs
+    s[0] = s[0][:3] + bytes([s[0][3] ^ 1]) + s[0][4:]
+    s[1] = s[1][:40] + bytes([s[1][40] ^ 1]) + s[1][41:]
+    s[2] = s[2][:32] + (int.from_bytes(s[2][32:], "little") + L).to_bytes(32, "little")
+    msgs[3] = bytes([msgs[3][0] ^ 1]) + msgs[3][1:]
+    keys[4] = bad_y.to_bytes(32, "little")
+    if y_a + P < 2**255:  # the same point, encoded with y + p
+        keys[5] = (y_a + P | (keys[5][31] >> 7) << 255).to_bytes(32, "little")
+    else:
+        keys[5] = (P + 1).to_bytes(32, "little")
+    s[6] = (P + 2).to_bytes(32, "little") + s[6][32:]
+    keys[7] = (1 | 1 << 255).to_bytes(32, "little")
+    s[8] = bytes(64)
+    s[9] = s[9][:32] + s[10][32:]
+    return classes
+
+
+def _masks(msgs, keys, sigs):
+    tb = TorchBackend(device="cpu", crossover=1)
+    ours = tb.verify_batch_mask(msgs, [PublicKey(k) for k in keys], [Signature(s) for s in sigs])
+    assert tb.stats["host_sigs"] == 0 and tb.stats["device_sigs"] == len(msgs)
+    ref = TpuBackend(crossover=1, min_bucket=128, max_bucket=128).verify_batch_mask(
+        msgs, [jprim.PublicKey(k) for k in keys], [jprim.Signature(s) for s in sigs]
+    )
+    return ours, ref
+
+
+@pytest.mark.parametrize("msg_len", [32, 33], ids=["device_hash", "host_hash"])
+def test_masks_match_tpu_backend(msg_len):
+    msgs, keys, sigs = _signed(16, msg_len, seed=msg_len)
+    classes = _adversarial(msgs, keys, sigs)
+    ours, ref = _masks(msgs, keys, sigs)
+    assert ours == ref
+    want = [i not in classes for i in range(16)]
+    assert ours == want, [classes.get(i) for i, (a, b) in enumerate(zip(ours, want)) if a != b]
+
+
+def test_rfc8032_vectors():
+    msgs = [bytes.fromhex(m) for _, m, _ in VECTORS]
+    keys = [bytes.fromhex(k) for k, _, _ in VECTORS]
+    sigs = [bytes.fromhex(s) for _, _, s in VECTORS]
+    tb = TorchBackend(device="cpu", crossover=1)
+    pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
+    assert tb.verify_batch_mask(msgs, pks, sgs) == [True] * len(VECTORS)
+    assert tb.verify_batch(msgs, pks, sgs)
+    bad = [m + b"\x00" for m in msgs]
+    assert tb.verify_batch_mask(bad, pks, sgs) == [False] * len(VECTORS)
+
+
+def test_chunking_and_buckets():
+    """Chunks of 8 padded to power-of-two widths give the same mask as one
+    chunk; the bucket rule mirrors Ed25519TpuVerifier._bucket."""
+    msgs, keys, sigs = _signed(20, 32, seed=3)
+    sigs[13] = sigs[12]
+    pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
+    small = TorchBackend(device="cpu", crossover=1, min_bucket=4, max_bucket=8, chunk=8)
+    assert small._verifier._bucket(3) == 4 and small._verifier._bucket(5) == 8
+    assert small._verifier._bucket(100) == 8
+    want = [i != 13 for i in range(20)]
+    assert small.verify_batch_mask(msgs, pks, sgs) == want
+    assert small.bucket_alignment == 4
+
+
+def test_sub_crossover_batches_verify_on_host():
+    msgs, keys, sigs = _signed(4, 32, seed=4)
+    sigs[1] = sigs[0]
+    tb = TorchBackend(device="cpu", crossover=8)
+    mask = tb.verify_batch_mask(msgs, [PublicKey(k) for k in keys], [Signature(s) for s in sigs])
+    assert mask == [True, False, True, True]
+    assert tb.stats == {"device_batches": 0, "device_sigs": 0, "host_batches": 1, "host_sigs": 4}
+    assert tb.verify_batch_mask([], [], []) == []
+
+
+def test_backend_seam_and_committee_stub():
+    tb = TorchBackend(device="cpu")
+    assert tb.name == "torch" and tb.supports_committee_routing is False
+    assert tb.register_committee([PublicKey(bytes(32))]) == 0
+    prev = set_backend(tb)
+    try:
+        assert get_backend() is tb
+    finally:
+        set_backend(prev)
+    assert isinstance(get_backend(), HostBackend)
+
+
+def test_pysigner_matches_reference_signer():
+    rng = random.Random(8)
+    for n in (0, 32, 33, 100):
+        seed, msg = rng.randbytes(32), rng.randbytes(n)
+        pk, _ = pysigner.keypair_from_seed(seed)
+        assert pk == jpysigner.keypair_exact(seed)[0]
+        sig = pysigner.sign(seed, msg)
+        assert sig == jpysigner.sign_exact(seed, msg) == pysigner.sign(seed, msg, public_key=pk)
+        assert pysigner.verify(pk, msg, sig) and jpysigner.verify_exact(pk, msg, sig)
+        assert not pysigner.verify(pk, msg + b"x", sig)
+
+
+def test_warmup_runs_every_width():
+    tb = TorchBackend(device="cpu", min_bucket=4, max_bucket=8, chunk=8)
+    assert tb.warmup() >= 0.0
+
+
+def test_host_backend_matches_reference_semantics():
+    msgs, keys, sigs = _signed(12, 32, seed=9)
+    _adversarial(msgs, keys, sigs)
+    ours = HostBackend().verify_batch_mask(msgs, [PublicKey(k) for k in keys], [Signature(s) for s in sigs])
+    ref = [jpysigner.verify_exact(k, m, s) for m, k, s in zip(msgs, keys, sigs)]
+    assert ours == ref == [False] * 10 + [True, True]

@@ -1,0 +1,94 @@
+"""Package rules of the PyTorch/CUDA port: it imports neither jax nor any
+module of hotstuff_tpu, it never carries on silently on the CPU, and a
+kernel wrapper given a non-CPU tensor launches its kernel or raises."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import hotstuff_tpu_torch
+from hotstuff_tpu_torch import resolve_device
+from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+from hotstuff_tpu_torch.ops import _build, ladder, sha512
+from hotstuff_tpu_torch.ops import ed25519 as ted
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import hotstuff_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(hotstuff_tpu_torch.__path__, "hotstuff_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "hotstuff_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("hotstuff_tpu_torch.ops.field", "hotstuff_tpu_torch.ops.verifier",
+                "hotstuff_tpu_torch.crypto.torch_backend", "hotstuff_tpu_torch.convert"):
+        assert mod in res["modules"]
+
+
+def test_no_gpu_means_raise_not_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchBackend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
+    """A tensor off the CPU goes to the kernel path, which checks it and
+    raises — it never drops to the plain version."""
+    meta = lambda *shape, dtype=torch.uint8: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        sha512.h_digits(meta(32, 8), meta(32, 8), meta(32, 8))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        ted.decompress_table(meta(32, 8))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        ladder.ladder(meta(64, 8), meta(64, 8), meta(4, 16, 10, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        ted.compress_eq(meta(4, 10, 8, dtype=torch.int32), meta(32, 8), meta(8, dtype=torch.bool))
+    assert _build.launches() == {name: 0 for name in _build.NAMES}
+
+
+def test_check_rejects_bad_tensors():
+    dev = torch.device("cuda", 0)
+    t = torch.empty((4, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        _build.check(t, (4, 4), torch.uint8, dev)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", str(tmp_path / "no-such-nvcc"))
+    assert not hotstuff_tpu_torch.kernels_built()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert not hotstuff_tpu_torch.kernels_built()
+
+
+def test_sources_and_kernels_listed():
+    csrc = sorted(p.name for p in _build.CSRC.iterdir())
+    assert csrc == sorted(["field.cuh", "curve.cuh"] + [f"{n}.cu" for n in _build.NAMES])
+    assert len(_build.source_hash()) == 16
