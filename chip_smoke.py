@@ -16,7 +16,22 @@ caught:
      vectors). Masks must equal the expected masks, which the exact host
      verifier cross-checks;
   4. launch counts of the main path, end-to-end rate, per-kernel times
-     beside the plain versions' and the least time the card could take.
+     beside the plain versions' and the least time the card could take;
+  5. the committee path: `TorchBackend.verify_batch_mask(...,
+     committee=True)` on a QC-shaped batch as `bench.py --committee-cache`
+     builds it (64 validators, 381 QCs x 43 votes = 16,383 votes over
+     32-byte digests, 96 distinct QCs signed and tiled, ~1/16 of lanes
+     corrupted or voted by three special keys), chunk 4,096. The mask must
+     equal the expected mask and the generic path's mask for the same
+     batch; K5, K2g and K4 launch 4 times each, K1, K3 and K2 not at all.
+     Then a host-hash committee batch, a tagged batch with an unregistered
+     key (generic kernels, one miss) and a batch pinned to a replaced
+     table; votes/s of the committee and generic paths on the same votes,
+     in turns; the host-vs-card break-even of both paths (a sweep of batch
+     sizes 1..64 against the host verifier that `TorchBackend` runs below
+     its crossover); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
+     against their plain versions at 4,096 lanes (random indices over the
+     67-entry table, a few out of range, a ragged width), exactly.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu`. Exits non-zero without a result when no CUDA device
 is available or the port's package is not beside this script.
@@ -78,6 +93,19 @@ def _sign_one(args: tuple[bytes, bytes]) -> tuple[bytes, bytes]:
     seed, msg = args
     pk, _ = pysigner.keypair_from_seed(seed)
     return pk, pysigner.sign(seed, msg, public_key=pk)
+
+
+def _sign_vote(args: tuple[bytes, bytes, bytes]) -> bytes:
+    from hotstuff_tpu_torch.crypto import pysigner
+
+    seed, msg, pk = args
+    return pysigner.sign(seed, msg, public_key=pk)
+
+
+def _keypair(seed: bytes) -> bytes:
+    from hotstuff_tpu_torch.crypto import pysigner
+
+    return pysigner.keypair_from_seed(seed)[0]
 
 
 def _verify_one(args: tuple[bytes, bytes, bytes]) -> bool:
@@ -334,6 +362,9 @@ def _host_hash_batch(pool):
     return M, K, S, np.array(expected)
 
 
+GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
+
+
 def phase_main_path(seed: int) -> dict:
     import numpy as np
     import torch
@@ -369,8 +400,8 @@ def phase_main_path(seed: int) -> dict:
     if np.array(mask).tolist() != expected.tolist():
         bad = np.flatnonzero(np.array(mask) != expected)
         fail(f"main-path mask differs from expected on {len(bad)} lanes, e.g. {bad[:8].tolist()}")
-    if any(v == 0 for v in launches.values()):
-        fail(f"a kernel of the main path was not launched: {launches}")
+    if any(launches[k] == 0 for k in GENERIC_KERNELS) or launches["committee_ladder"] or launches["h_digits_idx"]:
+        fail(f"the main path did not launch exactly its own kernels: {launches}")
     if backend.stats["host_sigs"] != 0:
         fail(f"lanes verified on the host: {backend.stats}")
 
@@ -401,11 +432,335 @@ def phase_main_path(seed: int) -> dict:
     return dict(launches=launches, sigs_per_s=BATCH * iters / sum(wall), batch_ms=[w * 1e3 for w in wall])
 
 
+# --- phase 5: the committee path ---------------------------------------------
+
+COMMITTEE = 64  # validators (bench.py --committee-cache)
+QUORUM = 2 * COMMITTEE // 3 + 1  # votes per QC: 43
+N_QC = BATCH // QUORUM  # 381 QCs, 16,383 votes
+SIGNED_QCS = 96  # distinct QCs signed, then tiled to N_QC
+
+
+def _committee_special_keys() -> list[bytes]:
+    """Key encodings where the strict host verifier and the device decoder
+    differ or fail: no square root; y = p + 1 (>= p, reduced to y = 1, the
+    identity); y = 1 with the sign bit set (x = 0 takes either sign)."""
+    p = 2**255 - 19
+    return [_bad_key(), (p + 1).to_bytes(32, "little"), (1 | 1 << 255).to_bytes(32, "little")]
+
+
+def _forged_identity_sig(s: int) -> bytes:
+    """R = enc([s]B), S = s: the device equation accepts it for any message
+    under a key that decodes to the identity ([h]A vanishes); the strict
+    host verifier rejects those keys (ROADMAP.md section C)."""
+    from hotstuff_tpu_torch.crypto import pysigner
+
+    return pysigner._pt_compress(pysigner._pt_mul(s, pysigner._B_POINT)) + s.to_bytes(32, "little")
+
+
+def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "cuda") -> dict:
+    """K5 and K2g against their plain versions, exactly, at LANES lanes."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import events_ms
+    from hotstuff_tpu_torch.ops import committee, field, sha512
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 10)
+    ct = ed.CommitteeTable(table_keys, dev)
+    n = ct.size
+    idx_np = rng.integers(0, n, LANES).astype(np.int32)
+    oob = [3, LANES // 3, LANES // 2 + 1, LANES - 1]
+    idx_np[oob] = [-1, n, 2**31 - 1, -(2**31)]  # out of range
+    idx = torch.from_numpy(idx_np).to(dev)
+    digits = lambda: torch.from_numpy(rng.integers(0, 16, (64, LANES), np.uint8)).to(dev)
+    rows = lambda: torch.from_numpy(rng.integers(0, 256, (32, LANES), np.uint8)).to(dev)
+    results = {}
+
+    # K5: random digits and indices, raw limbs and lane_valid exactly.
+    sd, hd = digits(), digits()
+    point, lane_valid = committee.committee_ladder(sd, hd, ct, idx)
+    field.PRODUCTS.n = 0
+    plain_ms, (ppoint, pvalid) = _plain_ms(lambda: committee.committee_ladder_plain(sd, hd, ct.entries, ct.valid, idx))
+    products = field.PRODUCTS.n
+    if not torch.equal(lane_valid, pvalid):
+        fail("K5 lane_valid differs from its plain version")
+    err = _max_abs(point, ppoint)
+    if err != 0:
+        fail(f"K5 committee_ladder differs from its plain version (max |diff| {err})")
+    in_range = (idx_np >= 0) & (idx_np < n)
+    want_valid = in_range & ct.valid.cpu().numpy()[np.clip(idx_np, 0, n - 1)]
+    if lane_valid.cpu().numpy().tolist() != want_valid.tolist():
+        fail("K5 lane_valid is not 0 <= idx < N and valid[idx]")
+    print(f"K5: raw limbs and lane_valid identical; {int(lane_valid.sum())}/{LANES} lanes valid", flush=True)
+    results["committee_ladder"] = dict(
+        ms=events_ms(lambda: committee.committee_ladder(sd, hd, ct, idx), 5), plain_ms=plain_ms,
+        max_abs_err=err,
+        bytes=LANES * (2 * 64 + 4 + 4 * field.NL * 4 + 1) + n * (16 * 3 * field.NL * 4 + 1)
+        + 3 * 16 * field.NL * 4,
+        ops=LANES * products,
+    )
+
+    # K2g: h digits with A read by index; a sample against hashlib.
+    r, m = rows(), rows()
+    hk = sha512.h_digits_gather(r, ct.keys_u8, idx, m)
+    plain_ms, want = _plain_ms(lambda: sha512.h_digits_gather_plain(r, ct.keys_u8, idx, m))
+    if not torch.equal(hk, want):
+        fail("K2g h_digits_idx differs from its plain version")
+    rh, mh = r.T.cpu().numpy(), m.T.cpu().numpy()
+    for i in list(range(0, LANES, 257)) + oob:
+        if in_range[i]:
+            hv = int.from_bytes(hashlib.sha512(rh[i].tobytes() + table_keys[idx_np[i]] + mh[i].tobytes()).digest(), "little") % ed.L_ORDER
+            digits_i = [(hv >> (4 * d)) & 15 for d in range(64)]
+        else:
+            digits_i = [0] * 64
+        if hk[:, i].tolist() != digits_i:
+            fail(f"K2g lane {i} differs from hashlib")
+    results["h_digits_idx"] = dict(
+        ms=events_ms(lambda: sha512.h_digits_gather(r, ct.keys_u8, idx, m), 20), plain_ms=plain_ms,
+        max_abs_err=_max_abs(hk, want), bytes=LANES * (32 + 32 + 4 + 64) + 32 * n,
+        ops=LANES * H_DIGITS_OPS_PER_LANE,
+    )
+
+    # A ragged width: each lane is independent.
+    w = 1000
+    cut = lambda t: t[..., :w].contiguous()
+    rp, rv = committee.committee_ladder(cut(sd), cut(hd), ct, cut(idx))
+    if not (torch.equal(rp, cut(point)) and torch.equal(rv, cut(lane_valid))):
+        fail("K5 differs at a ragged width")
+    if not torch.equal(sha512.h_digits_gather(cut(r), ct.keys_u8, cut(idx), cut(m)), cut(hk)):
+        fail("K2g differs at a ragged width")
+    for name, res in results.items():
+        res["bound_ms"], res["bound_by"] = _bound_ms(res["bytes"], res["ops"])
+        print(f"{name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.1f} ms, "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) per {LANES}-lane call", flush=True)
+    return results
+
+
+def _committee_corpus(seed: int, pool):
+    """The committee's keys and a QC-shaped vote batch: N_QC QCs of QUORUM
+    votes, each QC over one 32-byte digest (as bench.py:_qc_batch), with
+    SIGNED_QCS distinct QCs signed and tiled, then a seeded ~1/16 of lanes
+    corrupted. Returns (validator seeds, keys, msgs, vote keys, sigs,
+    expected mask, corrupted lanes, identity-forged lanes)."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto import pysigner
+
+    rng = np.random.default_rng(seed + 3)
+    seeds = [bytes(row) for row in rng.integers(0, 256, (COMMITTEE, 32), np.uint8)]
+    pks = pool.map(_keypair, seeds)
+    digests = [bytes(row) for row in rng.integers(0, 256, (SIGNED_QCS, 32), np.uint8)]
+    voters = [rng.choice(COMMITTEE, QUORUM, replace=False) for _ in range(SIGNED_QCS)]
+    jobs = [(seeds[v], digests[q], pks[v]) for q in range(SIGNED_QCS) for v in voters[q]]
+    signed = pool.map(_sign_vote, jobs, chunksize=64)
+    n = N_QC * QUORUM
+    M = [jobs[i % len(jobs)][1] for i in range(n)]
+    K = [jobs[i % len(jobs)][2] for i in range(n)]
+    S = [signed[i % len(jobs)] for i in range(n)]
+    expected = np.ones(n, bool)
+    no_sqrt, y_ge_p, x0_sign = _committee_special_keys()
+    forged = [_forged_identity_sig(int(rng.integers(1, 2**62))) for _ in range(2)]
+    noncanon_r = (pysigner.P + 1).to_bytes(32, "little")
+    lanes = np.sort(rng.choice(n, n // 16, replace=False))
+    identity_lanes = []
+    for c, i in enumerate(lanes):
+        kind, s = c % 8, S[i]
+        if kind == 0:  # flipped R byte
+            S[i] = s[:5] + bytes([s[5] ^ 0x40]) + s[6:]
+        elif kind == 1:  # flipped S byte
+            S[i] = s[:40] + bytes([s[40] ^ 0x01]) + s[41:]
+        elif kind == 2:  # s >= L (s + L, same residue)
+            S[i] = s[:32] + (int.from_bytes(s[32:], "little") + pysigner.L).to_bytes(32, "little")
+        elif kind == 3:  # wrong message
+            M[i] = bytes([M[i][0] ^ 0x80]) + M[i][1:]
+        elif kind == 4:  # non-canonical R (y = p + 1)
+            S[i] = noncanon_r + s[32:]
+        elif kind == 5:  # a vote by the key without a square root
+            K[i] = no_sqrt
+        else:  # identity keys: y >= p, x = 0 with the sign bit; accepted
+            K[i], S[i] = (y_ge_p, forged[0]) if kind == 6 else (x0_sign, forged[1])
+            identity_lanes.append(int(i))
+            continue
+        expected[i] = False
+    return seeds, pks, M, K, S, expected, lanes, identity_lanes
+
+
+def _host_hash_votes(seeds, pks):
+    """One QC of votes over a 33-byte message (host-hash committee format),
+    every fifth signature's R flipped."""
+    from hotstuff_tpu_torch.crypto import pysigner
+
+    msg = hashlib.sha256(b"host-hash committee batch").digest() + b"\x01"
+    M, K, S, expected = [], [], [], []
+    for v in range(QUORUM):
+        sig = pysigner.sign(seeds[v], msg, public_key=pks[v])
+        if v % 5 == 0:
+            sig = bytes([sig[0] ^ 1]) + sig[1:]
+        M.append(msg), K.append(pks[v]), S.append(sig), expected.append(v % 5 != 0)
+    return M, K, S, expected
+
+
+def phase_committee_path(seed: int, device: str = "cuda") -> dict:
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.crypto import pysigner
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        seeds, pks, M, K, S, expected, lanes, identity_lanes = _committee_corpus(seed, pool)
+        # The strict host verifier on every distinct triple: the signed votes
+        # and each corrupted lane. It rejects the identity-key forgeries that
+        # the device equation (and the reference's decoder) accepts.
+        n_signed = SIGNED_QCS * QUORUM
+        check = list(range(n_signed)) + [int(i) for i in lanes]
+        host = pool.map(_verify_one, [(K[i], M[i], S[i]) for i in check], chunksize=64)
+        want = [bool(expected[i]) and i not in identity_lanes for i in check]
+        if [bool(v) for v in host] != want:
+            fail("committee expected mask disagrees with the host verifier")
+    print(f"committee corpus: {COMMITTEE} validators, {N_QC} QCs x {QUORUM} votes = {len(M)} votes, "
+          f"{len(lanes)} corrupted lanes ({len(identity_lanes)} identity-key forgeries the device accepts), "
+          f"host cross-check in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    table_keys = pks + _committee_special_keys()
+    backend = TorchBackend(device=device, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    t0 = time.perf_counter()
+    if backend.register_committee(table_keys, warmup=True) != len(table_keys):
+        fail("register_committee returned the wrong size")
+    print(f"register_committee({len(table_keys)} keys, warmup=True): {time.perf_counter() - t0:.2f} s", flush=True)
+    vpks, vsgs = [PublicKey(k) for k in K], [Signature(s) for s in S]
+    _build.reset_launches()
+    mask = backend.verify_batch_mask(M, vpks, vsgs, committee=True)
+    launches = _build.launches()
+    print(f"committee path launches: {launches}", flush=True)
+    if mask != expected.tolist():
+        bad = np.flatnonzero(np.array(mask) != expected)
+        fail(f"committee mask differs from expected on {len(bad)} lanes, e.g. {bad[:8].tolist()}")
+    chunks = -(-len(M) // CHUNK)
+    if any(launches[k] != chunks for k in ("committee_ladder", "h_digits_idx", "compress_eq")) or any(
+        launches[k] != 0 for k in ("ladder", "decompress_table", "h_digits")
+    ):
+        fail(f"committee path launched the wrong kernels: {launches}")
+    st = backend.stats
+    if st["committee_batches"] != 1 or st["committee_sigs"] != len(M) or st["host_sigs"] != 0:
+        fail(f"committee batch not counted as one device committee batch: {st}")
+    generic = backend.verify_batch_mask(M, vpks, vsgs)
+    if generic != mask:
+        fail("committee mask differs from the generic path's mask on the same batch")
+    print("committee mask == expected == generic mask", flush=True)
+
+    # Host-hash committee format: no K2 of either kind.
+    HM, HK, HS, hexpected = _host_hash_votes(seeds, pks)
+    _build.reset_launches()
+    hmask = backend.verify_batch_mask(HM, [PublicKey(k) for k in HK], [Signature(s) for s in HS], committee=True)
+    hl = _build.launches()
+    if hmask != hexpected or hl["h_digits"] or hl["h_digits_idx"] or not hl["committee_ladder"] or hl["ladder"]:
+        fail(f"host-hash committee batch: mask or kernels wrong ({hl})")
+    # A tagged batch with an unregistered key takes the generic kernels.
+    outsider_seed = hashlib.sha256(b"outsider").digest()
+    outsider = pysigner.keypair_from_seed(outsider_seed)[0]
+    OM, OK, OS = M[:QUORUM], K[:QUORUM], S[:QUORUM]
+    OK[-1], OS[-1] = outsider, pysigner.sign(outsider_seed, OM[-1], public_key=outsider)
+    misses = backend.stats["committee_misses"]
+    _build.reset_launches()
+    omask = backend.verify_batch_mask(OM, [PublicKey(k) for k in OK], [Signature(s) for s in OS], committee=True)
+    ol = _build.launches()
+    if omask != expected[:QUORUM].tolist()[:-1] + [True] or backend.stats["committee_misses"] != misses + 1:
+        fail(f"unregistered-key batch: mask or miss count wrong ({backend.stats})")
+    if ol["committee_ladder"] or not (ol["ladder"] and ol["decompress_table"] and ol["h_digits"]):
+        fail(f"unregistered-key batch did not take the generic kernels: {ol}")
+    # A batch pinned to table t1 keeps t1's result after t2 replaces it.
+    v = Ed25519TorchVerifier(device=device, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    t1 = v.set_committee(table_keys)
+    n_pin = 2 * QUORUM
+    idx_old = [t1.index[k] for k in K[:n_pin]]
+    t2 = v.set_committee(list(reversed(table_keys)))
+    if v.committee is not t2 or t2 is t1:
+        fail("re-registration did not replace the table")
+    pinned = v.verify_batch_mask_committee(M[:n_pin], idx_old, S[:n_pin], table=t1)
+    if pinned.tolist() != expected[:n_pin].tolist():
+        fail("a batch pinned to the replaced table changed its result")
+    print("host-hash committee batch, unregistered-key miss, pinned table: ok", flush=True)
+
+    # Votes/s of the committee and the generic path on the same votes, in turns.
+    iters, times = 5, {"committee": [], "generic": []}
+    for _ in range(iters):
+        for path in ("committee", "generic"):
+            t0 = time.perf_counter()
+            again = backend.verify_batch_mask(M, vpks, vsgs, committee=path == "committee")
+            torch.cuda.synchronize()
+            times[path].append(time.perf_counter() - t0)
+            if again != mask:
+                fail(f"{path} mask changed between iterations")
+    rates = {path: len(M) * iters / sum(t) for path, t in times.items()}
+    for path, t in times.items():
+        print(f"e2e {path}: {len(M)} votes per batch, {iters} batches: {rates[path]:.1f} votes/s "
+              f"(host clock), per batch {[round(x * 1e3, 3) for x in t]} ms", flush=True)
+    identity = set(identity_lanes)
+    ok_lanes = [i for i in range(len(M)) if expected[i] and i not in identity]
+    crossover = phase_crossover(backend, M, K, S, ok_lanes)
+    return dict(launches=launches, table_keys=table_keys, rates=rates, crossover=crossover)
+
+
+SWEEP = (1, 2, 4, 8, 16, 32, QUORUM, 64)  # batch sizes of the crossover sweep
+
+
+def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
+    """Host-vs-card break-even. For each batch size n of SWEEP: the median
+    host-clock ms of verifying n valid votes with the host verifier
+    (`HostBackend`, what `TorchBackend` runs below its crossover), and with
+    the card's committee and generic paths (`backend` has crossover 1 and
+    the committee registered). A path's break-even is the least n of the
+    sweep from which the card is faster at every larger n of the sweep."""
+    import statistics
+
+    from hotstuff_tpu_torch.crypto.backend import HostBackend
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+
+    host = HostBackend()
+    lanes = ok_lanes[: max(SWEEP)]
+    vm, vk, vs = [M[i] for i in lanes], [PublicKey(K[i]) for i in lanes], [Signature(S[i]) for i in lanes]
+
+    def median_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    res = {"n": list(SWEEP), "host_ms": [], "committee_ms": [], "generic_ms": []}
+    for n in SWEEP:
+        args = (vm[:n], vk[:n], vs[:n])
+        res["host_ms"].append(median_ms(lambda: host.verify_batch_mask(*args), 3))
+        res["committee_ms"].append(median_ms(lambda: backend.verify_batch_mask(*args, committee=True), 5))
+        res["generic_ms"].append(median_ms(lambda: backend.verify_batch_mask(*args), 5))
+
+    def break_even(card):
+        wins = [c < h for c, h in zip(card, res["host_ms"])]
+        return next((n for j, n in enumerate(SWEEP) if all(wins[j:])), None)
+
+    res["break_even"] = {p: break_even(res[f"{p}_ms"]) for p in ("committee", "generic")}
+    res["default_crossover"] = TorchBackend(device=backend.device).crossover
+    print(f"crossover sweep: {json.dumps(res)}", flush=True)
+    return res
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
     "decompress_table": "hotstuff_tpu/ops/ed25519.py:561",
     "compress_eq": "hotstuff_tpu/ops/ed25519.py:591",
+    "committee_ladder": "hotstuff_tpu/ops/ed25519.py:412",
+    "h_digits_idx": "hotstuff_tpu/ops/ed25519.py:480",
 }
 
 
@@ -431,16 +786,22 @@ def main() -> int:
     phase_build()
     kernels = phase_compare(args.seed)
     main_path = phase_main_path(args.seed)
+    committee_path = phase_committee_path(args.seed)
+    committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])
+
+    from hotstuff_tpu_torch.ops import _build
 
     rows = []
-    for name, res in kernels.items():
-        rows.append(dict(
-            name=name, route="cuda", source=f"hotstuff_tpu_torch/ops/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=main_path["launches"][name],
-            matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
-            ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-            bound_by=res["bound_by"], library_ms=None,
-        ))
+    for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
+        for name, res in results.items():
+            rows.append(dict(
+                name=name, route="cuda",
+                source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
+                replaces=REPLACES[name], launches=path["launches"][name],
+                matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
+                ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                bound_by=res["bound_by"], library_ms=None,
+            ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,18 +40,30 @@ def field_to_jax(limbs: torch.Tensor) -> np.ndarray:
     return out
 
 
-def table_from_jax(ypx: np.ndarray, ymx: np.ndarray, z: np.ndarray, t2d: np.ndarray) -> torch.Tensor:
-    """The (16, 32, B) x4 cached -A table of `_build_neg_a_table`
-    -> (4, 16, NL, B) int32 port table."""
+def table_from_jax(*components: np.ndarray) -> torch.Tensor:
+    """(16, 32, B) f32 component tables — the four of `_build_neg_a_table`'s
+    cached -A table, or the three of a committee table — -> (C, 16, NL, B)
+    int32 canonical port table."""
     return torch.stack([
         torch.stack([field_from_jax(comp[k]) for k in range(comp.shape[0])])
-        for comp in (ypx, ymx, z, t2d)
+        for comp in map(np.asarray, components)
     ])
 
 
 def base_table_from_jax(base_table) -> torch.Tensor:
     """`BASE_TABLE`, three (32, 16) f32 arrays of k*B -> (3, 16, NL) int32."""
     return torch.stack([field_from_jax(np.asarray(t)).T for t in base_table])
+
+
+def committee_table_from_jax(ct) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX package's `CommitteeTable` (its `ta_ypx` / `ta_ymx` /
+    `ta_xy2d` (16, 32, N) f32 tables, `valid`, `keys_u8`) -> the port's
+    (entries (N, 16, 3, NL) int32 canonical, valid (N,) bool, keys_u8
+    (32, N) uint8), as `ops/ed25519.CommitteeTable` holds them."""
+    ta = table_from_jax(ct.ta_ypx, ct.ta_ymx, ct.ta_xy2d)  # (3, 16, NL, N)
+    valid = torch.from_numpy(np.asarray(ct.valid, bool).copy())
+    keys_u8 = torch.from_numpy(np.asarray(ct.keys_u8, np.uint8).copy())
+    return ta.permute(3, 1, 0, 2).contiguous(), valid, keys_u8
 
 
 def digits_from_jax(digits: np.ndarray) -> torch.Tensor:

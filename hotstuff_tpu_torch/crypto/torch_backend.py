@@ -1,17 +1,26 @@
 """TorchBackend: batched ed25519 verification on the card behind the
 `CryptoBackend` seam.
 
-Counterpart of `hotstuff_tpu/crypto/tpu_backend.py` (generic path). It
-carries the reference's `Signature::verify_batch` (QC checks) and the
-fork's `verify_batch_alt` (the mempool batch workload) to the CUDA kernels
-of `ops/` through `Ed25519TorchVerifier`.
+Counterpart of `hotstuff_tpu/crypto/tpu_backend.py`. It carries the
+reference's `Signature::verify_batch` (QC checks) and the fork's
+`verify_batch_alt` (the mempool batch workload) to the CUDA kernels of
+`ops/` through `Ed25519TorchVerifier`.
+
+Committee routing (`supports_committee_routing = True`): after
+`register_committee(keys)`, a batch tagged `committee=True` whose keys all
+resolve against the registered table takes the committee path (validator
+indices, device-resident tables: kernels K2g, K5, K4). A tagged batch with
+any unregistered key takes the generic path and counts in
+`stats["committee_misses"]`; without a registration the tag is ignored.
+Correctness never depends on the tag.
 
 Batches smaller than `crossover` are verified on the host (`HostBackend`),
-as the reference sends them to the host CPU: the card wins only past a
-crossover size. That is a size rule, not a device fallback, and `stats`
-counts those lanes. There is no committee-resident path yet
-(`supports_committee_routing = False`): `register_committee` logs and
-returns 0, and every batch takes the generic kernels.
+as the reference sends small batches to the host CPU. That is a size rule,
+not a device fallback, and `stats` counts those lanes. The default, 1,
+sends every batch to the card: on one H100 80GB HBM3 (700 W) the card
+verified a single signature faster than the port's host verifier, on the
+committee path and on the generic path alike, so one crossover serves both
+(`chip_smoke.py`'s crossover sweep; numbers in PERF.md).
 """
 
 from __future__ import annotations
@@ -34,11 +43,12 @@ log = logging.getLogger("hotstuff.crypto")
 
 class TorchBackend(CryptoBackend):
     name = "torch"
-    supports_committee_routing = False
+    # BatchVerificationService probes this to tag committee flushes.
+    supports_committee_routing = True
 
     def __init__(
         self,
-        crossover: int = 64,
+        crossover: int = 1,
         max_bucket: int = 8192,
         min_bucket: int = 128,
         chunk: int | None = None,
@@ -50,7 +60,10 @@ class TorchBackend(CryptoBackend):
         self._host = HostBackend()
         self.crossover = crossover
         self._lock = threading.Lock()
-        self.stats = {"device_batches": 0, "device_sigs": 0, "host_batches": 0, "host_sigs": 0}
+        self.stats = {
+            "device_batches": 0, "device_sigs": 0, "host_batches": 0, "host_sigs": 0,
+            "committee_batches": 0, "committee_sigs": 0, "committee_misses": 0,
+        }
 
     @property
     def device(self) -> torch.device:
@@ -63,8 +76,24 @@ class TorchBackend(CryptoBackend):
         return self._verifier.min_bucket
 
     def register_committee(self, keys: Sequence[PublicKey | bytes], warmup: bool = False) -> int:
-        log.warning("committee registration skipped: %s has no committee path", type(self).__name__)
-        return 0
+        """Install the committee keys as device-resident tables. Idempotent
+        for an identical key sequence; a changed key set (reconfiguration)
+        builds a new table. With `warmup`, runs the committee kernels at
+        every width `warmup()` uses. Returns the committee size."""
+        raw = [k.data if isinstance(k, PublicKey) else bytes(k) for k in keys]
+        table = self._verifier.set_committee(raw)
+        log.info("registered %d-key committee for device-resident verification", table.size)
+        if warmup:
+            self._warmup_committee()
+        return table.size
+
+    def _warmup_widths(self) -> list[int]:
+        v = self._verifier
+        widths, w = [], v.min_bucket
+        while w < v.chunk:
+            widths.append(w)
+            w *= 2
+        return widths + [v.chunk]
 
     def warmup(self) -> float:
         """Build the CUDA kernels (on the card) and run one batch at every
@@ -76,18 +105,30 @@ class TorchBackend(CryptoBackend):
             _build.build_all()
         v = self._verifier
         rng = np.random.default_rng(0)
-        widths = []
-        w = v.min_bucket
-        while w < v.chunk:
-            widths.append(w)
-            w *= 2
-        widths.append(v.chunk)
+        widths = self._warmup_widths()
         for n in widths:
             junk = [bytes(row) for row in rng.integers(0, 256, (n, 128), np.uint8)]
             v.verify_batch_mask([j[:32] for j in junk], [j[32:64] for j in junk], [j[64:] for j in junk])
         v.verify_batch_mask([b"\x00" * 33], [bytes(32)], [bytes(64)])
         secs = time.perf_counter() - t0
         log.info("torch verifier warmup: widths %s in %.1f s", widths, secs)
+        return secs
+
+    def _warmup_committee(self) -> float:
+        """`warmup()` for the committee kernels, against the registered
+        table (validator 0 on every lane). Returns wall seconds."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            _build.build_all()
+        v = self._verifier
+        rng = np.random.default_rng(1)
+        widths = self._warmup_widths()
+        for n in widths:
+            junk = [bytes(row) for row in rng.integers(0, 256, (n, 96), np.uint8)]
+            v.verify_batch_mask_committee([j[:32] for j in junk], [0] * n, [j[32:] for j in junk])
+        v.verify_batch_mask_committee([b"\x00" * 33], [0], [bytes(64)])
+        secs = time.perf_counter() - t0
+        log.info("torch committee warmup: widths %s in %.1f s", widths, secs)
         return secs
 
     def verify_batch_mask(
@@ -97,11 +138,14 @@ class TorchBackend(CryptoBackend):
         signatures: Sequence[Signature],
         committee: bool = False,
     ) -> list[bool]:
-        """`committee` is accepted for the seam's signature; every batch
-        takes the generic path in this backend."""
+        """`committee=True` marks consensus traffic signed by registered
+        validator keys: its indices are resolved against the registered
+        table and the batch takes the committee kernels. A batch with any
+        unregistered key (or no registration) takes the generic path."""
         n = len(messages)
         if n == 0:
             return []
+        resolved = self._resolve_committee(keys) if committee else None
         if n < self.crossover:
             with self._lock:
                 self.stats["host_batches"] += 1
@@ -110,6 +154,30 @@ class TorchBackend(CryptoBackend):
         with self._lock:
             self.stats["device_batches"] += 1
             self.stats["device_sigs"] += n
+            if resolved is not None:
+                self.stats["committee_batches"] += 1
+                self.stats["committee_sigs"] += n
+        if resolved is not None:
+            indices, table = resolved
+            # `table` is pinned through the dispatch: a re-registration
+            # cannot swap it under these indices.
+            return self._verifier.verify_batch_mask_committee(
+                list(messages), indices, [s.data for s in signatures], table=table
+            ).tolist()
         return self._verifier.verify_batch_mask(
             list(messages), [k.data for k in keys], [s.data for s in signatures]
         ).tolist()
+
+    def _resolve_committee(self, keys: Sequence[PublicKey]):
+        """Validator indices of `keys` against ONE snapshot of the registered
+        table -> (indices, table), or None (no registration, or a key
+        outside the registered set: counted in `committee_misses`)."""
+        table = self._verifier.committee
+        if table is None:
+            return None
+        try:
+            return [table.index[k.data] for k in keys], table
+        except KeyError:
+            with self._lock:
+                self.stats["committee_misses"] += 1
+            return None

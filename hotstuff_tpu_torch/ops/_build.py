@@ -11,7 +11,9 @@ Every exported C function has the shape
     int hs_<name>(<pointers and ints>, int batch, void *stream)
 launches on the given stream, and returns `cudaGetLastError()`;
 `Kernel.launch` raises when that is not 0. There is no fallback: a kernel
-that does not build or launch is an error.
+that does not build or launch is an error. A source may export more than
+one entry point (`h_digits.cu`: `hs_h_digits` and `hs_h_digits_idx`); each
+entry point is a `Kernel` with its own launch count.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
-NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq")
+NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder")
+# Entry points beyond `hs_<source name>`: kernel name -> its source.
+EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits"}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,18 +133,20 @@ def check(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device: torch.devic
 
 
 class Kernel:
-    """One CUDA kernel's binding and its launch count (`launches` goes up
-    by one per launch of the kernel, and nowhere else)."""
+    """One CUDA kernel's binding (`hs_<name>` in the library built from
+    `csrc/<source>.cu`) and its launch count (`launches` goes up by one per
+    launch of the kernel, and nowhere else)."""
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, source: str | None = None) -> None:
         self.name = name
+        self.source = source or name
         self.launches = 0
         self._fn = None
 
     def _bind(self):
         if self._fn is None:
             build_all()
-            lib = ctypes.CDLL(str(_lib_path(self.name)))
+            lib = ctypes.CDLL(str(_lib_path(self.source)))
             self._fn = getattr(lib, f"hs_{self.name}")
             self._fn.restype = ctypes.c_int
         return self._fn
@@ -165,6 +171,7 @@ class Kernel:
 
 
 KERNELS = {name: Kernel(name) for name in NAMES}
+KERNELS.update({name: Kernel(name, src) for name, src in EXTRA_ENTRY_POINTS.items()})
 
 
 def reset_launches() -> None:

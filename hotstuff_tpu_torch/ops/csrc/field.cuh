@@ -272,3 +272,17 @@ __device__ __forceinline__ void store_fe(int32_t* p, int stride, const fe& a) {
 #pragma unroll
   for (int i = 0; i < HS_NL; i++) p[i * stride] = a.v[i];
 }
+
+// One element stored contiguously (10 int32, `p` 8-byte aligned), read as
+// five 8-byte loads through the read-only data path.
+__device__ __forceinline__ fe load_fe_ro(const int32_t* p) {
+  const int2* q = reinterpret_cast<const int2*>(p);
+  fe r;
+#pragma unroll
+  for (int i = 0; i < HS_NL / 2; i++) {
+    const int2 t = __ldg(q + i);
+    r.v[2 * i] = t.x;
+    r.v[2 * i + 1] = t.y;
+  }
+  return r;
+}

@@ -1,8 +1,12 @@
-// Kernel K2: h = SHA-512(R || A || M) mod L as 64 ladder digits.
+// Kernels K2 and K2g: h = SHA-512(R || A || M) mod L as 64 ladder digits.
 //
-// Replaces hotstuff_tpu/ops/sha512.py:h_digits_on_device (:448-450), jnp
+// K2 replaces hotstuff_tpu/ops/sha512.py:h_digits_on_device (:448-450), jnp
 // code that emulates 64-bit words as (hi, lo) uint32 pairs and reduces
-// mod L with f32 limb folds. One thread per lane, native uint64_t words:
+// mod L with f32 limb folds. K2g replaces the committee path's
+// `jnp.take(keys_u8, idx, axis=1)` + h_digits_on_device
+// (hotstuff_tpu/ops/ed25519.py:480-489): each lane reads its key column from
+// the committee's (32, N) key table by validator index, so no gathered
+// (32, B) copy is made. One thread per lane, native uint64_t words:
 //   * one padded SHA-512 block (the 96-byte message of a 32-byte digest),
 //     the message schedule in a 16-word ring held in registers;
 //   * TweetNaCl's modL on 64 signed byte limbs, exact for any 512-bit value
@@ -46,20 +50,23 @@ __constant__ int64_t L_BYTES[32] = {0xed, 0xd3, 0xf5, 0x5c, 0x1a, 0x63, 0x12, 0x
 
 __device__ __forceinline__ uint64_t rotr(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
 
-// r, a, m: (32, B) uint8 rows. out: (64, B) uint8 digits of h mod L.
-__global__ void __launch_bounds__(HS_THREADS)
-h_digits_kernel(const uint8_t* __restrict__ r, const uint8_t* __restrict__ a,
-                const uint8_t* __restrict__ m, uint8_t* __restrict__ out, int batch) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
+// One lane: r, m and out point at the lane's column of (rows, B) arrays
+// (row stride `batch`); a points at the key's column of a (32, cols) array
+// (row stride `a_stride`: B for the per-lane key rows of K2, N for the
+// committee's key table of K2g).
+__device__ __forceinline__ void h_digits_lane(const uint8_t* __restrict__ r,
+                                              const uint8_t* __restrict__ a, int a_stride,
+                                              const uint8_t* __restrict__ m,
+                                              uint8_t* __restrict__ out, int batch) {
   uint64_t w[16];
 #pragma unroll
   for (int j = 0; j < 12; j++) {
     const uint8_t* src = j < 4 ? r : (j < 8 ? a : m);
+    const size_t stride = j < 4 || j >= 8 ? batch : a_stride;
     const int base = 8 * (j % 4);
     uint64_t word = 0;
 #pragma unroll
-    for (int k = 0; k < 8; k++) word = (word << 8) | src[(size_t)(base + k) * batch + lane];
+    for (int k = 0; k < 8; k++) word = (word << 8) | src[(base + k) * stride];
     w[j] = word;
   }
   w[12] = 0x8000000000000000ULL;  // padding: 0x80 then zeros
@@ -132,9 +139,36 @@ h_digits_kernel(const uint8_t* __restrict__ r, const uint8_t* __restrict__ a,
   for (int i = 0; i < 32; i++) {
     x[i + 1] += x[i] >> 8;
     const int byte = (int)(x[i] & 255);
-    out[(size_t)(2 * i) * batch + lane] = (uint8_t)(byte & 15);
-    out[(size_t)(2 * i + 1) * batch + lane] = (uint8_t)(byte >> 4);
+    out[(size_t)(2 * i) * batch] = (uint8_t)(byte & 15);
+    out[(size_t)(2 * i + 1) * batch] = (uint8_t)(byte >> 4);
   }
+}
+
+// K2. r, a, m: (32, B) uint8 rows. out: (64, B) uint8 digits of h mod L.
+__global__ void __launch_bounds__(HS_THREADS)
+h_digits_kernel(const uint8_t* __restrict__ r, const uint8_t* __restrict__ a,
+                const uint8_t* __restrict__ m, uint8_t* __restrict__ out, int batch) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= batch) return;
+  h_digits_lane(r + lane, a + lane, batch, m + lane, out + lane, batch);
+}
+
+// K2g. keys: (32, N) uint8 committee keys; idx: (B,) int32 validator index
+// per lane. A lane whose index is outside [0, N) reads no key and gets
+// all-zero digits (ops/sha512.py:h_digits_gather_plain masks it the same way).
+__global__ void __launch_bounds__(HS_THREADS)
+h_digits_idx_kernel(const uint8_t* __restrict__ r, const uint8_t* __restrict__ keys,
+                    const int32_t* __restrict__ idx, const uint8_t* __restrict__ m,
+                    uint8_t* __restrict__ out, int n_keys, int batch) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= batch) return;
+  const int v = idx[lane];
+  if (v < 0 || v >= n_keys) {
+#pragma unroll
+    for (int i = 0; i < 64; i++) out[(size_t)i * batch + lane] = 0;
+    return;
+  }
+  h_digits_lane(r + lane, keys + v, n_keys, m + lane, out + lane, batch);
 }
 
 extern "C" int hs_h_digits(const void* r, const void* a, const void* m, void* out, int batch,
@@ -142,5 +176,14 @@ extern "C" int hs_h_digits(const void* r, const void* a, const void* m, void* ou
   const int blocks = (batch + HS_THREADS - 1) / HS_THREADS;
   h_digits_kernel<<<blocks, HS_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)r, (const uint8_t*)a, (const uint8_t*)m, (uint8_t*)out, batch);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hs_h_digits_idx(const void* r, const void* keys, const void* idx, const void* m,
+                               void* out, int n_keys, int batch, void* stream) {
+  const int blocks = (batch + HS_THREADS - 1) / HS_THREADS;
+  h_digits_idx_kernel<<<blocks, HS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)r, (const uint8_t*)keys, (const int32_t*)idx, (const uint8_t*)m,
+      (uint8_t*)out, n_keys, batch);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 wire format and host staging — kernels K3 (`decompress_table`) and K4
 (`compress_eq`) with their plain versions.
 
-Counterpart of `hotstuff_tpu/ops/ed25519.py` (generic path). Verification
-is the strict cofactorless equation of the JAX package:
+Counterpart of `hotstuff_tpu/ops/ed25519.py`: the generic path, and the
+committee path's `CommitteeTable` and staging. Verification is the strict
+cofactorless equation of the JAX package:
 
     valid_i  <=>  enc([s_i]B - [h_i]A_i) == R_i,  h_i = SHA-512(R||A||M) mod L
 
@@ -141,6 +142,89 @@ def _base_table() -> torch.Tensor:
 
 
 BASE_TABLE = _base_table()
+
+# --- committee-resident -A tables ----------------------------------------------
+#
+# Consensus traffic is signed by a fixed committee of validator keys. A
+# `CommitteeTable` decompresses each key and builds its 16-entry k*(-A)
+# table once per registration, with exact Python ints on the host, and keeps
+# the result on the device; committee lanes then carry a validator index and
+# read their table by it (kernel K5, `ops/committee.py`). Host precompute
+# gives AFFINE entries, so the per-item adds become mixed additions.
+
+
+def decompress_int(key: bytes) -> tuple[int, int] | None:
+    """Exact host decompression of a 32-byte compressed point, with the
+    device's semantics (as `_decompress_int`, hotstuff_tpu/ops/ed25519.py:
+    326-346): y is reduced mod p (y >= p is not rejected), x = 0 takes either
+    sign, and None is returned only when no square root exists. Unlike the
+    strict host verifier (`crypto/pysigner.py`), which rejects both."""
+    enc = int.from_bytes(key, "little")
+    sign = enc >> 255
+    y = (enc & ((1 << 255) - 1)) % P
+    u = (y * y - 1) % P
+    v = (D_INT * y * y + 1) % P
+    x2 = u * pow(v, P - 2, P) % P
+    x = pow(x2, (P + 3) // 8, P)
+    if (x * x - x2) % P != 0:
+        x = x * SQRTM1_INT % P
+    if (x * x - x2) % P != 0:
+        return None
+    if x % 2 != sign:
+        x = (P - x) % P
+    return x, y
+
+
+class CommitteeTable:
+    """Per-validator k*(-A) tables, built once per committee and kept on
+    `device` (as `CommitteeTable`, hotstuff_tpu/ops/ed25519.py:349-409).
+
+    N = committee size:
+      entries : (N, 16, 3, NL) int32 canonical limbs of the affine precomp
+                (y+x, y-x, 2d*x*y) of k*(-A_v), k = 0..15, validator-major
+                (the reference's (16, 32, N) tables per coordinate, laid out
+                so one lane's entry is 120 contiguous bytes: the lanes of a
+                warp hold different validators); entry 0 is the madd
+                identity (1, 1, 0); an undecompressable key has zeros in
+                entries 1-15 (as the reference; its lanes always fail)
+      valid   : (N,) bool, False for keys with no decompression
+      keys_u8 : (32, N) uint8 raw key bytes, read by index by kernel K2g
+    `index` maps raw key -> validator index (the first index wins for a
+    duplicate key)."""
+
+    def __init__(self, keys: Sequence[bytes], device: str | torch.device = "cpu") -> None:
+        keys = [bytes(k) for k in keys]
+        if not keys:
+            raise ValueError("committee must have at least one key")
+        self.keys = keys
+        self.index: dict[bytes, int] = {}
+        for i, k in enumerate(keys):
+            self.index.setdefault(k, i)
+        n = len(keys)
+        cols: list[list[int]] = [[], [], []]  # per coordinate: validator, then entry
+        valid = []
+        for kb in keys:
+            pt = decompress_int(kb)
+            valid.append(pt is not None)
+            rows = [(1, 1, 0)] + [(0, 0, 0)] * 15
+            if pt is not None:
+                neg = ((P - pt[0]) % P, pt[1])
+                cur = (0, 1)
+                for k in range(1, 16):
+                    cur = _edwards_add_int(cur, neg)
+                    cx, cy = cur
+                    rows[k] = ((cy + cx) % P, (cy - cx) % P, D2_INT * cx * cy % P)
+            for c in range(3):
+                cols[c].extend(row[c] for row in rows)
+        # limbs_of_int gives (NL, N*16) with column v*16 + k.
+        ta = torch.stack([f.limbs_of_int(c).view(NL, n, 16) for c in cols])  # (3, NL, N, 16)
+        dev = torch.device(device)
+        self.entries = ta.permute(2, 3, 0, 1).to(torch.int32).contiguous().to(dev)
+        self.valid = torch.tensor(valid, dtype=torch.bool, device=dev)
+        self.keys_u8 = torch.from_numpy(
+            np.frombuffer(b"".join(keys), np.uint8).reshape(n, 32).T.copy()
+        ).to(dev)
+        self.size = n
 
 # --- decompression and the per-item -A table ---------------------------------
 
@@ -305,11 +389,14 @@ def _stage_scalars(messages, a, r, s) -> tuple[np.ndarray, np.ndarray]:
     return _s_canonical_mask(s), h_bytes
 
 
+def _sig_rows(signatures) -> tuple[np.ndarray, np.ndarray]:
+    sig = np.frombuffer(b"".join(signatures), np.uint8).reshape(len(signatures), 64)
+    return sig[:, :32], sig[:, 32:]
+
+
 def _rows(keys, signatures):
-    n = len(keys)
-    a = np.frombuffer(b"".join(keys), np.uint8).reshape(n, 32)
-    sig = np.frombuffer(b"".join(signatures), np.uint8).reshape(n, 64)
-    return a, sig[:, :32], sig[:, 32:]
+    a = np.frombuffer(b"".join(keys), np.uint8).reshape(len(keys), 32)
+    return (a, *_sig_rows(signatures))
 
 
 def prepare_batch_packed(
@@ -333,3 +420,35 @@ def prepare_batch_packed_dh(
     m = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), 32)
     packed = np.ascontiguousarray(np.vstack([a.T, r.T, s.T, m.T]))
     return dict(packed=packed, s_ok=_s_canonical_mask(s))
+
+
+# Committee wire format: (96, B) uint8 rows 0-31 = R, 32-63 = S, 64-95 = h
+# (host hash) or the 32-byte message (device hash), plus a (B,) int32
+# validator index. No key row: the device holds the committee's keys.
+
+def prepare_batch_committee(
+    messages: Sequence[bytes],
+    key_bytes: Sequence[bytes],
+    indices: Sequence[int],
+    signatures: Sequence[bytes],
+) -> dict:
+    """Committee host-hash staging: dict(packed=(96, B) u8, idx=(B,) int32,
+    s_ok=(B,) bool), rows 64-95 = h. `key_bytes` are the resolved committee
+    keys, used only to hash on the host; they are not shipped."""
+    r, s = _sig_rows(signatures)
+    a = np.frombuffer(b"".join(key_bytes), np.uint8).reshape(len(key_bytes), 32)
+    s_ok, h_bytes = _stage_scalars(messages, a, r, s)
+    packed = np.ascontiguousarray(np.vstack([r.T, s.T, h_bytes.T]))
+    return dict(packed=packed, idx=np.asarray(indices, np.int32), s_ok=s_ok)
+
+
+def prepare_batch_committee_dh(
+    messages: Sequence[bytes], indices: Sequence[int], signatures: Sequence[bytes]
+) -> dict:
+    """Committee device-hash staging: rows 64-95 = the 32-byte message; the
+    device reads each lane's key bytes from the committee table by index.
+    Every message must be 32 bytes."""
+    r, s = _sig_rows(signatures)
+    m = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), 32)
+    packed = np.ascontiguousarray(np.vstack([r.T, s.T, m.T]))
+    return dict(packed=packed, idx=np.asarray(indices, np.int32), s_ok=_s_canonical_mask(s))

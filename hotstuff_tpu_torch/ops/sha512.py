@@ -15,6 +15,8 @@ uint32 pairs and reduces mod L with f32 limb folds; the port has native
 
 `h_digits` is the kernel wrapper: CUDA tensors launch `csrc/h_digits.cu`,
 CPU tensors take `h_digits_plain`, which runs the same integer steps.
+`h_digits_gather` (kernel K2g, the committee path) is the same hash with
+each lane's key read from the committee's key table by validator index.
 """
 
 from __future__ import annotations
@@ -164,4 +166,34 @@ def h_digits(r: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         _build.check(t, (32, batch), torch.uint8, r.device)
     out = torch.empty((64, batch), dtype=torch.uint8, device=r.device)
     _build.KERNELS["h_digits"].launch(r, a, m, out, batch)
+    return out
+
+
+def h_digits_gather_plain(
+    r: torch.Tensor, keys_u8: torch.Tensor, idx: torch.Tensor, m: torch.Tensor
+) -> torch.Tensor:
+    """`h_digits` with A = keys_u8[:, idx] ((32, N) uint8 committee keys,
+    (B,) int32 validator indices). A lane whose index is outside [0, N)
+    gets all-zero digits (its index is clamped so nothing is read out of
+    bounds, then the lane is masked)."""
+    n = keys_u8.shape[1]
+    in_range = (idx >= 0) & (idx < n)
+    a = keys_u8.index_select(1, idx.long().clamp(0, n - 1))
+    return torch.where(in_range[None, :], h_digits_plain(r, a, m), 0)
+
+
+def h_digits_gather(r: torch.Tensor, keys_u8: torch.Tensor, idx: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Kernel K2g wrapper (replaces the `jnp.take(keys_u8, idx, axis=1)`
+    gather + `h_digits_on_device` of the committee path): CPU tensors ->
+    `h_digits_gather_plain`; CUDA tensors -> `hs_h_digits_idx` in
+    `csrc/h_digits.cu`, which reads each lane's key column itself."""
+    if r.device.type == "cpu":
+        return h_digits_gather_plain(r, keys_u8, idx, m)
+    batch, n = r.shape[1], keys_u8.shape[1]
+    _build.check(r, (32, batch), torch.uint8, r.device)
+    _build.check(m, (32, batch), torch.uint8, r.device)
+    _build.check(keys_u8, (32, n), torch.uint8, r.device)
+    _build.check(idx, (batch,), torch.int32, r.device)
+    out = torch.empty((64, batch), dtype=torch.uint8, device=r.device)
+    _build.KERNELS["h_digits_idx"].launch(r, keys_u8, idx, m, out, n, batch)
     return out

@@ -112,14 +112,17 @@ def test_sub_crossover_batches_verify_on_host():
     tb = TorchBackend(device="cpu", crossover=8)
     mask = tb.verify_batch_mask(msgs, [PublicKey(k) for k in keys], [Signature(s) for s in sigs])
     assert mask == [True, False, True, True]
-    assert tb.stats == {"device_batches": 0, "device_sigs": 0, "host_batches": 1, "host_sigs": 4}
+    assert tb.stats == {"device_batches": 0, "device_sigs": 0, "host_batches": 1, "host_sigs": 4,
+                        "committee_batches": 0, "committee_sigs": 0, "committee_misses": 0}
     assert tb.verify_batch_mask([], [], []) == []
 
 
 def test_backend_seam_and_committee_stub():
+    """The seam, and committee routing on (the committee path itself is
+    tests/test_torch_committee.py)."""
     tb = TorchBackend(device="cpu")
-    assert tb.name == "torch" and tb.supports_committee_routing is False
-    assert tb.register_committee([PublicKey(bytes(32))]) == 0
+    assert tb.name == "torch" and tb.supports_committee_routing is True
+    assert tb.register_committee([PublicKey(bytes(32))]) == 1
     prev = set_backend(tb)
     try:
         assert get_backend() is tb

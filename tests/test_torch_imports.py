@@ -14,7 +14,7 @@ import torch
 import hotstuff_tpu_torch
 from hotstuff_tpu_torch import resolve_device
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
-from hotstuff_tpu_torch.ops import _build, ladder, sha512
+from hotstuff_tpu_torch.ops import _build, committee, ladder, sha512
 from hotstuff_tpu_torch.ops import ed25519 as ted
 
 REPO = Path(__file__).resolve().parents[1]
@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("hotstuff_tpu_torch.ops.field", "hotstuff_tpu_torch.ops.verifier",
-                "hotstuff_tpu_torch.crypto.torch_backend", "hotstuff_tpu_torch.convert"):
+                "hotstuff_tpu_torch.ops.committee", "hotstuff_tpu_torch.crypto.torch_backend",
+                "hotstuff_tpu_torch.convert"):
         assert mod in res["modules"]
 
 
@@ -68,7 +69,12 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
         ladder.ladder(meta(64, 8), meta(64, 8), meta(4, 16, 10, 8, dtype=torch.int32))
     with pytest.raises(ValueError, match="expected a tensor on"):
         ted.compress_eq(meta(4, 10, 8, dtype=torch.int32), meta(32, 8), meta(8, dtype=torch.bool))
-    assert _build.launches() == {name: 0 for name in _build.NAMES}
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        sha512.h_digits_gather(meta(32, 8), meta(32, 3), meta(8, dtype=torch.int32), meta(32, 8))
+    table = ted.CommitteeTable([bytes(32)] * 3)  # tables on the CPU, digits elsewhere
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        committee.committee_ladder(meta(64, 8), meta(64, 8), table, meta(8, dtype=torch.int32))
+    assert _build.launches() == {name: 0 for name in _build.KERNELS}
 
 
 def test_check_rejects_bad_tensors():
