@@ -6,9 +6,12 @@
 Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
-     kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a);
+     kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
+     ptxas reports spill bytes for either ladder kernel;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
-     at 4,096 lanes, exactly (integer outputs, tolerance 0);
+     at 4,096 lanes, exactly (integer outputs, tolerance 0); K1 `ladder`
+     also at every width of WIDTHS (1, 7, 43, 128, 1,000), raw limbs, and
+     timed at 128 lanes beside 4,096;
   3. the main path: `TorchBackend(device="cuda").verify_batch_mask` on a
      16,384-signature batch (4,096 distinct pysigner signatures over 32-byte
      digests, tiled, ~1/16 of lanes corrupted), chunk 4,096, max_bucket
@@ -31,7 +34,8 @@ caught:
      sizes 1..64 against the host verifier that `TorchBackend` runs below
      its crossover); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
      against their plain versions at 4,096 lanes (random indices over the
-     67-entry table, a few out of range, a ragged width), exactly.
+     67-entry table, a few out of range, a ragged width), exactly; K5 also
+     at every width of WIDTHS and timed at 128 lanes beside 4,096.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu`. Exits non-zero without a result when no CUDA device
 is available or the port's package is not beside this script.
@@ -130,12 +134,29 @@ def phase_build() -> float:
 
     secs = _build.build_all()
     print(f"build: {secs:.1f} s ({_build.build_dir()})", flush=True)
-    for name, line in _build.ptxas_report().items():
+    report = _build.ptxas_report()
+    for name, line in report.items():
         print(f"ptxas {name}: {line}", flush=True)
+    for name in NO_SPILL:
+        if _build.spill_bytes(report[name]):
+            fail(f"ptxas reports spills for {name}: {report[name]}")
     return secs
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
+
+# Widths the verifier ships to the ladders: one vote, a few, a quorum of 43,
+# `min_bucket`, a ragged width, a full chunk. Cut to LANES.
+WIDTHS = (1, 7, 43, 128, 1000, 4096)
+
+
+def _widths() -> list[int]:
+    return [w for w in WIDTHS if w < LANES] + [LANES]
+
+
+def _cut(t, w: int):
+    """The first w lanes (the last axis) of t, contiguous."""
+    return t[..., :w].contiguous()
 
 
 def _plain_ms(fn) -> tuple[float, object]:
@@ -223,20 +244,29 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         bytes=LANES * (32 + 4 * 16 * field.NL * 4 + 1), ops=LANES * products,
     )
 
-    # K1: random digits with K3's tables.
+    # K1: random digits with K3's tables, raw limbs against the plain
+    # version at every width of WIDTHS.
     sd = torch.from_numpy(rng.integers(0, 16, (64, LANES), np.uint8)).to(dev)
     hd = torch.from_numpy(rng.integers(0, 16, (64, LANES), np.uint8)).to(dev)
     point = ladder.ladder(sd, hd, table)
     field.PRODUCTS.n = 0
     plain_ms, ppoint = _plain_ms(lambda: ladder.ladder_plain(sd, hd, table))
     products = field.PRODUCTS.n
-    enc_k, enc_p = ed.compress(point), ed.compress(ppoint)
-    err = _max_abs(enc_k, enc_p)
+    err = _max_abs(point, ppoint)
     if err != 0:
         fail(f"K1 ladder differs from its plain version (max |diff| {err})")
-    print(f"K1: raw limbs identical: {torch.equal(point, ppoint)}", flush=True)
+    for w in _widths()[:-1]:
+        args = (_cut(sd, w), _cut(hd, w), _cut(table, w))
+        if not torch.equal(ladder.ladder(*args), ladder.ladder_plain(*args)):
+            fail(f"K1 ladder differs from its plain version at width {w}")
+    enc_p = ed.compress(ppoint)
+    w_small = min(128, LANES)
+    small = (_cut(sd, w_small), _cut(hd, w_small), _cut(table, w_small))
+    ms, ms_small = events_ms(lambda: ladder.ladder(sd, hd, table), 5), events_ms(lambda: ladder.ladder(*small), 20)
+    print(f"K1: raw limbs identical to the plain version at widths {_widths()}; "
+          f"{ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["ladder"] = dict(
-        ms=events_ms(lambda: ladder.ladder(sd, hd, table), 5), plain_ms=plain_ms, max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, max_abs_err=err,
         bytes=LANES * (2 * 64 + 4 * 16 * field.NL * 4 + 4 * field.NL * 4) + 3 * 16 * field.NL * 4,
         ops=LANES * products,
     )
@@ -363,6 +393,7 @@ def _host_hash_batch(pool):
 
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
+NO_SPILL = ("ladder", "committee_ladder")  # ptxas must report 0 spill bytes for these
 
 
 def phase_main_path(seed: int) -> dict:
@@ -458,7 +489,8 @@ def _forged_identity_sig(s: int) -> bytes:
 
 
 def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "cuda") -> dict:
-    """K5 and K2g against their plain versions, exactly, at LANES lanes."""
+    """K5 and K2g against their plain versions, exactly, at LANES lanes (K5
+    also at every width of WIDTHS)."""
     import numpy as np
     import torch
 
@@ -478,7 +510,8 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
     rows = lambda: torch.from_numpy(rng.integers(0, 256, (32, LANES), np.uint8)).to(dev)
     results = {}
 
-    # K5: random digits and indices, raw limbs and lane_valid exactly.
+    # K5: random digits and indices, raw limbs and lane_valid exactly, at
+    # every width of WIDTHS.
     sd, hd = digits(), digits()
     point, lane_valid = committee.committee_ladder(sd, hd, ct, idx)
     field.PRODUCTS.n = 0
@@ -493,9 +526,21 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
     want_valid = in_range & ct.valid.cpu().numpy()[np.clip(idx_np, 0, n - 1)]
     if lane_valid.cpu().numpy().tolist() != want_valid.tolist():
         fail("K5 lane_valid is not 0 <= idx < N and valid[idx]")
-    print(f"K5: raw limbs and lane_valid identical; {int(lane_valid.sum())}/{LANES} lanes valid", flush=True)
+    for w in _widths()[:-1]:
+        args = (_cut(sd, w), _cut(hd, w))
+        got, gvalid = committee.committee_ladder(*args, ct, _cut(idx, w))
+        want, wvalid = committee.committee_ladder_plain(*args, ct.entries, ct.valid, _cut(idx, w))
+        if not (torch.equal(got, want) and torch.equal(gvalid, wvalid)):
+            fail(f"K5 committee_ladder differs from its plain version at width {w}")
+    w_small = min(128, LANES)
+    small = (_cut(sd, w_small), _cut(hd, w_small), ct, _cut(idx, w_small))
+    ms = events_ms(lambda: committee.committee_ladder(sd, hd, ct, idx), 5)
+    ms_small = events_ms(lambda: committee.committee_ladder(*small), 20)
+    print(f"K5: raw limbs and lane_valid identical to the plain version at widths {_widths()}; "
+          f"{int(lane_valid.sum())}/{LANES} lanes valid; {ms_small:.4f} ms at {w_small} lanes, "
+          f"{ms:.4f} ms at {LANES}", flush=True)
     results["committee_ladder"] = dict(
-        ms=events_ms(lambda: committee.committee_ladder(sd, hd, ct, idx), 5), plain_ms=plain_ms,
+        ms=ms, plain_ms=plain_ms,
         max_abs_err=err,
         bytes=LANES * (2 * 64 + 4 + 4 * field.NL * 4 + 1) + n * (16 * 3 * field.NL * 4 + 1)
         + 3 * 16 * field.NL * 4,

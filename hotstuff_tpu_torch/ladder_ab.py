@@ -1,0 +1,162 @@
+"""The two ladder kernels (K1 `ladder`, K5 `committee_ladder`) of this
+checkout beside the same kernels of other checkouts, on one card.
+
+    python3 -m hotstuff_tpu_torch.ladder_ab [--csrc NAME=DIR ...] [--reps 3]
+
+`--csrc NAME=DIR` names another checkout's `hotstuff_tpu_torch/ops/csrc/`
+(e.g. an earlier commit unpacked with `git archive`), built with the flags
+of `ops/_build.py`. For each build, per kernel: ptxas' registers and
+spills, and the SASS instructions of the 64-group loop's body by opcode
+(`cuobjdump -sass`: the kernel's longest backward branch). Then every
+build's output must equal this checkout's (raw limbs, and `lane_valid`),
+and the builds are timed in turns (CUDA events, mean of several launches)
+at 128 and 4,096 lanes. The last line is one JSON object with all of it,
+beside the card's name and power limit. Needs a CUDA card and `nvcc`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import re
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .breakdown import events_ms
+from .crypto import pysigner
+from .ops import _build
+from .ops import ed25519 as ed
+from .ops import field
+
+SOURCES = ("ladder", "committee_ladder")
+WIDTHS = (128, 4096)
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_TARGET = re.compile(r"0x([0-9a-f]+)")
+
+
+def build(jobs: dict[str, Path]) -> dict:
+    """Build the two ladder sources of every job (name -> csrc directory),
+    all in parallel; returns {name: {source: (library, ptxas log)}}."""
+    procs = {}
+    for name, csrc in jobs.items():
+        out = _build.BUILD / "ab" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for src in SOURCES:
+            lib, log = out / f"lib{src}.so", out / f"{src}.log"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
+                   str(csrc / f"{src}.cu")]
+            with open(log, "w") as fh:
+                procs[name, src] = (lib, log, subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT))
+    builds = collections.defaultdict(dict)
+    for (name, src), (lib, log, proc) in procs.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"ladder_ab: {name}/{src} failed to build:\n{log.read_text()}")
+        builds[name][src] = (lib, log)
+    return dict(builds)
+
+
+def loop_body_counts(lib: Path) -> dict:
+    """SASS instructions of the longest backward branch (the group loop,
+    `#pragma unroll 1`), counted by opcode (before the first '.'), plus
+    `total` and the library's static count `all`."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    insns = [(int(m.group(1), 16), m.group(3), m.group(4)) for m in _INSN.finditer(sass)]
+    lo, hi = 0, -1
+    for addr, op, args in insns:
+        t = _TARGET.search(args) if op.startswith("BRA") else None
+        if t and int(t.group(1), 16) < addr and addr - int(t.group(1), 16) > hi - lo:
+            lo, hi = int(t.group(1), 16), addr
+    counts = collections.Counter(op.split(".")[0] for addr, op, _ in insns if lo <= addr <= hi)
+    return dict(counts.most_common(), total=sum(counts.values()), all=len(insns))
+
+
+def inputs(seed: int, lanes: int, dev) -> dict:
+    """Random digits, K3's table of random keys, and a 64-validator
+    committee table with random indices."""
+    rng = np.random.default_rng(seed)
+    digits = lambda: torch.from_numpy(rng.integers(0, 16, (64, lanes), np.uint8)).to(dev)
+    keys = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
+    table, _ = ed.decompress_table(keys)
+    vkeys = [pysigner.keypair_from_seed(bytes(r))[0] for r in rng.integers(0, 256, (64, 32), np.uint8)]
+    ct = ed.CommitteeTable(vkeys, dev)
+    idx = torch.from_numpy(rng.integers(0, ct.size, lanes).astype(np.int32)).to(dev)
+    return dict(sd=digits(), hd=digits(), table=table, ct=ct, idx=idx)
+
+
+def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
+    """(out, lane_valid or None, a closure launching `kernel` on the first
+    w lanes of x)."""
+    dev = x["sd"].device
+    cut = lambda t: t[..., :w].contiguous()
+    sd, hd = cut(x["sd"]), cut(x["hd"])
+    base = field.const("base_table", ed.BASE_TABLE, dev)
+    out = torch.empty((4, field.NL, w), dtype=torch.int32, device=dev)
+    if src == "ladder":
+        table = cut(x["table"])
+        return out, None, lambda: kernel.launch(sd, hd, base, table, out, w)
+    ct, idx = x["ct"], cut(x["idx"])
+    valid = torch.empty((w,), dtype=torch.bool, device=dev)
+    return out, valid, lambda: kernel.launch(sd, hd, base, ct.entries, ct.valid, idx, out, valid, ct.size, w)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", action="append", default=[], help="NAME=DIR: another checkout's csrc/")
+    ap.add_argument("--reps", type=int, default=3, help="rounds of timing in turns")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("ladder_ab: no CUDA device")
+    dev = torch.device("cuda")
+    _build.build_all()
+    builds = {"shipped": {src: (_build.build_dir() / f"lib{src}.so", _build.build_dir() / f"{src}.log")
+                          for src in SOURCES}}
+    jobs = {}
+    for spec in args.csrc:
+        name, _, path = spec.partition("=")
+        jobs[name] = Path(path).resolve()
+    builds.update(build(jobs))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    report, kernels = {"card": card, "builds": {}}, {}
+    for name, per_src in builds.items():
+        report["builds"][name] = {}
+        for src, (lib, log) in per_src.items():
+            ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
+            row = dict(ptxas=" | ".join(ptxas), spill_bytes=_build.spill_bytes("\n".join(ptxas)),
+                       sass_loop=loop_body_counts(lib))
+            report["builds"][name][src] = row
+            kernels[name, src] = _build.Kernel(src, lib=lib)
+            print(f"{name} {src}: {row}", flush=True)
+
+    x = inputs(args.seed, max(WIDTHS), dev)
+    for src in SOURCES:
+        for w in WIDTHS:
+            runs = {name: runner(kernels[name, src], src, x, w) for name in builds}
+            for _, _, run in runs.values():
+                run()
+            torch.cuda.synchronize()
+            ref_out, ref_valid, _ = runs["shipped"]
+            for name, (out, valid, _) in runs.items():
+                if not torch.equal(out, ref_out) or (valid is not None and not torch.equal(valid, ref_valid)):
+                    raise SystemExit(f"ladder_ab: {name}/{src} differs from the shipped build at {w} lanes")
+            times = collections.defaultdict(list)
+            for _ in range(args.reps):
+                for name, (_, _, run) in runs.items():
+                    times[name].append(events_ms(run, 20 if w <= 128 else 5))
+            for name, t in times.items():
+                report["builds"][name][src][f"ms_{w}"] = t
+                print(f"{name} {src} {w} lanes: {[round(v, 4) for v in t]} ms", flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -120,6 +121,15 @@ def ptxas_report() -> dict[str, str]:
     return out
 
 
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def spill_bytes(ptxas_text: str) -> int:
+    """Spill stores + loads, in bytes, over every function of a ptxas -v
+    report (a `ptxas_report` value or a build log)."""
+    return sum(int(a) + int(b) for a, b in _SPILL.findall(ptxas_text))
+
+
 def check(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device: torch.device) -> None:
     """Raise unless `t` is a contiguous tensor of this shape/dtype/device."""
     if t.device != device or t.device.type != "cuda":
@@ -134,19 +144,22 @@ def check(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device: torch.devic
 
 class Kernel:
     """One CUDA kernel's binding (`hs_<name>` in the library built from
-    `csrc/<source>.cu`) and its launch count (`launches` goes up by one per
-    launch of the kernel, and nowhere else)."""
+    `csrc/<source>.cu`, or in the library `lib` built elsewhere) and its
+    launch count (`launches` goes up by one per launch of the kernel, and
+    nowhere else)."""
 
-    def __init__(self, name: str, source: str | None = None) -> None:
+    def __init__(self, name: str, source: str | None = None, lib: Path | None = None) -> None:
         self.name = name
         self.source = source or name
+        self.lib = lib
         self.launches = 0
         self._fn = None
 
     def _bind(self):
         if self._fn is None:
-            build_all()
-            lib = ctypes.CDLL(str(_lib_path(self.source)))
+            if self.lib is None:
+                build_all()
+            lib = ctypes.CDLL(str(self.lib or _lib_path(self.source)))
             self._fn = getattr(lib, f"hs_{self.name}")
             self._fn.restype = ctypes.c_int
         return self._fn

@@ -1,9 +1,10 @@
 // ed25519 point arithmetic, one point per thread, on the field of field.cuh.
 //
 // Replaces the jnp curve code of hotstuff_tpu/ops/ed25519.py:120-178
-// (point_dbl, point_madd, point_add_cached with the `with_t` schedule),
-// decompress (:561-588) and the cached -A table build (:242-264). The
-// steps, and so every limb, match ops/ed25519.py of this package.
+// (point_madd), decompress (:561-588) and the cached -A table build
+// (:242-264), which K3 runs. The steps, and so every limb, match
+// ops/ed25519.py of this package. The ladders' doubling and additions, four
+// threads per point, are in quad.cuh.
 #pragma once
 
 #include "field.cuh"
@@ -14,26 +15,6 @@ struct ge {
 
 __device__ __forceinline__ ge ge_identity() { return ge{fe_zero(), fe_one(), fe_one(), fe_zero()}; }
 
-// dbl-2008-hwcd for a = -1; WITH_T=false skips T (the next op is a doubling).
-template <bool WITH_T>
-__device__ __forceinline__ ge ge_dbl(const ge& p) {
-  const fe xx = fe_sq(p.X);
-  const fe yy = fe_sq(p.Y);
-  const fe zz = fe_sq(p.Z);
-  const fe zz2 = fe_add(zz, zz);
-  const fe aa = fe_sq(fe_add(p.X, p.Y));
-  const fe yp = fe_add(yy, xx);
-  const fe zp = fe_sub(yy, xx);
-  const fe xp = fe_sub(aa, yp);
-  const fe tp = fe_sub(zz2, zp);
-  ge r;
-  r.T = WITH_T ? fe_mul(xp, yp) : fe_zero();
-  r.X = fe_mul(xp, tp);
-  r.Y = fe_mul(yp, zp);
-  r.Z = fe_mul(zp, tp);
-  return r;
-}
-
 // madd-2008-hwcd-3: P + affine precomp (y+x, y-x, 2d*x*y).
 template <bool WITH_T>
 __device__ __forceinline__ ge ge_madd(const ge& p, const fe& ypx, const fe& ymx, const fe& xy2d) {
@@ -41,27 +22,6 @@ __device__ __forceinline__ ge ge_madd(const ge& p, const fe& ypx, const fe& ymx,
   const fe b = fe_mul(fe_sub(p.Y, p.X), ymx);
   const fe c = fe_mul(p.T, xy2d);
   const fe d2z = fe_add(p.Z, p.Z);
-  const fe x3 = fe_sub(a, b);
-  const fe y3 = fe_add(a, b);
-  const fe z3 = fe_add(d2z, c);
-  const fe t3 = fe_sub(d2z, c);
-  ge r;
-  r.T = WITH_T ? fe_mul(x3, y3) : fe_zero();
-  r.X = fe_mul(x3, t3);
-  r.Y = fe_mul(y3, z3);
-  r.Z = fe_mul(z3, t3);
-  return r;
-}
-
-// add-2008-hwcd-3: P + cached (y+x, y-x, z, 2d*t).
-template <bool WITH_T>
-__device__ __forceinline__ ge ge_add_cached(const ge& p, const fe& ypx, const fe& ymx, const fe& z,
-                                            const fe& t2d) {
-  const fe a = fe_mul(fe_add(p.Y, p.X), ypx);
-  const fe b = fe_mul(fe_sub(p.Y, p.X), ymx);
-  const fe c = fe_mul(p.T, t2d);
-  const fe zz = fe_mul(p.Z, z);
-  const fe d2z = fe_add(zz, zz);
   const fe x3 = fe_sub(a, b);
   const fe y3 = fe_add(a, b);
   const fe z3 = fe_add(d2z, c);

@@ -1,0 +1,69 @@
+"""CPU rehearsal of `chip_smoke.py`'s kernel-comparison phases.
+
+On the CPU every kernel wrapper runs its plain version, so both sides of
+each comparison are plain: these tests hold the phases' control flow
+(shapes, widths, cuts, out-of-range indices, result rows), not the CUDA
+kernels, which only `chip_smoke.py` on the card can hold. `LANES` is shrunk
+to 16, which cuts the width list to 1, 7 and 16 and still holds the eight
+special keys of K3 and the four out-of-range indices of K5, and the CUDA
+timers are stubbed.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import pytest
+
+import chip_smoke
+from hotstuff_tpu_torch import breakdown
+from hotstuff_tpu_torch.crypto import pysigner
+
+LANES = 16
+KEYS = ("ladder", "h_digits", "decompress_table", "compress_eq")
+ROW_KEYS = {"ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "bytes", "ops"}
+
+
+@pytest.fixture
+def small_smoke(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "LANES", LANES)
+    monkeypatch.setattr(breakdown, "events_ms", lambda fn, reps=10: 0.0)
+    monkeypatch.setattr(chip_smoke, "_plain_ms", lambda fn: (0.0, fn()))
+    return chip_smoke
+
+
+def test_widths_cut_to_lanes(small_smoke):
+    assert small_smoke._widths() == [1, 7, 16]
+
+
+def test_phase_compare_on_cpu(small_smoke, capsys):
+    results = small_smoke.phase_compare(0, "cpu")
+    assert set(results) == set(KEYS)
+    for name, res in results.items():
+        assert ROW_KEYS <= set(res), name
+        assert res["max_abs_err"] == 0, name
+        assert res["bound_ms"] > 0 and res["bound_by"] in ("bytes", "operations"), name
+    out = capsys.readouterr().out
+    assert "K1: raw limbs identical to the plain version at widths [1, 7, 16]" in out
+
+
+def test_phase_committee_compare_on_cpu(small_smoke, capsys):
+    seeds = [hashlib.sha256(b"validator %d" % i).digest() for i in range(6)]
+    keys = [pysigner.keypair_from_seed(s)[0] for s in seeds] + small_smoke._committee_special_keys()
+    results = small_smoke.phase_committee_compare(0, keys, "cpu")
+    assert set(results) == {"committee_ladder", "h_digits_idx"}
+    for name, res in results.items():
+        assert ROW_KEYS <= set(res), name
+        assert res["max_abs_err"] == 0, name
+    out = capsys.readouterr().out
+    assert "K5: raw limbs and lane_valid identical to the plain version at widths [1, 7, 16]" in out
+
+
+def test_spill_bytes_parses_ptxas():
+    from hotstuff_tpu_torch.ops import _build
+
+    clean = ("ptxas info    : Used 96 registers | 0 bytes stack frame, 0 bytes spill stores, "
+             "0 bytes spill loads")
+    assert _build.spill_bytes(clean) == 0
+    assert _build.spill_bytes(clean.replace("0 bytes spill stores", "24 bytes spill stores")) == 24
+    assert _build.spill_bytes("") == 0
