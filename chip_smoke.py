@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
-     ptxas reports spill bytes for either ladder kernel;
+     ptxas reports spill bytes for either ladder kernel or K4;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at 4,096 lanes, exactly (integer outputs, tolerance 0); K1 `ladder`
-     also at every width of WIDTHS (1, 7, 43, 128, 1,000), raw limbs, and
-     timed at 128 lanes beside 4,096;
+     (raw limbs) and K4 `compress_eq` (the mask, on lambda-scaled,
+     identity, non-canonical-R and invalid lanes) also at every width of
+     WIDTHS (1, 7, 43, 128, 1,000), both timed at 128 lanes beside 4,096;
   3. the main path: `TorchBackend(device="cuda").verify_batch_mask` on a
      16,384-signature batch (4,096 distinct pysigner signatures over 32-byte
      digests, tiled, ~1/16 of lanes corrupted), chunk 4,096, max_bucket
@@ -191,6 +192,40 @@ def _special_keys():
     return [e.to_bytes(32, "little") for e in encs]
 
 
+K4_IDENTITY_R = {1: 1, 3: 2**255 - 19 + 1, 9: 1 | 1 << 255}  # lane -> R of an identity lane
+
+
+def _k4_inputs(rng, point, enc, dev):
+    """K4's inputs from K1's points and their encodings `enc`: (xyzt, R
+    rows, valid, the mask known by construction as a list). Lanes 3i are
+    scaled by a random lambda with the plain `field.mul`; the lanes of
+    K4_IDENTITY_R hold the identity (0, 1, 1, 0), and only R = 1 matches it
+    (p + 1 is not canonical, 1 | 2^255 sets the sign bit of x = 0); even
+    lanes carry their point's encoding, odd lanes random bytes; every
+    seventh lane (5, 12, ...) is not valid."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops import field
+
+    n = point.shape[-1]
+    lam = field.limbs_of_int([int.from_bytes(rng.bytes(32), "little") % (field.P - 1) + 1 for _ in range(0, n, 3)]).to(dev)
+    xyzt = point.clone()
+    for c in range(4):
+        xyzt[c, :, ::3] = field.mul(point[c, :, ::3].long(), lam).to(torch.int32)
+    r = torch.from_numpy(rng.integers(0, 256, (32, n), np.uint8)).to(dev)
+    r[:, ::2] = enc[:, ::2]
+    valid = [i % 7 != 5 for i in range(n)]
+    want = [v and i % 2 == 0 for i, v in enumerate(valid)]
+    for lane, r_int in K4_IDENTITY_R.items():
+        if lane < n:
+            xyzt[:, :, lane] = torch.tensor([[0] * field.NL, [1] + [0] * 9, [1] + [0] * 9, [0] * field.NL],
+                                            dtype=torch.int32, device=dev)
+            r[:, lane] = torch.tensor(list(r_int.to_bytes(32, "little")), dtype=torch.uint8, device=dev)
+            want[lane] = valid[lane] and r_int == 1
+    return xyzt, r, torch.tensor(valid, device=dev), want
+
+
 def phase_compare(seed: int, device: str = "cuda") -> dict:
     import numpy as np
     import torch
@@ -271,19 +306,29 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         ops=LANES * products,
     )
 
-    # K4: K1's points against R rows that match on every other lane.
-    r_bytes = rows(32)
-    r_bytes[:, ::2] = enc_p[:, ::2]
-    got = ed.compress_eq(point, r_bytes, valid)
+    # K4: the mask must equal the plain version's at every width of WIDTHS,
+    # and the mask known by construction (_k4_inputs).
+    xyzt, r_bytes, k4_valid, k4_want = _k4_inputs(rng, point, enc_p, dev)
+    got = ed.compress_eq(xyzt, r_bytes, k4_valid)
     field.PRODUCTS.n = 0
-    plain_ms, want = _plain_ms(lambda: ed.compress_eq_plain(point, r_bytes, valid))
+    plain_ms, want = _plain_ms(lambda: ed.compress_eq_plain(xyzt, r_bytes, k4_valid))
     products = field.PRODUCTS.n
     if not torch.equal(got, want):
         fail("K4 compress_eq differs from its plain version")
-    if int(got.sum()) == 0:
-        fail("K4 matched no lane")
+    if got.cpu().tolist() != k4_want:
+        fail("K4 compress_eq differs from the mask known by construction")
+    for w in _widths()[:-1]:
+        args = (_cut(xyzt, w), _cut(r_bytes, w), _cut(k4_valid, w))
+        if not torch.equal(ed.compress_eq(*args), ed.compress_eq_plain(*args)):
+            fail(f"K4 compress_eq differs from its plain version at width {w}")
+    small = (_cut(xyzt, w_small), _cut(r_bytes, w_small), _cut(k4_valid, w_small))
+    ms = events_ms(lambda: ed.compress_eq(xyzt, r_bytes, k4_valid), 20)
+    ms_small = events_ms(lambda: ed.compress_eq(*small), 20)
+    print(f"K4: mask identical to the plain version at widths {_widths()} "
+          f"({int(got.sum())}/{LANES} lanes match); {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
+          flush=True)
     results["compress_eq"] = dict(
-        ms=events_ms(lambda: ed.compress_eq(point, r_bytes, valid), 20), plain_ms=plain_ms,
+        ms=ms, plain_ms=plain_ms,
         max_abs_err=_max_abs(got, want), bytes=LANES * (3 * field.NL * 4 + 32 + 1 + 1),
         ops=LANES * products,
     )
@@ -298,7 +343,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         fail("K3 differs at a ragged width")
     if not torch.equal(ladder.ladder(cut(sd), cut(hd), rt), cut(point)):
         fail("K1 differs at a ragged width")
-    if not torch.equal(ed.compress_eq(cut(point), cut(r_bytes), cut(valid)), cut(got)):
+    if not torch.equal(ed.compress_eq(cut(xyzt), cut(r_bytes), cut(k4_valid)), cut(got)):
         fail("K4 differs at a ragged width")
     for name, res in results.items():
         res["bound_ms"], res["bound_by"] = _bound_ms(res["bytes"], res["ops"])
@@ -393,7 +438,7 @@ def _host_hash_batch(pool):
 
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
-NO_SPILL = ("ladder", "committee_ladder")  # ptxas must report 0 spill bytes for these
+NO_SPILL = ("ladder", "committee_ladder", "compress_eq")  # ptxas must report 0 spill bytes for these
 
 
 def phase_main_path(seed: int) -> dict:

@@ -1,17 +1,21 @@
-"""The two ladder kernels (K1 `ladder`, K5 `committee_ladder`) of this
-checkout beside the same kernels of other checkouts, on one card.
+"""The ladder kernels (K1 `ladder`, K5 `committee_ladder`) and K4
+`compress_eq` of this checkout beside the same kernels of other checkouts,
+on one card.
 
     python3 -m hotstuff_tpu_torch.ladder_ab [--csrc NAME=DIR ...] [--reps 3]
 
 `--csrc NAME=DIR` names another checkout's `hotstuff_tpu_torch/ops/csrc/`
-(e.g. an earlier commit unpacked with `git archive`), built with the flags
-of `ops/_build.py`. For each build, per kernel: ptxas' registers and
-spills, and the SASS instructions of the 64-group loop's body by opcode
-(`cuobjdump -sass`: the kernel's longest backward branch). Then every
-build's output must equal this checkout's (raw limbs, and `lane_valid`),
-and the builds are timed in turns (CUDA events, mean of several launches)
-at 128 and 4,096 lanes. The last line is one JSON object with all of it,
-beside the card's name and power limit. Needs a CUDA card and `nvcc`.
+(e.g. an earlier commit unpacked with `git archive`, or a copy with an
+edit), built with the flags of `ops/_build.py`. For each build, per
+kernel: ptxas' registers and spills, and the SASS instructions of the
+kernel's longest loop body by opcode (`cuobjdump -sass`: its longest
+backward branch; the 64-group loop of a ladder, the `split_sq_n` /
+`fe_sq_n` squaring loop of K4, so one squaring per thread). Then every
+build's output must equal this checkout's (ladders: raw limbs and
+`lane_valid`; K4: the mask), and the builds are timed in turns (CUDA
+events, mean of several launches) at 128 and 4,096 lanes. The last line is
+one JSON object with all of it, beside the card's name and power limit.
+Needs a CUDA card and `nvcc`.
 """
 
 from __future__ import annotations
@@ -30,16 +34,16 @@ from .breakdown import events_ms
 from .crypto import pysigner
 from .ops import _build
 from .ops import ed25519 as ed
-from .ops import field
+from .ops import field, ladder
 
-SOURCES = ("ladder", "committee_ladder")
+SOURCES = ("ladder", "committee_ladder", "compress_eq")
 WIDTHS = (128, 4096)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)")
 
 
 def build(jobs: dict[str, Path]) -> dict:
-    """Build the two ladder sources of every job (name -> csrc directory),
+    """Build the sources of SOURCES of every job (name -> csrc directory),
     all in parallel; returns {name: {source: (library, ptxas log)}}."""
     procs = {}
     for name, csrc in jobs.items():
@@ -60,8 +64,8 @@ def build(jobs: dict[str, Path]) -> dict:
 
 
 def loop_body_counts(lib: Path) -> dict:
-    """SASS instructions of the longest backward branch (the group loop,
-    `#pragma unroll 1`), counted by opcode (before the first '.'), plus
+    """SASS instructions of the longest backward branch (a `#pragma unroll
+    1` loop: a ladder's group loop, K4's squaring loop), counted by opcode (before the first '.'), plus
     `total` and the library's static count `all`."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
@@ -77,8 +81,9 @@ def loop_body_counts(lib: Path) -> dict:
 
 
 def inputs(seed: int, lanes: int, dev) -> dict:
-    """Random digits, K3's table of random keys, and a 64-validator
-    committee table with random indices."""
+    """Random digits, K3's table of random keys, a 64-validator committee
+    table with random indices, and K4's inputs: K1's points, R rows that
+    match them on every even lane, valid on all but every seventh lane."""
     rng = np.random.default_rng(seed)
     digits = lambda: torch.from_numpy(rng.integers(0, 16, (64, lanes), np.uint8)).to(dev)
     keys = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
@@ -86,7 +91,12 @@ def inputs(seed: int, lanes: int, dev) -> dict:
     vkeys = [pysigner.keypair_from_seed(bytes(r))[0] for r in rng.integers(0, 256, (64, 32), np.uint8)]
     ct = ed.CommitteeTable(vkeys, dev)
     idx = torch.from_numpy(rng.integers(0, ct.size, lanes).astype(np.int32)).to(dev)
-    return dict(sd=digits(), hd=digits(), table=table, ct=ct, idx=idx)
+    sd, hd = digits(), digits()
+    xyzt = ladder.ladder(sd, hd, table)
+    r = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
+    r[:, ::2] = ed.compress(xyzt)[:, ::2]
+    valid = torch.tensor([i % 7 != 5 for i in range(lanes)], device=dev)
+    return dict(sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid)
 
 
 def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
@@ -94,6 +104,10 @@ def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
     w lanes of x)."""
     dev = x["sd"].device
     cut = lambda t: t[..., :w].contiguous()
+    if src == "compress_eq":
+        xyzt, r, valid = cut(x["xyzt"]), cut(x["r"]), cut(x["valid"])
+        mask = torch.empty((w,), dtype=torch.bool, device=dev)
+        return mask, None, lambda: kernel.launch(xyzt, r, valid, mask, w)
     sd, hd = cut(x["sd"]), cut(x["hd"])
     base = field.const("base_table", ed.BASE_TABLE, dev)
     out = torch.empty((4, field.NL, w), dtype=torch.int32, device=dev)

@@ -17,7 +17,11 @@ ref10 / ed25519-dalek u32 layout instead:
     below 2^27 — the bound the overflow argument in `mul` needs.
 
 The CUDA kernels run the very same integer operations in the same order,
-so kernel and plain version agree limb for limb, not only modulo p.
+so kernel and plain version agree limb for limb, not only modulo p. The
+one exception is K4's inversion, whose field ops are split over four
+warps (`csrc/split_field.cuh`): its limbs differ from the ref10 chain's,
+its values mod p and K4's output do not; `carry_split` and its callers
+below model it.
 """
 
 from __future__ import annotations
@@ -146,6 +150,16 @@ def carry(h: torch.Tensor) -> torch.Tensor:
     return torch.stack(r)
 
 
+def _column_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(NL, B) int64: output limb k's sum of the schoolbook products,
+    lo_k + 19 hi_k (before any carry)."""
+    dev = a.device
+    prod = a.long()[:, None, :] * b.long()[None, :, :]
+    prod = prod * const("factor", _FACTOR, dev)[:, :, None]
+    flat = prod.reshape(NL * NL, -1)[const("gather", _GATHER, dev)]
+    return flat.view(NL, NL, -1).sum(1)
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Field multiplication, carried output.
 
@@ -153,11 +167,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (at most two lazy adds of carried values); an output limb sums 10
     products with factors <= 38, < 2^61 — exact in int64."""
     PRODUCTS.n += MUL_PRODUCTS
-    dev = a.device
-    prod = a.long()[:, None, :] * b.long()[None, :, :]
-    prod = prod * const("factor", _FACTOR, dev)[:, :, None]
-    flat = prod.reshape(NL * NL, -1)[const("gather", _GATHER, dev)]
-    return carry(flat.view(NL, NL, -1).sum(1))
+    return carry(_column_sums(a, b))
 
 
 def sqr(a: torch.Tensor) -> torch.Tensor:
@@ -167,10 +177,57 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
 
-def sqr_n(a: torch.Tensor, n: int) -> torch.Tensor:
+def sqr_n(a: torch.Tensor, n: int, sqr=sqr) -> torch.Tensor:
     for _ in range(n):
         a = sqr(a)
     return a
+
+
+# ---------------------------------------------------------------------------
+# The split multiply (`csrc/split_field.cuh`): a model, not a plain version
+# ---------------------------------------------------------------------------
+#
+# K4 spreads each field product over four warps by output column. Warp g
+# sums the columns of SPLIT_GROUPS[g] and takes one rounding carry out of
+# each (round 1); after one exchange every warp adds the carries in and
+# takes a second rounding carry over all ten limbs (round 2). The limbs
+# differ from the ref10 chain's; the value mod p does not. These functions
+# run round 1 and round 2 in the kernel's integer steps, so the CPU tests
+# hold the kernel's arithmetic and bounds; no plain version calls them.
+
+SPLIT_GROUPS = ((0, 1, 2), (3, 4, 5), (6, 7), (8, 9))
+# Bound on a carry_split output limb (csrc/split_field.cuh), for column
+# sums below 2^61 (operands within mul's bound): |even| <= 2^25 + 2^15,
+# |odd| <= 2^24 + 2^15.
+SPLIT_BOUND = tuple((1 << (w - 1)) + (1 << 15) for w in WIDTHS)
+
+
+def carry_split(h: torch.Tensor) -> torch.Tensor:
+    """The split carry of (NL, B) column sums (|h| < 2^61): round 1, one
+    rounding carry c_i out of every limb (r_i = h_i - c_i 2^w_i); limb i
+    then holds r_i + c_{i-1}, limb 0 r_0 + 19 c_9; round 2, the same once
+    more over all ten limbs. Value unchanged mod p."""
+
+    def round_(h: torch.Tensor) -> torch.Tensor:
+        w = const("widths", torch.tensor(WIDTHS, dtype=torch.int64)[:, None], h.device)
+        c = (h + (1 << (w - 1))) >> w
+        c_in = torch.roll(c, 1, 0)
+        c_in[0] *= 19
+        return h - (c << w) + c_in
+
+    return round_(round_(h.long()))
+
+
+def mul_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Field multiplication with the split carry (same column sums as
+    `mul`, so the same bound on its operands)."""
+    return carry_split(_column_sums(a, b))
+
+
+def sqr_split(a: torch.Tensor) -> torch.Tensor:
+    """Squaring with the split carry (the kernel sums the symmetric half
+    of the products per column; the integer column sums are mul's)."""
+    return mul_split(a, a)
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -183,21 +240,22 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _chain_250(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (z^(2^250 - 1), z^11) — the shared prefix of invert/pow2523."""
+def _chain_250(z: torch.Tensor, mul=mul, sqr=sqr) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (z^(2^250 - 1), z^11) — the shared prefix of invert/pow2523,
+    with the given multiply and squaring."""
     z2 = sqr(z)
-    z8 = sqr_n(z2, 2)
+    z8 = sqr_n(z2, 2, sqr)
     z9 = mul(z, z8)
     z11 = mul(z2, z9)
     z22 = sqr(z11)
     z_5_0 = mul(z9, z22)
-    z_10_0 = mul(sqr_n(z_5_0, 5), z_5_0)
-    z_20_0 = mul(sqr_n(z_10_0, 10), z_10_0)
-    z_40_0 = mul(sqr_n(z_20_0, 20), z_20_0)
-    z_50_0 = mul(sqr_n(z_40_0, 10), z_10_0)
-    z_100_0 = mul(sqr_n(z_50_0, 50), z_50_0)
-    z_200_0 = mul(sqr_n(z_100_0, 100), z_100_0)
-    z_250_0 = mul(sqr_n(z_200_0, 50), z_50_0)
+    z_10_0 = mul(sqr_n(z_5_0, 5, sqr), z_5_0)
+    z_20_0 = mul(sqr_n(z_10_0, 10, sqr), z_10_0)
+    z_40_0 = mul(sqr_n(z_20_0, 20, sqr), z_20_0)
+    z_50_0 = mul(sqr_n(z_40_0, 10, sqr), z_10_0)
+    z_100_0 = mul(sqr_n(z_50_0, 50, sqr), z_50_0)
+    z_200_0 = mul(sqr_n(z_100_0, 100, sqr), z_100_0)
+    z_250_0 = mul(sqr_n(z_200_0, 50, sqr), z_50_0)
     return z_250_0, z11
 
 
@@ -211,6 +269,12 @@ def pow2523(z: torch.Tensor) -> torch.Tensor:
     """z^((p-5)/8) = z^(2^252 - 3): the square-root exponent."""
     z_250_0, _ = _chain_250(z)
     return mul(sqr_n(z_250_0, 2), z)
+
+
+def invert_split(z: torch.Tensor) -> torch.Tensor:
+    """`invert` with the split multiply and squaring (K4's inversion)."""
+    z_250_0, z11 = _chain_250(z, mul_split, sqr_split)
+    return mul_split(sqr_n(z_250_0, 5, sqr_split), z11)
 
 
 # ---------------------------------------------------------------------------

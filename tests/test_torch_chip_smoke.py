@@ -45,6 +45,32 @@ def test_phase_compare_on_cpu(small_smoke, capsys):
         assert res["bound_ms"] > 0 and res["bound_by"] in ("bytes", "operations"), name
     out = capsys.readouterr().out
     assert "K1: raw limbs identical to the plain version at widths [1, 7, 16]" in out
+    assert "K4: mask identical to the plain version at widths [1, 7, 16]" in out
+
+
+def test_k4_lanes_by_construction(small_smoke):
+    """K4's lambda-scaled, identity, non-canonical-R and invalid lanes: the
+    mask known by construction is the plain version's, scaling changes no
+    lane's mask, and each class is present."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+    from hotstuff_tpu_torch.ops import field
+
+    rng = np.random.default_rng(5)
+    n = LANES
+    lam = field.limbs_of_int([int(v) % field.P + 1 for v in rng.integers(1, 2**62, n)])
+    pts = torch.stack([field.mul(field.limbs_of_int([int(v) for v in rng.integers(1, 2**62, n)]), lam)
+                       for _ in range(4)]).to(torch.int32)
+    enc = ed.compress(pts)
+    xyzt, r, valid, want = small_smoke._k4_inputs(rng, pts, enc, torch.device("cpu"))
+    assert ed.compress_eq_plain(xyzt, r, valid).tolist() == want
+    scaled = [i for i in range(0, n, 3) if i not in small_smoke.K4_IDENTITY_R]
+    assert torch.equal(ed.compress(xyzt)[:, scaled], enc[:, scaled])
+    assert not torch.equal(xyzt[:, :, scaled], pts[:, :, scaled])
+    assert [want[i] for i in small_smoke.K4_IDENTITY_R] == [True, False, False]
+    assert not valid[5] and not want[5] and want[0] and not want[7]
 
 
 def test_phase_committee_compare_on_cpu(small_smoke, capsys):
