@@ -7,18 +7,22 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
-     ptxas reports spill bytes for either ladder kernel or K4;
+     ptxas reports spill bytes for either ladder kernel, K3 or K4;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
-     at 4,096 lanes, exactly (integer outputs, tolerance 0); K1 `ladder`
-     (raw limbs) and K4 `compress_eq` (the mask, on lambda-scaled,
-     identity, non-canonical-R and invalid lanes) also at every width of
-     WIDTHS (1, 7, 43, 128, 1,000), both timed at 128 lanes beside 4,096;
+     at 4,096 lanes, exactly (integer outputs, tolerance 0); K3
+     `decompress_table` (raw limbs and valid, on random and special keys),
+     K1 `ladder` (raw limbs) and K4 `compress_eq` (the mask, on
+     lambda-scaled, identity, non-canonical-R and invalid lanes) also at
+     every width of WIDTHS (1, 7, 43, 128, 1,000), all three timed at 128
+     lanes beside 4,096;
   3. the main path: `TorchBackend(device="cuda").verify_batch_mask` on a
      16,384-signature batch (4,096 distinct pysigner signatures over 32-byte
      digests, tiled, ~1/16 of lanes corrupted), chunk 4,096, max_bucket
      8,192; then one host-hash batch (33-byte messages and the RFC 8032
-     vectors). Masks must equal the expected masks, which the exact host
-     verifier cross-checks;
+     vectors). Masks must equal the expected masks, which the host verifier
+     (`pysigner.verify_device_semantics`, what `HostBackend` runs)
+     cross-checks; on the card a device-hash failure raises, so it fails
+     the phase;
   4. launch counts of the main path, end-to-end rate, per-kernel times
      beside the plain versions' and the least time the card could take;
   5. the committee path: `TorchBackend.verify_batch_mask(...,
@@ -31,9 +35,10 @@ caught:
      Then a host-hash committee batch, a tagged batch with an unregistered
      key (generic kernels, one miss) and a batch pinned to a replaced
      table; votes/s of the committee and generic paths on the same votes,
-     in turns; the host-vs-card break-even of both paths (a sweep of batch
-     sizes 1..64 against the host verifier that `TorchBackend` runs below
-     its crossover); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
+     in turns; the host-vs-card break-even of both
+     paths (a sweep of batch sizes 1..64 against the host verifier that
+     `TorchBackend` runs below its crossover, and against OpenSSL where the
+     `cryptography` wheel is installed, as a reported column); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
      against their plain versions at 4,096 lanes (random indices over the
      67-entry table, a few out of range, a ragged width), exactly; K5 also
      at every width of WIDTHS and timed at 128 lanes beside 4,096.
@@ -116,7 +121,7 @@ def _keypair(seed: bytes) -> bytes:
 def _verify_one(args: tuple[bytes, bytes, bytes]) -> bool:
     from hotstuff_tpu_torch.crypto import pysigner
 
-    return pysigner.verify(*args)
+    return pysigner.verify_device_semantics(*args)
 
 
 # --- phase 1 -----------------------------------------------------------------
@@ -257,7 +262,8 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         bytes=LANES * (96 + 64), ops=LANES * H_DIGITS_OPS_PER_LANE,
     )
 
-    # K3: random keys (about half decompress) and the special encodings.
+    # K3: random keys (about half decompress) and the special encodings; the
+    # table's raw limbs and valid exactly, at every width of WIDTHS.
     keys = rows(32)
     special = _special_keys()
     for i, enc in enumerate(special):
@@ -268,14 +274,21 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
     products = field.PRODUCTS.n
     if not torch.equal(valid, pvalid):
         fail("K3 validity mask differs from its plain version")
-    canon = lambda t: field.canonical(t.reshape(4 * 16, field.NL, LANES).permute(1, 0, 2).reshape(field.NL, -1))
-    err = _max_abs(canon(table), canon(ptable))
+    err = _max_abs(table, ptable)
     if err != 0:
-        fail(f"K3 table differs from its plain version (max |diff| {err})")
-    print(f"K3: {int(valid.sum())}/{LANES} random+special keys decompress; "
-          f"raw limbs identical: {torch.equal(table, ptable)}", flush=True)
+        fail(f"K3 table differs from its plain version in raw limbs (max |diff| {err})")
+    for w in _widths()[:-1]:
+        got, want = ed.decompress_table(_cut(keys, w)), ed.decompress_table_plain(_cut(keys, w))
+        if not all(torch.equal(g, p) for g, p in zip(got, want)):
+            fail(f"K3 decompress_table differs from its plain version at width {w}")
+    w_small = min(128, LANES)
+    small = _cut(keys, w_small)
+    ms, ms_small = events_ms(lambda: ed.decompress_table(keys), 20), events_ms(lambda: ed.decompress_table(small), 20)
+    print(f"K3: {int(valid.sum())}/{LANES} random+special keys decompress; raw limbs and valid identical "
+          f"to the plain version at widths {_widths()}; {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
+          flush=True)
     results["decompress_table"] = dict(
-        ms=events_ms(lambda: ed.decompress_table(keys), 20), plain_ms=plain_ms, max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, max_abs_err=err,
         bytes=LANES * (32 + 4 * 16 * field.NL * 4 + 1), ops=LANES * products,
     )
 
@@ -295,7 +308,6 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         if not torch.equal(ladder.ladder(*args), ladder.ladder_plain(*args)):
             fail(f"K1 ladder differs from its plain version at width {w}")
     enc_p = ed.compress(ppoint)
-    w_small = min(128, LANES)
     small = (_cut(sd, w_small), _cut(hd, w_small), _cut(table, w_small))
     ms, ms_small = events_ms(lambda: ladder.ladder(sd, hd, table), 5), events_ms(lambda: ladder.ladder(*small), 20)
     print(f"K1: raw limbs identical to the plain version at widths {_widths()}; "
@@ -438,7 +450,7 @@ def _host_hash_batch(pool):
 
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
-NO_SPILL = ("ladder", "committee_ladder", "compress_eq")  # ptxas must report 0 spill bytes for these
+NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq")  # ptxas: 0 spill bytes
 
 
 def phase_main_path(seed: int) -> dict:
@@ -517,7 +529,7 @@ SIGNED_QCS = 96  # distinct QCs signed, then tiled to N_QC
 
 
 def _committee_special_keys() -> list[bytes]:
-    """Key encodings where the strict host verifier and the device decoder
+    """Key encodings where pysigner's strict `verify` and the device decoder
     differ or fail: no square root; y = p + 1 (>= p, reduced to y = 1, the
     identity); y = 1 with the sign bit set (x = 0 takes either sign)."""
     p = 2**255 - 19
@@ -525,9 +537,10 @@ def _committee_special_keys() -> list[bytes]:
 
 
 def _forged_identity_sig(s: int) -> bytes:
-    """R = enc([s]B), S = s: the device equation accepts it for any message
-    under a key that decodes to the identity ([h]A vanishes); the strict
-    host verifier rejects those keys (ROADMAP.md section C)."""
+    """R = enc([s]B), S = s: the device equation, the host verifier and
+    OpenSSL accept it for any message under a key that decodes to the
+    identity ([h]A vanishes); pysigner's strict `verify` rejects those
+    keys."""
     from hotstuff_tpu_torch.crypto import pysigner
 
     return pysigner._pt_compress(pysigner._pt_mul(s, pysigner._B_POINT)) + s.to_bytes(32, "little")
@@ -706,14 +719,12 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
         seeds, pks, M, K, S, expected, lanes, identity_lanes = _committee_corpus(seed, pool)
-        # The strict host verifier on every distinct triple: the signed votes
-        # and each corrupted lane. It rejects the identity-key forgeries that
-        # the device equation (and the reference's decoder) accepts.
+        # The host verifier on every distinct triple: the signed votes and
+        # each corrupted lane, the identity-key forgeries included.
         n_signed = SIGNED_QCS * QUORUM
         check = list(range(n_signed)) + [int(i) for i in lanes]
         host = pool.map(_verify_one, [(K[i], M[i], S[i]) for i in check], chunksize=64)
-        want = [bool(expected[i]) and i not in identity_lanes for i in check]
-        if [bool(v) for v in host] != want:
+        if [bool(v) for v in host] != [bool(expected[i]) for i in check]:
             fail("committee expected mask disagrees with the host verifier")
     print(f"committee corpus: {COMMITTEE} validators, {N_QC} QCs x {QUORUM} votes = {len(M)} votes, "
           f"{len(lanes)} corrupted lanes ({len(identity_lanes)} identity-key forgeries the device accepts), "
@@ -802,10 +813,34 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
 SWEEP = (1, 2, 4, 8, 16, 32, QUORUM, 64)  # batch sizes of the crossover sweep
 
 
+def _openssl_verifier():
+    """OpenSSL's ed25519 verify through the `cryptography` wheel (the
+    reference's `CpuBackend`), or None where the wheel is not installed.
+    Timed beside the port's host verifier; the port never calls it."""
+    try:
+        from cryptography.exceptions import InvalidSignature
+        from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PublicKey
+    except ImportError:
+        return None
+
+    def verify_batch_mask(messages, keys, signatures):
+        out = []
+        for m, k, s in zip(messages, keys, signatures, strict=True):
+            try:
+                Ed25519PublicKey.from_public_bytes(k.data).verify(s.data, m)
+                out.append(True)
+            except (InvalidSignature, ValueError):
+                out.append(False)
+        return out
+
+    return verify_batch_mask
+
+
 def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
     """Host-vs-card break-even. For each batch size n of SWEEP: the median
     host-clock ms of verifying n valid votes with the host verifier
-    (`HostBackend`, what `TorchBackend` runs below its crossover), and with
+    (`HostBackend`, what `TorchBackend` runs below its crossover), with
+    OpenSSL where `cryptography` imports (else "not available"), and with
     the card's committee and generic paths (`backend` has crossover 1 and
     the committee registered). A path's break-even is the least n of the
     sweep from which the card is faster at every larger n of the sweep."""
@@ -816,6 +851,7 @@ def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
     from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
 
     host = HostBackend()
+    openssl = _openssl_verifier()
     lanes = ok_lanes[: max(SWEEP)]
     vm, vk, vs = [M[i] for i in lanes], [PublicKey(K[i]) for i in lanes], [Signature(S[i]) for i in lanes]
 
@@ -827,18 +863,25 @@ def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    res = {"n": list(SWEEP), "host_ms": [], "committee_ms": [], "generic_ms": []}
+    res = {"n": list(SWEEP), "host_ms": [], "openssl_ms": [] if openssl else "not available",
+           "committee_ms": [], "generic_ms": []}
     for n in SWEEP:
         args = (vm[:n], vk[:n], vs[:n])
         res["host_ms"].append(median_ms(lambda: host.verify_batch_mask(*args), 3))
+        if openssl:
+            res["openssl_ms"].append(median_ms(lambda: openssl(*args), 5))
         res["committee_ms"].append(median_ms(lambda: backend.verify_batch_mask(*args, committee=True), 5))
         res["generic_ms"].append(median_ms(lambda: backend.verify_batch_mask(*args), 5))
 
-    def break_even(card):
-        wins = [c < h for c, h in zip(card, res["host_ms"])]
+    def break_even(card, host_ms):
+        wins = [c < h for c, h in zip(card, host_ms)]
         return next((n for j, n in enumerate(SWEEP) if all(wins[j:])), None)
 
-    res["break_even"] = {p: break_even(res[f"{p}_ms"]) for p in ("committee", "generic")}
+    paths = ("committee", "generic")
+    res["break_even"] = {p: break_even(res[f"{p}_ms"], res["host_ms"]) for p in paths}
+    res["break_even_openssl"] = (
+        {p: break_even(res[f"{p}_ms"], res["openssl_ms"]) for p in paths} if openssl else "not available"
+    )
     res["default_crossover"] = TorchBackend(device=backend.device).crossover
     print(f"crossover sweep: {json.dumps(res)}", flush=True)
     return res

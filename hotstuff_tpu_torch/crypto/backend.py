@@ -4,7 +4,8 @@ A copy of `hotstuff_tpu/crypto/backend.py:19-83` for the port. The
 reference hard-wires ed25519_dalek's `verify_batch`
 (crypto/src/lib.rs:194-220); here every batch verification dispatches
 through an interchangeable backend — the host (`HostBackend`, exact
-Python integers) or the card (`torch_backend.TorchBackend`).
+Python integers with the card's verdicts) or the card
+(`torch_backend.TorchBackend`).
 """
 
 from __future__ import annotations
@@ -46,8 +47,11 @@ class CryptoBackend(abc.ABC):
 
 
 class HostBackend(CryptoBackend):
-    """Host verification, one signature at a time, with the exact-integer
-    RFC 8032 verifier (`pysigner.verify`)."""
+    """Host verification, one signature at a time, in exact integers with
+    the card's semantics (`pysigner.verify_device_semantics`): the same
+    verdict for every triple as the kernels and as the reference's
+    OpenSSL `CpuBackend`, so the crossover decides where a batch runs,
+    never what it returns."""
 
     name = "host"
 
@@ -58,7 +62,7 @@ class HostBackend(CryptoBackend):
         signatures: Sequence[Signature],
     ) -> list[bool]:
         return [
-            pysigner.verify(pk.data, msg, sig.data)
+            pysigner.verify_device_semantics(pk.data, msg, sig.data)
             for msg, pk, sig in zip(messages, keys, signatures, strict=True)
         ]
 

@@ -1,19 +1,26 @@
-"""Dependency-free ed25519 (RFC 8032) in exact host integers.
+"""ed25519 (RFC 8032) in exact host integers.
 
 A trimmed copy of `hotstuff_tpu/crypto/pysigner.py` (exact scheme only):
-`keypair_from_seed`, `sign` and strict `verify`. The port's host verifier —
-`TorchBackend` sends sub-crossover batches here — and the signer of test
-and smoke corpora; it needs no `cryptography` wheel.
+`keypair_from_seed`, `sign` and strict `verify`, plus
+`verify_device_semantics`, the port's host verifier (`HostBackend`, which
+`TorchBackend` runs below its crossover). It signs the test and smoke
+corpora and needs no `cryptography` wheel; its key decoder is the one
+`CommitteeTable` uses (`ops/ed25519.py:decompress_int`).
 
-Strict verification: s >= L, undecompressable or non-canonical A and R,
-and x = 0 with the sign bit set all reject. The device path reduces a key's
-y mod p and lets x = 0 take either sign (ops/ed25519.py:decompress), so
-the two differ only on such malformed keys.
+Strict `verify`: s >= L, undecompressable or non-canonical A and R, and
+x = 0 with the sign bit set all reject. `verify_device_semantics` gives the
+card's verdicts (ops/ed25519.py:decompress and the cofactorless equation):
+a key's y is reduced mod p and x = 0 takes either sign, so keys that decode
+to the identity accept R = enc([s]B) for any message, as OpenSSL (the
+reference's `CpuBackend`) does; R must still equal the canonical encoding
+byte for byte.
 """
 
 from __future__ import annotations
 
 import hashlib
+
+from ..ops.ed25519 import decompress_int
 
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493
@@ -68,6 +75,20 @@ def _pt_mul(k: int, pt):
             acc = _pt_add(acc, pt)
         pt = _pt_add(pt, pt)
         k >>= 1
+    return acc
+
+
+def _pt_double_mul(a: int, p, b: int, q):
+    """[a]p + [b]q with one shared chain of doublings (Straus): the host
+    verifier's hot path. Strict `verify`, which checks the signer and the
+    corpora, keeps its two `_pt_mul` chains as the reference has them."""
+    pq = _pt_add(p, q)
+    acc = _IDENT
+    for i in range(max(a.bit_length(), b.bit_length()) - 1, -1, -1):
+        acc = _pt_add(acc, acc)
+        bits = (a >> i & 1, b >> i & 1)
+        if bits != (0, 0):
+            acc = _pt_add(acc, pq if bits == (1, 1) else p if bits[0] else q)
     return acc
 
 
@@ -145,3 +166,23 @@ def verify(public_key: bytes, message: bytes, signature: bytes) -> bool:
     lhs = _pt_compress(_pt_mul(s, _B_POINT))
     rhs = _pt_compress(_pt_add(r_pt, _pt_mul(h, a_pt)))
     return lhs == rhs
+
+
+def verify_device_semantics(public_key: bytes, message: bytes, signature: bytes) -> bool:
+    """The card's verdict in exact integers: s < L, A decoded as
+    `ops.ed25519.decompress_int`, h = SHA-512(R||A||M) mod L, and
+    enc([s]B - [h]A) == R byte for byte (so a non-canonical R, or R with
+    x = 0 and the sign bit, rejects)."""
+    if len(signature) != 64 or len(public_key) != 32:
+        return False
+    s = int.from_bytes(signature[32:], "little")
+    if s >= L:
+        return False
+    a = decompress_int(public_key)
+    if a is None:
+        return False
+    r_enc = signature[:32]
+    h = int.from_bytes(hashlib.sha512(r_enc + public_key + message).digest(), "little") % L
+    x, y = P - a[0], a[1]
+    neg_a = (x, y, 1, x * y % P)
+    return _pt_compress(_pt_double_mul(s, _B_POINT, h, neg_a)) == r_enc

@@ -14,9 +14,10 @@ any unregistered key takes the generic path and counts in
 `stats["committee_misses"]`; without a registration the tag is ignored.
 Correctness never depends on the tag.
 
-Batches smaller than `crossover` are verified on the host (`HostBackend`),
-as the reference sends small batches to the host CPU. That is a size rule,
-not a device fallback, and `stats` counts those lanes. The default, 1,
+Batches smaller than `crossover` are verified on the host (`HostBackend`,
+exact integers with the card's verdicts), as the reference sends small
+batches to the host CPU. That is a size rule, not a device fallback: both
+sides give the same mask, and `stats` counts the host's lanes. The default, 1,
 sends every batch to the card: on one H100 80GB HBM3 (700 W) the card
 verified a single signature faster than the port's host verifier, on the
 committee path and on the generic path alike, so one crossover serves both

@@ -1,6 +1,6 @@
-"""The ladder kernels (K1 `ladder`, K5 `committee_ladder`) and K4
-`compress_eq` of this checkout beside the same kernels of other checkouts,
-on one card.
+"""The ladder kernels (K1 `ladder`, K5 `committee_ladder`), K3
+`decompress_table` and K4 `compress_eq` of this checkout beside the same
+kernels of other checkouts, on one card.
 
     python3 -m hotstuff_tpu_torch.ladder_ab [--csrc NAME=DIR ...] [--reps 3]
 
@@ -10,9 +10,10 @@ edit), built with the flags of `ops/_build.py`. For each build, per
 kernel: ptxas' registers and spills, and the SASS instructions of the
 kernel's longest loop body by opcode (`cuobjdump -sass`: its longest
 backward branch; the 64-group loop of a ladder, the `split_sq_n` /
-`fe_sq_n` squaring loop of K4, so one squaring per thread). Then every
-build's output must equal this checkout's (ladders: raw limbs and
-`lane_valid`; K4: the mask), and the builds are timed in turns (CUDA
+`fe_sq_n` squaring loop of K4, so one squaring per thread, K3's loop over
+table entries). Then every build's output must equal this checkout's
+(ladders: raw limbs and `lane_valid`; K3: raw limbs and valid; K4: the
+mask), and the builds are timed in turns (CUDA
 events, mean of several launches) at 128 and 4,096 lanes. The last line is
 one JSON object with all of it, beside the card's name and power limit.
 Needs a CUDA card and `nvcc`.
@@ -36,7 +37,7 @@ from .ops import _build
 from .ops import ed25519 as ed
 from .ops import field, ladder
 
-SOURCES = ("ladder", "committee_ladder", "compress_eq")
+SOURCES = ("ladder", "committee_ladder", "decompress_table", "compress_eq")
 WIDTHS = (128, 4096)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)")
@@ -65,7 +66,8 @@ def build(jobs: dict[str, Path]) -> dict:
 
 def loop_body_counts(lib: Path) -> dict:
     """SASS instructions of the longest backward branch (a `#pragma unroll
-    1` loop: a ladder's group loop, K4's squaring loop), counted by opcode (before the first '.'), plus
+    1` loop: a ladder's group loop, K4's squaring loop, K3's entry loop),
+    counted by opcode (before the first '.'), plus
     `total` and the library's static count `all`."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
@@ -81,9 +83,10 @@ def loop_body_counts(lib: Path) -> dict:
 
 
 def inputs(seed: int, lanes: int, dev) -> dict:
-    """Random digits, K3's table of random keys, a 64-validator committee
-    table with random indices, and K4's inputs: K1's points, R rows that
-    match them on every even lane, valid on all but every seventh lane."""
+    """Random digits, random keys (about half decompress) and K3's table of
+    them, a 64-validator committee table with random indices, and K4's
+    inputs: K1's points, R rows that match them on every even lane, valid
+    on all but every seventh lane."""
     rng = np.random.default_rng(seed)
     digits = lambda: torch.from_numpy(rng.integers(0, 16, (64, lanes), np.uint8)).to(dev)
     keys = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
@@ -96,7 +99,7 @@ def inputs(seed: int, lanes: int, dev) -> dict:
     r = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
     r[:, ::2] = ed.compress(xyzt)[:, ::2]
     valid = torch.tensor([i % 7 != 5 for i in range(lanes)], device=dev)
-    return dict(sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid)
+    return dict(keys=keys, sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid)
 
 
 def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
@@ -108,6 +111,11 @@ def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
         xyzt, r, valid = cut(x["xyzt"]), cut(x["r"]), cut(x["valid"])
         mask = torch.empty((w,), dtype=torch.bool, device=dev)
         return mask, None, lambda: kernel.launch(xyzt, r, valid, mask, w)
+    if src == "decompress_table":
+        keys = cut(x["keys"])
+        table = torch.empty((4, 16, field.NL, w), dtype=torch.int32, device=dev)
+        valid = torch.empty((w,), dtype=torch.bool, device=dev)
+        return table, valid, lambda: kernel.launch(keys, table, valid, w)
     sd, hd = cut(x["sd"]), cut(x["hd"])
     base = field.const("base_table", ed.BASE_TABLE, dev)
     out = torch.empty((4, field.NL, w), dtype=torch.int32, device=dev)

@@ -152,48 +152,12 @@ __device__ __forceinline__ fe fe_sq(const fe& f) {
   return hs_reduce(lo, hi);
 }
 
-__device__ __forceinline__ fe fe_sq_n(fe a, int n) {
-#pragma unroll 1
-  for (int k = 0; k < n; k++) a = fe_sq(a);
-  return a;
-}
-
 // Per-lane select: c ? a : b.
 __device__ __forceinline__ fe fe_select(bool c, const fe& a, const fe& b) {
   fe r;
 #pragma unroll
   for (int i = 0; i < HS_NL; i++) r.v[i] = c ? a.v[i] : b.v[i];
   return r;
-}
-
-// Shared prefix of invert / pow2523 (ops/field.py _chain_250):
-// z^(2^250 - 1) and z^11.
-__device__ __forceinline__ void fe_chain_250(const fe& z, fe& z_250_0, fe& z11) {
-  const fe z2 = fe_sq(z);
-  const fe z8 = fe_sq_n(z2, 2);
-  const fe z9 = fe_mul(z, z8);
-  z11 = fe_mul(z2, z9);
-  const fe z22 = fe_sq(z11);
-  const fe z_5_0 = fe_mul(z9, z22);
-  const fe z_10_0 = fe_mul(fe_sq_n(z_5_0, 5), z_5_0);
-  const fe z_20_0 = fe_mul(fe_sq_n(z_10_0, 10), z_10_0);
-  const fe z_40_0 = fe_mul(fe_sq_n(z_20_0, 20), z_20_0);
-  const fe z_50_0 = fe_mul(fe_sq_n(z_40_0, 10), z_10_0);
-  const fe z_100_0 = fe_mul(fe_sq_n(z_50_0, 50), z_50_0);
-  const fe z_200_0 = fe_mul(fe_sq_n(z_100_0, 100), z_100_0);
-  z_250_0 = fe_mul(fe_sq_n(z_200_0, 50), z_50_0);
-}
-
-__device__ __forceinline__ fe fe_invert(const fe& z) {
-  fe z_250_0, z11;
-  fe_chain_250(z, z_250_0, z11);
-  return fe_mul(fe_sq_n(z_250_0, 5), z11);
-}
-
-__device__ __forceinline__ fe fe_pow2523(const fe& z) {
-  fe z_250_0, z11;
-  fe_chain_250(z, z_250_0, z11);
-  return fe_mul(fe_sq_n(z_250_0, 2), z);
 }
 
 // THE representative mod p (limbs in [0, 2^width)): carry, then ref10's

@@ -1,5 +1,6 @@
-// The 4-bit-window Straus ladder with four threads per signature (a quad),
-// shared by K1 (ladder.cu) and K5 (committee_ladder.cu).
+// Point arithmetic with four threads per point (a quad): the 4-bit-window
+// Straus ladder of K1 (ladder.cu) and K5 (committee_ladder.cu), and the
+// mixed additions of K3's table (decompress_table.cu).
 //
 // Thread k of a quad owns coordinate k of the extended accumulator
 // (0 X, 1 Y, 2 Z, 3 T): the 4-way parallel form of the extended
@@ -31,9 +32,9 @@
 // __syncwarp needs all 32 threads) and skips its stores.
 #pragma once
 
-#include "curve.cuh"
+#include "field.cuh"
 
-#define HS_QUAD_THREADS 32  // one warp per block: 8 signatures; a 128-lane bucket spans 16 SMs
+#define HS_QUAD_THREADS 32  // one warp: K1 and K5 blocks of 8 signatures (a 128-lane bucket spans 16 SMs)
 #define HS_QUAD_LANES (HS_QUAD_THREADS / 4)
 #define HS_SLOT 12             // int32 per thread's exchange slot (10 limbs, 16-byte aligned)
 
@@ -100,17 +101,19 @@ __device__ __forceinline__ fe quad_dbl(const quad_pos& q, quad_xchg& x, const fe
   return quad_stage2(q, xp, yp, zp, tp);
 }
 
-// madd-2008-hwcd-3 (CACHED = false, point_madd) or add-2008-hwcd-3
-// (CACHED = true, point_add_cached). e is this thread's table coordinate:
-// madd (y+x, y-x, 2d*x*y, unused), cached (y+x, y-x, 2d*t, z).
-template <bool CACHED>
-__device__ __forceinline__ fe quad_add(const quad_pos& q, quad_xchg& x, const fe& c, const fe& e) {
+// The pair exchange that opens an addition: from this thread's coordinate
+// c, the operand of its stage-1 multiply, Y+X, Y-X, T, Z on thread 0, 1,
+// 2, 3 (thread 0 gets Y, 1 X, 2 T, 3 Z).
+__device__ __forceinline__ fe quad_add_operand(const quad_pos& q, quad_xchg& x, const fe& c) {
   x.put(c);
-  const fe o = x.get(q.k ^ 1);  // thread 0 gets Y, 1 X, 2 T, 3 Z
-  // Y+X, Y-X, T, Z
-  const fe u = fe_select(q.k == 0, fe_add(o, c), fe_select(q.k == 1, fe_sub(c, o), o));
-  const fe m = fe_mul(u, e);
-  x.put(CACHED ? m : fe_select(q.k == 3, u, m));  // a, b, c, zz (madd: Z itself)
+  const fe o = x.get(q.k ^ 1);
+  return fe_select(q.k == 0, fe_add(o, c), fe_select(q.k == 1, fe_sub(c, o), o));
+}
+
+// The rest of an addition from stage 1's results m: a, b, c on threads
+// 0-2 and zz on thread 3 (madd: Z itself; cached: Z*z).
+__device__ __forceinline__ fe quad_add_finish(const quad_pos& q, quad_xchg& x, const fe& m) {
+  x.put(m);
   const fe a = x.get(0), b = x.get(1), cc = x.get(2), zz = x.get(3);
   const fe d2z = fe_add(zz, zz);
   const fe x3 = fe_sub(a, b);
@@ -118,6 +121,16 @@ __device__ __forceinline__ fe quad_add(const quad_pos& q, quad_xchg& x, const fe
   const fe z3 = fe_add(d2z, cc);
   const fe t3 = fe_sub(d2z, cc);
   return quad_stage2(q, x3, y3, z3, t3);
+}
+
+// madd-2008-hwcd-3 (CACHED = false, point_madd) or add-2008-hwcd-3
+// (CACHED = true, point_add_cached). e is this thread's table coordinate:
+// madd (y+x, y-x, 2d*x*y, unused), cached (y+x, y-x, 2d*t, z).
+template <bool CACHED>
+__device__ __forceinline__ fe quad_add(const quad_pos& q, quad_xchg& x, const fe& c, const fe& e) {
+  const fe u = quad_add_operand(q, x, c);
+  const fe m = fe_mul(u, e);
+  return quad_add_finish(q, x, CACHED ? m : fe_select(q.k == 3, u, m));
 }
 
 // The table coordinate thread k multiplies in stage 1 of each addition.

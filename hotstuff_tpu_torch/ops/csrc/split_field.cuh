@@ -168,8 +168,8 @@ __device__ __forceinline__ fe split_sq_n(split_xchg& x, fe a, int n) {
   return a;
 }
 
-// fe_chain_250 on the split ops: z^(2^250 - 1) and z^11, the shared prefix
-// of the inversion and of the square root's z^((p-5)/8).
+// ops/field.py `_chain_250` on the split ops: z^(2^250 - 1) and z^11, the
+// shared prefix of the inversion and of the square root's z^((p-5)/8).
 template <int G>
 __device__ __forceinline__ void split_chain_250(split_xchg& x, const fe& z, fe& z_250_0, fe& z11) {
   const fe z2 = split_sq<G>(x, z);
@@ -192,4 +192,13 @@ __device__ __forceinline__ fe split_invert(split_xchg& x, const fe& z) {
   fe z_250_0, z11;
   split_chain_250<G>(x, z, z_250_0, z11);
   return split_mul<G>(x, split_sq_n<G>(x, z_250_0, 5), z11);
+}
+
+// z^((p-5)/8) = z^(2^252 - 3): the square root's power (K3; field.py
+// `pow2523_split`).
+template <int G>
+__device__ __forceinline__ fe split_pow2523(split_xchg& x, const fe& z) {
+  fe z_250_0, z11;
+  split_chain_250<G>(x, z, z_250_0, z11);
+  return split_mul<G>(x, split_sq_n<G>(x, z_250_0, 2), z);
 }

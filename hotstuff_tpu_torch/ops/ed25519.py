@@ -10,7 +10,7 @@ cofactorless equation of the JAX package:
 
 Curve ops are the extended-coordinate formulas for a = -1 twisted Edwards
 (dbl-2008-hwcd, madd-2008-hwcd-3, add-2008-hwcd-3) with the JAX package's
-`with_t` schedule; `csrc/curve.cuh` runs the same steps on the card.
+`with_t` schedule; `csrc/quad.cuh` runs the same steps on the card.
 """
 
 from __future__ import annotations
@@ -157,8 +157,9 @@ def decompress_int(key: bytes) -> tuple[int, int] | None:
     """Exact host decompression of a 32-byte compressed point, with the
     device's semantics (as `_decompress_int`, hotstuff_tpu/ops/ed25519.py:
     326-346): y is reduced mod p (y >= p is not rejected), x = 0 takes either
-    sign, and None is returned only when no square root exists. Unlike the
-    strict host verifier (`crypto/pysigner.py`), which rejects both."""
+    sign, and None is returned only when no square root exists. The host
+    verifier (`pysigner.verify_device_semantics`) decodes keys with it;
+    strict `pysigner.verify` rejects both."""
     enc = int.from_bytes(key, "little")
     sign = enc >> 255
     y = (enc & ((1 << 255) - 1)) % P
@@ -229,31 +230,43 @@ class CommitteeTable:
 # --- decompression and the per-item -A table ---------------------------------
 
 
-def decompress(y: torch.Tensor, sign: torch.Tensor):
+def decompress(y: torch.Tensor, sign: torch.Tensor, mul=f.mul, sqr=f.sqr, pow2523=f.pow2523):
     """Compressed y limbs (value < 2^255, not necessarily < p) + sign of x
     -> (x, -x, valid), x and -x canonical (as ops/ed25519.py:561-588).
 
     ref10 recipe: x = u v^3 (u v^7)^((p-5)/8) with u = y^2 - 1,
     v = d y^2 + 1; times sqrt(-1) when v x^2 == -u; invalid when
-    v x^2 != +-u. y >= p is reduced, not rejected; x = 0 takes either sign."""
-    yy = f.sqr(y)
+    v x^2 != +-u. y >= p is reduced, not rejected; x = 0 takes either sign.
+    `mul`, `sqr` and `pow2523` are the field's products: every caller but
+    the test-only `decompress_split`, which passes the split ones, keeps
+    the defaults."""
+    yy = sqr(y)
     u = f.sub(yy, _c("one", f.ONE, y))
-    v = f.add(f.mul(_c("d", D, y), yy), _c("one", f.ONE, y))
-    v3 = f.mul(f.sqr(v), v)
-    v7 = f.mul(f.sqr(v3), v)
-    w = f.pow2523(f.mul(u, v7))
-    r = f.mul(f.mul(u, v3), w)
-    chk = f.canonical(f.mul(v, f.sqr(r)))
+    v = f.add(mul(_c("d", D, y), yy), _c("one", f.ONE, y))
+    v3 = mul(sqr(v), v)
+    v7 = mul(sqr(v3), v)
+    w = pow2523(mul(u, v7))
+    r = mul(mul(u, v3), w)
+    chk = f.canonical(mul(v, sqr(r)))
     u_c = f.canonical(u)
     negu_c = f.canonical(f.sub(_c("zero", f.ZERO, y), u))
     is_pos = f.eq_canonical(chk, u_c)
     is_neg = f.eq_canonical(chk, negu_c) & ~is_pos
     valid = is_pos | is_neg
-    x = f.select(is_neg, f.mul(r, _c("sqrtm1", SQRTM1, y)), r)
+    x = f.select(is_neg, mul(r, _c("sqrtm1", SQRTM1, y)), r)
     x_c = f.canonical(x)
     xneg_c = f.canonical(f.sub(_c("zero", f.ZERO, y), x_c))
     flip = f.parity(x_c) != sign.long()
     return f.select(flip, xneg_c, x_c), f.select(flip, x_c, xneg_c), valid
+
+
+def decompress_split(y: torch.Tensor, sign: torch.Tensor):
+    """K3's phase 1 in its integer steps: `decompress` with every product
+    split over four warps (`field.mul_split`, `sqr_split`, `pow2523_split`;
+    csrc/decompress_table.cu). A model for the CPU tests, which no plain
+    version calls; its outputs are canonical, so they equal `decompress`'s
+    exactly."""
+    return decompress(y, sign, f.mul_split, f.sqr_split, f.pow2523_split)
 
 
 def build_neg_a_table(x_neg: torch.Tensor, a_y: torch.Tensor) -> torch.Tensor:

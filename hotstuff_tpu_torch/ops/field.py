@@ -18,10 +18,10 @@ ref10 / ed25519-dalek u32 layout instead:
 
 The CUDA kernels run the very same integer operations in the same order,
 so kernel and plain version agree limb for limb, not only modulo p. The
-one exception is K4's inversion, whose field ops are split over four
-warps (`csrc/split_field.cuh`): its limbs differ from the ref10 chain's,
-its values mod p and K4's output do not; `carry_split` and its callers
-below model it.
+exceptions are K4's inversion and K3's square root, whose field ops are
+split over four warps (`csrc/split_field.cuh`): their limbs differ from
+the ref10 chain's, their values mod p and the kernels' outputs do not;
+`carry_split` and its callers below model them.
 """
 
 from __future__ import annotations
@@ -187,7 +187,7 @@ def sqr_n(a: torch.Tensor, n: int, sqr=sqr) -> torch.Tensor:
 # The split multiply (`csrc/split_field.cuh`): a model, not a plain version
 # ---------------------------------------------------------------------------
 #
-# K4 spreads each field product over four warps by output column. Warp g
+# K4 and K3 spread each field product over four warps by output column. Warp g
 # sums the columns of SPLIT_GROUPS[g] and takes one rounding carry out of
 # each (round 1); after one exchange every warp adds the carries in and
 # takes a second rounding carry over all ten limbs (round 2). The limbs
@@ -275,6 +275,12 @@ def invert_split(z: torch.Tensor) -> torch.Tensor:
     """`invert` with the split multiply and squaring (K4's inversion)."""
     z_250_0, z11 = _chain_250(z, mul_split, sqr_split)
     return mul_split(sqr_n(z_250_0, 5, sqr_split), z11)
+
+
+def pow2523_split(z: torch.Tensor) -> torch.Tensor:
+    """`pow2523` with the split multiply and squaring (K3's square root)."""
+    z_250_0, _ = _chain_250(z, mul_split, sqr_split)
+    return mul_split(sqr_n(z_250_0, 2, sqr_split), z)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,14 @@ int32 index vector, verified by K2g, K5 and K4 (`committee.verify_committee96
 (_dh)`). Padding lanes carry index 0; their mask bits are dropped.
 
 When every message is a 32-byte digest (the protocol's hot path) h is
-computed on the device (K2 / K2g); otherwise the host hashes (`hashlib`). A
-device-hash failure raises: there is no failure latch.
+computed on the device (K2 / K2g); otherwise the host hashes (`hashlib`).
+On the card a device-hash failure propagates: a kernel that fails to build
+or launch is a fault, and its work never moves to the host. On the CPU,
+where both hash forms run on the host, the verifier keeps the reference's
+latch (`hotstuff_tpu/ops/ed25519.py:989-1008`, `:1164-1187`): a batch whose
+device-hash run raises is logged, counted in `device_hash_fallbacks` and
+redone with host hashing, and the device hash latches off only when that
+retry succeeds; a retry that raises too propagates and leaves it on.
 
 Chunks run one after another (upload, kernels, mask readback); overlapping
 them with streams and pinned buffers is later work.
@@ -23,6 +29,7 @@ them with streams and pinned buffers is later work.
 
 from __future__ import annotations
 
+import logging
 from typing import Sequence
 
 import numpy as np
@@ -32,6 +39,8 @@ from .. import resolve_device
 from . import committee as cm
 from . import ed25519 as ed
 from . import ladder
+
+log = logging.getLogger(__name__)
 
 
 def pad(a: np.ndarray, width: int) -> np.ndarray:
@@ -54,6 +63,8 @@ class Ed25519TorchVerifier:
         self.max_bucket = max_bucket
         self.chunk = min(chunk or 4096, max_bucket)
         self._committee: ed.CommitteeTable | None = None
+        self._device_hash_ok = True
+        self.device_hash_fallbacks = 0  # batches redone with host hashing (CPU only)
 
     # -- committee-resident path ------------------------------------------
 
@@ -85,17 +96,20 @@ class Ed25519TorchVerifier:
         if ct is None:
             raise RuntimeError("no committee registered (call set_committee first)")
         indices = list(indices)
-        device_hash = all(len(m) == 32 for m in messages)
-        verify = cm.verify_committee96_dh if device_hash else cm.verify_committee96
 
-        def stage(lo: int, hi: int) -> dict:
-            if device_hash:
-                return ed.prepare_batch_committee_dh(messages[lo:hi], indices[lo:hi], signatures[lo:hi])
-            return ed.prepare_batch_committee(
-                messages[lo:hi], [ct.keys[i] for i in indices[lo:hi]], indices[lo:hi], signatures[lo:hi]
-            )
+        def run(device_hash: bool) -> np.ndarray:
+            verify = cm.verify_committee96_dh if device_hash else cm.verify_committee96
 
-        return self._run_chunks(len(messages), stage, ("packed", "idx"), lambda p, i: verify(ct, i, p))
+            def stage(lo: int, hi: int) -> dict:
+                if device_hash:
+                    return ed.prepare_batch_committee_dh(messages[lo:hi], indices[lo:hi], signatures[lo:hi])
+                return ed.prepare_batch_committee(
+                    messages[lo:hi], [ct.keys[i] for i in indices[lo:hi]], indices[lo:hi], signatures[lo:hi]
+                )
+
+            return self._run_chunks(len(messages), stage, ("packed", "idx"), lambda p, i: verify(ct, i, p))
+
+        return self._with_latch(messages, run)
 
     # -- generic path -----------------------------------------------------
 
@@ -105,13 +119,32 @@ class Ed25519TorchVerifier:
         keys: Sequence[bytes],
         signatures: Sequence[bytes],
     ) -> np.ndarray:
-        device_hash = all(len(m) == 32 for m in messages)
-        prepare = ed.prepare_batch_packed_dh if device_hash else ed.prepare_batch_packed
-        verify = ladder.verify_packed128_dh if device_hash else ladder.verify_packed128
-        stage = lambda lo, hi: prepare(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
-        return self._run_chunks(len(messages), stage, ("packed",), verify)
+        def run(device_hash: bool) -> np.ndarray:
+            prepare = ed.prepare_batch_packed_dh if device_hash else ed.prepare_batch_packed
+            verify = ladder.verify_packed128_dh if device_hash else ladder.verify_packed128
+            stage = lambda lo, hi: prepare(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
+            return self._run_chunks(len(messages), stage, ("packed",), verify)
+
+        return self._with_latch(messages, run)
 
     # -- the chunk loop both paths share ------------------------------------
+
+    def _with_latch(self, messages: Sequence[bytes], run) -> np.ndarray:
+        """`run(device_hash)` with the device hash when every message is a
+        32-byte digest and the latch is on. On the CPU, a failure there gets
+        one retry with host hashing, and the latch goes off only if it
+        succeeds; on the card the failure propagates."""
+        device_hash = self._device_hash_ok and all(len(m) == 32 for m in messages)
+        if not device_hash or self.device.type == "cuda":
+            return run(device_hash)
+        try:
+            return run(device_hash)
+        except Exception:
+            log.exception("device-hash verification failed; retrying with host hashing")
+            self.device_hash_fallbacks += 1
+            out = run(False)
+            self._device_hash_ok = False
+            return out
 
     def _bucket(self, n: int) -> int:
         b = self.min_bucket

@@ -148,9 +148,75 @@ def test_warmup_runs_every_width():
     assert tb.warmup() >= 0.0
 
 
-def test_host_backend_matches_reference_semantics():
-    msgs, keys, sigs = _signed(12, 32, seed=9)
-    _adversarial(msgs, keys, sigs)
+def _cpu_backend():
+    """The reference's host verifier (OpenSSL through `cryptography`)."""
+    pytest.importorskip("cryptography")
+    from hotstuff_tpu.crypto.backend import CpuBackend
+
+    return CpuBackend()
+
+
+def _host_and_reference(msgs, keys, sigs):
     ours = HostBackend().verify_batch_mask(msgs, [PublicKey(k) for k in keys], [Signature(s) for s in sigs])
-    ref = [jpysigner.verify_exact(k, m, s) for m, k, s in zip(msgs, keys, sigs)]
+    ref = _cpu_backend().verify_batch_mask(
+        msgs, [jprim.PublicKey(k) for k in keys], [jprim.Signature(s) for s in sigs]
+    )
+    return ours, ref
+
+
+@pytest.mark.parametrize("msg_len", [32, 33])
+def test_host_backend_matches_reference_semantics(msg_len):
+    """HostBackend against the reference's CpuBackend on every adversarial
+    class; the strict verifier agrees on these (no identity-key lane)."""
+    msgs, keys, sigs = _signed(12, msg_len, seed=9)
+    _adversarial(msgs, keys, sigs)
+    ours, ref = _host_and_reference(msgs, keys, sigs)
     assert ours == ref == [False] * 10 + [True, True]
+    assert ours == [jpysigner.verify_exact(k, m, s) for m, k, s in zip(msgs, keys, sigs)]
+
+
+def _forged_identity(s: int) -> bytes:
+    """R = enc([s]B), S = s: valid for any message under a key that decodes
+    to the identity, where [h]A vanishes."""
+    return pysigner._pt_compress(pysigner._pt_mul(s, pysigner._B_POINT)) + s.to_bytes(32, "little")
+
+
+def test_host_backend_accepts_identity_key_forgeries_as_reference():
+    """The four identity encodings (y = 1 with the sign bit, y = p + 1 with
+    and without it, y = 1): OpenSSL, HostBackend and the card's plain path
+    all accept the forgery; pysigner's strict verify accepts only y = 1."""
+    keys = [(1 | 1 << 255).to_bytes(32, "little"), (P + 1).to_bytes(32, "little"),
+            (P + 1 | 1 << 255).to_bytes(32, "little"), (1).to_bytes(32, "little")]
+    msgs, sigs = [bytes(32)] * 4, [_forged_identity(12345)] * 4
+    ours, ref = _host_and_reference(msgs, keys, sigs)
+    assert ours == ref == [True] * 4
+    assert [pysigner.verify(k, m, s) for m, k, s in zip(msgs, keys, sigs)] == [False, False, False, True]
+    pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
+    assert TorchBackend(device="cpu", crossover=1, min_bucket=4).verify_batch_mask(msgs, pks, sgs) == ours
+    host = TorchBackend(device="cpu", crossover=8)
+    assert host.verify_batch_mask(msgs, pks, sgs) == ours and host.stats["host_sigs"] == 4
+
+
+@pytest.mark.parametrize("msg_len", [32, 33])
+def test_host_backend_matches_reference_on_special_keys(msg_len):
+    """`chip_smoke.py`'s special key encodings (y >= p, x = 0 with the sign
+    bit, y = 0, y = 1, no square root, all ones), each with an identity
+    forgery and with another key's real signature: HostBackend equals
+    CpuBackend, and the card's path below and above its crossover."""
+    import chip_smoke
+
+    rng = random.Random(msg_len)
+    special = chip_smoke._special_keys() + [(P + 1 | 1 << 255).to_bytes(32, "little")]
+    real_msgs, _, real_sigs = _signed(len(special), msg_len, seed=40 + msg_len)
+    msgs, keys, sigs = [], [], []
+    for k, m, sig in zip(special, real_msgs, real_sigs):
+        msgs += [m, m]
+        keys += [k, k]
+        sigs += [_forged_identity(rng.randrange(L)), sig]
+    ours, ref = _host_and_reference(msgs, keys, sigs)
+    assert ours == ref
+    assert any(ours)  # the identity keys accept their forgeries
+    pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
+    card = TorchBackend(device="cpu", crossover=1, min_bucket=32).verify_batch_mask(msgs, pks, sgs)
+    host = TorchBackend(device="cpu", crossover=64).verify_batch_mask(msgs, pks, sgs)
+    assert card == host == ours

@@ -44,6 +44,7 @@ def test_phase_compare_on_cpu(small_smoke, capsys):
         assert res["max_abs_err"] == 0, name
         assert res["bound_ms"] > 0 and res["bound_by"] in ("bytes", "operations"), name
     out = capsys.readouterr().out
+    assert "raw limbs and valid identical to the plain version at widths [1, 7, 16]" in out
     assert "K1: raw limbs identical to the plain version at widths [1, 7, 16]" in out
     assert "K4: mask identical to the plain version at widths [1, 7, 16]" in out
 

@@ -46,7 +46,7 @@ def _signer(seed):
 
 SK, PK = _signer(1)
 # The JAX comparisons' committee: a signing validator and the three key
-# encodings where the strict host verifier and the device decoder differ.
+# encodings where pysigner's strict verify and the device decoder differ.
 COMMITTEE = [PK, NO_SQRT, Y1_GE_P, X0_SIGN]
 
 
@@ -245,8 +245,8 @@ def test_backend_committee_masks_match_tpu_backend_and_generic(msg_len):
         msgs, [jprim.PublicKey(k) for k in keys], [jprim.Signature(s) for s in sigs], committee=True
     )
     assert ours == ref == generic == want
-    # the strict host verifier rejects the identity-key forgeries the
-    # device equation accepts (ROADMAP.md §C)
+    # pysigner's strict verify rejects the identity-key forgeries that the
+    # device equation (and HostBackend, and OpenSSL) accept
     assert [pysigner.verify(keys[i], msgs[i], sigs[i]) for i in (9, 10)] == [False, False]
 
 
@@ -272,9 +272,9 @@ def test_committee_crossover():
     tb = TorchBackend(device="cpu", crossover=17, min_bucket=16)
     tb.register_committee(COMMITTEE)
     pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
-    host = tb.verify_batch_mask(msgs, pks, sgs, committee=True)  # 16 < 17: the strict host verifier
+    host = tb.verify_batch_mask(msgs, pks, sgs, committee=True)  # 16 < 17: the host verifier
     assert tb.stats["host_batches"] == 1 and tb.stats["committee_batches"] == 0
-    assert host == [w and i not in (9, 10) for i, w in enumerate(want)]
+    assert host == want  # the card's verdicts, identity-key forgeries (lanes 9, 10) included
     tb.crossover = 16
     assert tb.verify_batch_mask(msgs, pks, sgs, committee=True) == want  # 16 >= 16: the card's path
     assert tb.stats["committee_batches"] == 1 and tb.stats["host_batches"] == 1

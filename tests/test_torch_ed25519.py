@@ -1,7 +1,8 @@
 """The port's curve code (hotstuff_tpu_torch/ops/ed25519.py: plain versions
-of kernels K3 `decompress_table` and K4 `compress_eq`) against the JAX
-package's `decompress`, `_build_neg_a_table` and `compress`, and against
-exact affine Edwards arithmetic in Python integers. Exact comparisons."""
+of kernels K3 `decompress_table` and K4 `compress_eq`, and the model of
+K3's split square root, `decompress_split`) against the JAX package's
+`decompress`, `_build_neg_a_table` and `compress`, and against exact affine
+Edwards arithmetic in Python integers. Exact comparisons."""
 
 import random
 
@@ -74,6 +75,34 @@ def test_decompress_matches_jax_and_ints():
         if pt is not None:
             assert _vals(x)[i] == pt[0] and _vals(xneg)[i] == (P - pt[0]) % P
     assert valid[-6:-3].tolist() == [True, True, True]  # y = p, y = p + 1, x = 0 with sign
+
+
+def test_decompress_split_matches_decompress_and_jax(monkeypatch):
+    """K3's phase 1 (`decompress_split`: every product on the split multiply
+    of csrc/split_field.cuh) gives `decompress`'s canonical x, -x and valid
+    exactly, so JAX's values too; every product's operands stay within
+    mul's bound and every product within the split bound."""
+    rows = _key_rows(_keys())
+    y, sign = ted.unpack_key(torch.from_numpy(rows))
+    mul_split, products = tf.mul_split, []
+
+    def checked(a, b):
+        for t in (a, b):
+            for i in range(tf.NL):
+                assert int(t[i].abs().max()) <= 1 << (27 if i % 2 == 0 else 26)
+        out = mul_split(a, b)
+        products.append(max(int(out[i].abs().max()) - tf.SPLIT_BOUND[i] for i in range(tf.NL)))
+        return out
+
+    monkeypatch.setattr(tf, "mul_split", checked)
+    got = ted.decompress_split(y, sign)
+    monkeypatch.undo()
+    assert len(products) == 274 and max(products) <= 0  # every field product of phase 1
+    for g, w in zip(got, ted.decompress(y, sign)):
+        assert torch.equal(g, w)
+    jx, jxneg, jvalid = _jdecompress(*_jax_key_args(rows))
+    assert got[2].tolist() == np.asarray(jvalid).tolist()
+    assert _vals(got[0]) == _jvals(jx) and _vals(got[1]) == _jvals(jxneg)
 
 
 def test_neg_a_table_matches_jax():

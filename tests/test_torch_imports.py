@@ -96,5 +96,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_sources_and_kernels_listed():
     csrc = sorted(p.name for p in _build.CSRC.iterdir())
-    assert csrc == sorted(["field.cuh", "curve.cuh", "quad.cuh", "split_field.cuh"] + [f"{n}.cu" for n in _build.NAMES])
+    assert csrc == sorted(["field.cuh", "quad.cuh", "split_field.cuh"] + [f"{n}.cu" for n in _build.NAMES])
     assert len(_build.source_hash()) == 16

@@ -1,7 +1,8 @@
-"""The split field multiply of kernel K4 (`csrc/split_field.cuh`), through
-its integer model in hotstuff_tpu_torch/ops/field.py (`carry_split`,
-`mul_split`, `sqr_split`, `invert_split`), against the port's ref10 `mul` /
-`sqr` / `invert`, exact Python integers, and JAX's `compress`. Values are
+"""The split field multiply of kernels K4 and K3 (`csrc/split_field.cuh`),
+through its integer model in hotstuff_tpu_torch/ops/field.py
+(`carry_split`, `mul_split`, `sqr_split`, `invert_split`,
+`pow2523_split`), against the port's ref10 `mul` / `sqr` / `invert` /
+`pow2523`, exact Python integers, and JAX's `compress`. Values are
 compared mod p and bytes exactly (tolerance 0); the split carry's output
 limbs are held to the bound the header states, at worst-case operands."""
 
@@ -115,6 +116,23 @@ def test_invert_split():
     _assert_bounded(inv)
     assert _vals(inv) == _vals(tf.invert(z)) == [pow(v, P - 2, P) for v in ints]
     assert _vals(tf.mul(inv, z)) == [1] * (len(ints) - 1) + [0]
+
+
+@pytest.mark.parametrize("case", ["random", "plus", "minus", "alternating", "lazy_add", "lazy_sub"])
+def test_pow2523_split(case):
+    """K3's square-root power on the split ops: z^((p-5)/8) mod p as the
+    ref10 chain and exact ints, from random and edge values and from
+    operands at mul's bound (phase 1 feeds it split outputs and their lazy
+    sums with constants, inside these bounds)."""
+    if case == "random":
+        rng = random.Random(13)
+        z = tf.limbs_of_int([rng.randrange(P) for _ in range(B - 3)] + [0, 1, P - 1])
+    else:
+        z = _worst(case)
+    got = tf.pow2523_split(z)
+    _assert_bounded(got)
+    want = [pow(v % P, (P - 5) // 8, P) for v in tf.int_of_limbs(z)]
+    assert _vals(got) == _vals(tf.pow2523(z)) == want
 
 
 def _random_points(rng, n):
