@@ -7,14 +7,19 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
-     ptxas reports spill bytes for either ladder kernel, K3 or K4;
+     ptxas reports spill bytes for either ladder kernel, K3, K4 or K2 / K2g;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at 4,096 lanes, exactly (integer outputs, tolerance 0); K3
      `decompress_table` (raw limbs and valid, on random and special keys),
      K1 `ladder` (raw limbs) and K4 `compress_eq` (the mask, on
      lambda-scaled, identity, non-canonical-R and invalid lanes) also at
      every width of WIDTHS (1, 7, 43, 128, 1,000), all three timed at 128
-     lanes beside 4,096;
+     lanes beside 4,096; K2 `h_digits` at every width too (the 16-byte
+     tile path at 128 and 4,096, the byte-wide path at the others and on
+     rows at a misaligned address), timed at 128 lanes beside 4,096;
+     then K2's reduction alone (`hs_reduce_mod_l`, a test entry) against
+     `reduce_mod_l` and Python ints on the edge values and the 4,096-value
+     sweep of tests/test_torch_sha512.py;
   3. the main path: `TorchBackend(device="cuda").verify_batch_mask` on a
      16,384-signature batch (4,096 distinct pysigner signatures over 32-byte
      digests, tiled, ~1/16 of lanes corrupted), chunk 4,096, max_bucket
@@ -24,7 +29,9 @@ caught:
      cross-checks; on the card a device-hash failure raises, so it fails
      the phase;
   4. launch counts of the main path, end-to-end rate, per-kernel times
-     beside the plain versions' and the least time the card could take;
+     beside the plain versions' and the least time the card could take
+     (kernel times are device times of launches queued behind a spin
+     kernel, `breakdown.queued_ms`, so the host's launch time stays out);
   5. the committee path: `TorchBackend.verify_batch_mask(...,
      committee=True)` on a QC-shaped batch as `bench.py --committee-cache`
      builds it (64 validators, 381 QCs x 43 votes = 16,383 votes over
@@ -40,8 +47,8 @@ caught:
      `TorchBackend` runs below its crossover, and against OpenSSL where the
      `cryptography` wheel is installed, as a reported column); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
      against their plain versions at 4,096 lanes (random indices over the
-     67-entry table, a few out of range, a ragged width), exactly; K5 also
-     at every width of WIDTHS and timed at 128 lanes beside 4,096.
+     67-entry table, a few out of range, a ragged width), exactly; both
+     also at every width of WIDTHS and timed at 128 lanes beside 4,096.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu`. Exits non-zero without a result when no CUDA device
 is available or the port's package is not beside this script.
@@ -72,10 +79,16 @@ MAX_BUCKET = 8192
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-# K2's integer operations per lane, counted from csrc/h_digits.cu: 64
-# schedule words x 13 64-bit ops and 80 rounds x 24 64-bit ops, two INT32
-# operations per 64-bit op; TweetNaCl modL, 32 x 20 64-bit multiply-adds.
+# K2's integer operations per lane as first counted: 64 schedule words x 13
+# 64-bit ops and 80 rounds x 24 64-bit ops, two INT32 operations per 64-bit
+# op; TweetNaCl's byte modL, 32 x 20 64-bit multiply-adds. Kept as it is so
+# that K2's and K2g's bound reads the same work whatever implements it; the
+# radix-2^28 kernel issues fewer instructions than this (PERF.md, section 6).
 H_DIGITS_OPS_PER_LANE = 2 * (64 * 13 + 80 * 24) + 2 * 32 * 20
+# csrc/h_digits.cu reduce_mod_l, run alone by the test entry: 50 + 25 + 5
+# limb products (one IMAD.WIDE each) and 13 + 9 + 9 + 9 carry steps, each
+# counted as one operation, the least issue work.
+REDUCE_OPS_PER_LANE = (50 + 25 + 5) + (13 + 9 + 9 + 9)
 
 RFC8032_VECTORS = [  # (public key, message, signature), RFC 8032 section 7.1
     ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
@@ -235,7 +248,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
     import numpy as np
     import torch
 
-    from hotstuff_tpu_torch.breakdown import events_ms
+    from hotstuff_tpu_torch.breakdown import queued_ms
     from hotstuff_tpu_torch.ops import field, ladder, sha512
     from hotstuff_tpu_torch.ops import ed25519 as ed
 
@@ -256,8 +269,22 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         digits = [(hv >> (4 * d)) & 15 for d in range(64)]
         if hd_full[:, i].tolist() != digits:
             fail(f"K2 h_digits lane {i} differs from hashlib")
+    for w in _widths()[:-1]:
+        args = (_cut(r, w), _cut(a, w), _cut(m, w))
+        if not torch.equal(sha512.h_digits(*args), sha512.h_digits_plain(*args)):
+            fail(f"K2 h_digits differs from its plain version at width {w}")
+    # Rows at an address that is not 16-byte aligned take the byte-wide path.
+    flat = torch.empty(3 * 32 * LANES + 1, dtype=torch.uint8, device=dev)[1:].view(3, 32, LANES)
+    flat.copy_(torch.stack((r, a, m)))
+    if not torch.equal(sha512.h_digits(flat[0], flat[1], flat[2]), hd_full):
+        fail("K2 h_digits differs on rows at a misaligned address")
+    w_small = min(128, LANES)
+    small = (_cut(r, w_small), _cut(a, w_small), _cut(m, w_small))
+    ms, ms_small = queued_ms(lambda: sha512.h_digits(r, a, m), 20), queued_ms(lambda: sha512.h_digits(*small), 20)
+    print(f"K2: digits identical to the plain version at widths {_widths()} and at a misaligned address; "
+          f"{ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["h_digits"] = dict(
-        ms=events_ms(lambda: sha512.h_digits(r, a, m), 20), plain_ms=plain_ms,
+        ms=ms, plain_ms=plain_ms,
         max_abs_err=_max_abs(hd_full, want),
         bytes=LANES * (96 + 64), ops=LANES * H_DIGITS_OPS_PER_LANE,
     )
@@ -281,9 +308,8 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         got, want = ed.decompress_table(_cut(keys, w)), ed.decompress_table_plain(_cut(keys, w))
         if not all(torch.equal(g, p) for g, p in zip(got, want)):
             fail(f"K3 decompress_table differs from its plain version at width {w}")
-    w_small = min(128, LANES)
     small = _cut(keys, w_small)
-    ms, ms_small = events_ms(lambda: ed.decompress_table(keys), 20), events_ms(lambda: ed.decompress_table(small), 20)
+    ms, ms_small = queued_ms(lambda: ed.decompress_table(keys), 20), queued_ms(lambda: ed.decompress_table(small), 20)
     print(f"K3: {int(valid.sum())}/{LANES} random+special keys decompress; raw limbs and valid identical "
           f"to the plain version at widths {_widths()}; {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
           flush=True)
@@ -309,7 +335,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
             fail(f"K1 ladder differs from its plain version at width {w}")
     enc_p = ed.compress(ppoint)
     small = (_cut(sd, w_small), _cut(hd, w_small), _cut(table, w_small))
-    ms, ms_small = events_ms(lambda: ladder.ladder(sd, hd, table), 5), events_ms(lambda: ladder.ladder(*small), 20)
+    ms, ms_small = queued_ms(lambda: ladder.ladder(sd, hd, table), 5), queued_ms(lambda: ladder.ladder(*small), 20)
     print(f"K1: raw limbs identical to the plain version at widths {_widths()}; "
           f"{ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["ladder"] = dict(
@@ -334,8 +360,8 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         if not torch.equal(ed.compress_eq(*args), ed.compress_eq_plain(*args)):
             fail(f"K4 compress_eq differs from its plain version at width {w}")
     small = (_cut(xyzt, w_small), _cut(r_bytes, w_small), _cut(k4_valid, w_small))
-    ms = events_ms(lambda: ed.compress_eq(xyzt, r_bytes, k4_valid), 20)
-    ms_small = events_ms(lambda: ed.compress_eq(*small), 20)
+    ms = queued_ms(lambda: ed.compress_eq(xyzt, r_bytes, k4_valid), 20)
+    ms_small = queued_ms(lambda: ed.compress_eq(*small), 20)
     print(f"K4: mask identical to the plain version at widths {_widths()} "
           f"({int(got.sum())}/{LANES} lanes match); {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
           flush=True)
@@ -362,6 +388,59 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         print(f"{name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.1f} ms, "
               f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) per {LANES}-lane call", flush=True)
     return results
+
+
+def _reduce_values() -> list[list[int]]:
+    """The values of tests/test_torch_sha512.py's reduction tests: the edge
+    list of test_reduce_mod_l_exact and the 4,096-value sweep of
+    test_reduce_mod_l_random_sweep (all-ones rows with one zero byte,
+    multiples of L plus -3..2), built the same way from the same seed."""
+    import numpy as np
+
+    L = 2**252 + 27742317777372353535851937790883648493
+    edges = [0, 1, L - 1, L, L + 1, 2 * L - 1, 2**252, 2**256 - 1, 2**512 - 1,
+             (L << 134) + 5, (L << 259) - 1]
+    rng = np.random.default_rng(5)
+    raw = rng.integers(0, 256, (4096, 64), np.uint8)
+    raw[:256] = 0xFF
+    raw[:256, rng.integers(0, 64, 256)] = 0
+    sweep = [int.from_bytes(row.tobytes(), "little") for row in raw]
+    for i in range(256, 512):
+        k = int(rng.integers(1, 2**62)) << int(rng.integers(0, 190))
+        sweep[i] = min(k * L + int(rng.integers(-3, 3)), 2**512 - 1) % 2**512
+    return [edges, sweep]
+
+
+def phase_reduce_compare(device: str = "cuda") -> dict:
+    """K2's reduction alone (`hs_reduce_mod_l`): the kernel's own
+    `reduce_mod_l` device function against the plain `reduce_mod_l` on the
+    same tensors and against Python ints, on the edge values and the
+    sweep, exactly."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import queued_ms
+    from hotstuff_tpu_torch.ops import sha512
+
+    dev = torch.device(device)
+    err, values = 0, _reduce_values()
+    for vals in values:  # the edges, then the sweep, which is timed
+        x = torch.from_numpy(np.array([list(v.to_bytes(64, "little")) for v in vals], np.uint8).T.copy()).to(dev)
+        got = sha512.reduce_mod_l_device(x)
+        plain_ms, want = _plain_ms(lambda: sha512.reduce_mod_l(x))
+        if not torch.equal(got, want):
+            fail(f"hs_reduce_mod_l differs from reduce_mod_l on {len(vals)} values")
+        host = got.cpu().numpy()
+        if [int.from_bytes(host[:, i].tobytes(), "little") for i in range(len(vals))] != [v % sha512.L for v in vals]:
+            fail(f"hs_reduce_mod_l differs from Python ints on {len(vals)} values")
+        err = max(err, _max_abs(got, want))
+    n = len(values[1])
+    res = dict(ms=queued_ms(lambda: sha512.reduce_mod_l_device(x), 20), plain_ms=plain_ms, max_abs_err=err,
+               bytes=n * (64 + 32), ops=n * REDUCE_OPS_PER_LANE)
+    res["bound_ms"], res["bound_by"] = _bound_ms(res["bytes"], res["ops"])
+    print(f"reduce_mod_l: kernel equals reduce_mod_l and Python ints on {len(values[0])} edge values and the "
+          f"{n}-value sweep; {res['ms']:.4f} ms per {n}-value call", flush=True)
+    return {"reduce_mod_l": res}
 
 
 # --- phase 3: the main path --------------------------------------------------
@@ -450,7 +529,7 @@ def _host_hash_batch(pool):
 
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
-NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq")  # ptxas: 0 spill bytes
+NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits")  # ptxas: 0 spill bytes
 
 
 def phase_main_path(seed: int) -> dict:
@@ -552,7 +631,7 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
     import numpy as np
     import torch
 
-    from hotstuff_tpu_torch.breakdown import events_ms
+    from hotstuff_tpu_torch.breakdown import queued_ms
     from hotstuff_tpu_torch.ops import committee, field, sha512
     from hotstuff_tpu_torch.ops import ed25519 as ed
 
@@ -592,8 +671,8 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
             fail(f"K5 committee_ladder differs from its plain version at width {w}")
     w_small = min(128, LANES)
     small = (_cut(sd, w_small), _cut(hd, w_small), ct, _cut(idx, w_small))
-    ms = events_ms(lambda: committee.committee_ladder(sd, hd, ct, idx), 5)
-    ms_small = events_ms(lambda: committee.committee_ladder(*small), 20)
+    ms = queued_ms(lambda: committee.committee_ladder(sd, hd, ct, idx), 5)
+    ms_small = queued_ms(lambda: committee.committee_ladder(*small), 20)
     print(f"K5: raw limbs and lane_valid identical to the plain version at widths {_widths()}; "
           f"{int(lane_valid.sum())}/{LANES} lanes valid; {ms_small:.4f} ms at {w_small} lanes, "
           f"{ms:.4f} ms at {LANES}", flush=True)
@@ -620,8 +699,17 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
             digits_i = [0] * 64
         if hk[:, i].tolist() != digits_i:
             fail(f"K2g lane {i} differs from hashlib")
+    for w in _widths()[:-1]:
+        args = (_cut(r, w), ct.keys_u8, _cut(idx, w), _cut(m, w))
+        if not torch.equal(sha512.h_digits_gather(*args), sha512.h_digits_gather_plain(*args)):
+            fail(f"K2g h_digits_idx differs from its plain version at width {w}")
+    small = (_cut(r, w_small), ct.keys_u8, _cut(idx, w_small), _cut(m, w_small))
+    ms = queued_ms(lambda: sha512.h_digits_gather(r, ct.keys_u8, idx, m), 20)
+    ms_small = queued_ms(lambda: sha512.h_digits_gather(*small), 20)
+    print(f"K2g: digits identical to the plain version at widths {_widths()} ({int(in_range.sum())}/{LANES} "
+          f"indices in range); {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["h_digits_idx"] = dict(
-        ms=events_ms(lambda: sha512.h_digits_gather(r, ct.keys_u8, idx, m), 20), plain_ms=plain_ms,
+        ms=ms, plain_ms=plain_ms,
         max_abs_err=_max_abs(hk, want), bytes=LANES * (32 + 32 + 4 + 64) + 32 * n,
         ops=LANES * H_DIGITS_OPS_PER_LANE,
     )
@@ -894,6 +982,7 @@ REPLACES = {
     "compress_eq": "hotstuff_tpu/ops/ed25519.py:591",
     "committee_ladder": "hotstuff_tpu/ops/ed25519.py:412",
     "h_digits_idx": "hotstuff_tpu/ops/ed25519.py:480",
+    "reduce_mod_l": "hotstuff_tpu/ops/sha512.py:421",
 }
 
 
@@ -918,6 +1007,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     phase_build()
     kernels = phase_compare(args.seed)
+    kernels.update(phase_reduce_compare())
     main_path = phase_main_path(args.seed)
     committee_path = phase_committee_path(args.seed)
     committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])

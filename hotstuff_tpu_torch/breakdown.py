@@ -10,7 +10,10 @@ K3, K1, K4, and the mask readback. With `--committee` the batch is a
 committee batch (64 validators, `bench.py --committee-cache`'s size, random
 validator indices) through `verify_batch_mask_committee`, and the layers
 are staging, upload (wire rows and indices), unpack, K2g, K5, K4 and
-readback. Finally `torch.profiler` over one batch gives the device's busy
+readback. A kernel's time is its device time with launches queued behind
+a spin kernel (`queued_ms`); upload and unpack are CUDA events around
+calls as the host issues them (`events_ms`), staging and readback host
+clock. Finally `torch.profiler` over one batch gives the device's busy
 share (device time / wall time of the batch). Prints one JSON line. Needs a
 CUDA device; exits non-zero without one.
 """
@@ -38,6 +41,24 @@ def events_ms(fn, reps: int = 10) -> float:
     current stream), after one warm-up call."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device ms per call of `fn` with the host's launch time taken
+    out: a spin kernel (`torch.cuda._sleep`, about 5 ms) holds the stream
+    while the host queues the `reps` calls, so the events see the calls run
+    back to back. `events_ms` reads the host's launch interval instead
+    whenever a call is shorter than it."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -146,10 +167,10 @@ def _generic_layers(v, msgs, keys, sigs, n) -> dict:
         "stage_ms": stage_ms,
         "upload_ms": upload_ms,
         "unpack_ms": unpack_ms,
-        "h_digits_ms": events_ms(lambda: sha512.h_digits(r, a, m)),
-        "decompress_table_ms": events_ms(lambda: ed.decompress_table(a)),
-        "ladder_ms": events_ms(lambda: ladder.ladder(sd, hd, table)),
-        "compress_eq_ms": events_ms(lambda: ed.compress_eq(point, r, valid)),
+        "h_digits_ms": queued_ms(lambda: sha512.h_digits(r, a, m)),
+        "decompress_table_ms": queued_ms(lambda: ed.decompress_table(a)),
+        "ladder_ms": queued_ms(lambda: ladder.ladder(sd, hd, table)),
+        "compress_eq_ms": queued_ms(lambda: ed.compress_eq(point, r, valid)),
         "readback_ms": _host_ms(lambda: mask.cpu()),
     }
 
@@ -177,9 +198,9 @@ def _committee_layers(v, table, msgs, indices, sigs, n) -> dict:
         "stage_ms": stage_ms,
         "upload_ms": upload_ms,
         "unpack_ms": unpack_ms,
-        "h_digits_idx_ms": events_ms(lambda: sha512.h_digits_gather(r, table.keys_u8, idx, m)),
-        "committee_ladder_ms": events_ms(lambda: cm.committee_ladder(sd, hd, table, idx)),
-        "compress_eq_ms": events_ms(lambda: ed.compress_eq(point, r, lane_valid)),
+        "h_digits_idx_ms": queued_ms(lambda: sha512.h_digits_gather(r, table.keys_u8, idx, m)),
+        "committee_ladder_ms": queued_ms(lambda: cm.committee_ladder(sd, hd, table, idx)),
+        "compress_eq_ms": queued_ms(lambda: ed.compress_eq(point, r, lane_valid)),
         "readback_ms": _host_ms(lambda: mask.cpu()),
     }
 

@@ -1,20 +1,23 @@
 """The ladder kernels (K1 `ladder`, K5 `committee_ladder`), K3
-`decompress_table` and K4 `compress_eq` of this checkout beside the same
-kernels of other checkouts, on one card.
+`decompress_table`, K4 `compress_eq`, K2 `h_digits` and K2g `h_digits_idx`
+of this checkout beside the same kernels of other checkouts, on one card.
 
     python3 -m hotstuff_tpu_torch.ladder_ab [--csrc NAME=DIR ...] [--reps 3]
 
 `--csrc NAME=DIR` names another checkout's `hotstuff_tpu_torch/ops/csrc/`
 (e.g. an earlier commit unpacked with `git archive`, or a copy with an
 edit), built with the flags of `ops/_build.py`. For each build, per
-kernel: ptxas' registers and spills, and the SASS instructions of the
-kernel's longest loop body by opcode (`cuobjdump -sass`: its longest
-backward branch; the 64-group loop of a ladder, the `split_sq_n` /
-`fe_sq_n` squaring loop of K4, so one squaring per thread, K3's loop over
-table entries). Then every build's output must equal this checkout's
-(ladders: raw limbs and `lane_valid`; K3: raw limbs and valid; K4: the
-mask), and the builds are timed in turns (CUDA
-events, mean of several launches) at 128 and 4,096 lanes. The last line is
+kernel: ptxas' registers, spills and stack frame, and SASS instructions by
+opcode (`cuobjdump -sass`): for the ladders, K3 and K4 those of the
+kernel's longest loop body (its longest backward branch; the 64-group loop
+of a ladder, the `split_sq_n` / `fe_sq_n` squaring loop of K4, so one
+squaring per thread, K3's loop over table entries); for K2 and K2g, which
+have no loop once unrolled, the whole kernel function. Then every build's
+output must equal this checkout's (ladders: raw limbs and `lane_valid`; K3: raw limbs and
+valid; K4: the mask; K2 / K2g: the digits), and the builds are timed in
+turns at 128 and 4,096 lanes: CUDA events over several launches as the host
+issues them (`events_ms`), and over launches queued behind a spin kernel,
+which leaves the host's launch time out (`queued_ms`). The last line is
 one JSON object with all of it, beside the card's name and power limit.
 Needs a CUDA card and `nvcc`.
 """
@@ -31,16 +34,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .breakdown import events_ms
+from .breakdown import events_ms, queued_ms
 from .crypto import pysigner
 from .ops import _build
 from .ops import ed25519 as ed
 from .ops import field, ladder
 
-SOURCES = ("ladder", "committee_ladder", "decompress_table", "compress_eq")
+SOURCES = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits", "h_digits_idx")
+# Kernels counted over their whole function (no loop once unrolled): the
+# cuobjdump function names of this checkout's build and of earlier ones.
+WHOLE_FUNCTION = {
+    "h_digits": r"h_digits_kernel(ILb0E|P)",
+    "h_digits_idx": r"h_digits_(idx_kernel|kernelILb1E)",
+}
 WIDTHS = (128, 4096)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)")
+_FUNCTION = re.compile(r"Function : (\S+)")
+
+
+def source_of(kernel: str) -> str:
+    return _build.EXTRA_ENTRY_POINTS.get(kernel, kernel)
 
 
 def build(jobs: dict[str, Path]) -> dict:
@@ -50,7 +64,7 @@ def build(jobs: dict[str, Path]) -> dict:
     for name, csrc in jobs.items():
         out = _build.BUILD / "ab" / name
         out.mkdir(parents=True, exist_ok=True)
-        for src in SOURCES:
+        for src in dict.fromkeys(map(source_of, SOURCES)):
             lib, log = out / f"lib{src}.so", out / f"{src}.log"
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
                    str(csrc / f"{src}.cu")]
@@ -64,15 +78,23 @@ def build(jobs: dict[str, Path]) -> dict:
     return dict(builds)
 
 
-def loop_body_counts(lib: Path) -> dict:
-    """SASS instructions of the longest backward branch (a `#pragma unroll
-    1` loop: a ladder's group loop, K4's squaring loop, K3's entry loop),
-    counted by opcode (before the first '.'), plus
-    `total` and the library's static count `all`."""
+def sass_counts(lib: Path, kernel: str) -> dict:
+    """SASS instructions counted by opcode (before the first '.'), plus
+    `total` and the library's static count `all`. For a kernel of
+    WHOLE_FUNCTION, every instruction of its function; otherwise those of
+    the library's longest backward branch (a `#pragma unroll 1` loop: a
+    ladder's group loop, K4's squaring loop, K3's entry loop)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
     insns = [(int(m.group(1), 16), m.group(3), m.group(4)) for m in _INSN.finditer(sass)]
+    if kernel in WHOLE_FUNCTION:
+        mine = [sec for sec in re.split(r"(?=Function : )", sass)
+                if (f := _FUNCTION.match(sec)) and re.search(WHOLE_FUNCTION[kernel], f.group(1))]
+        if len(mine) != 1:
+            raise SystemExit(f"ladder_ab: {len(mine)} SASS functions of {kernel} in {lib}")
+        counts = collections.Counter(m.group(3).split(".")[0] for m in _INSN.finditer(mine[0]))
+        return dict(counts.most_common(), total=sum(counts.values()), all=len(insns))
     lo, hi = 0, -1
     for addr, op, args in insns:
         t = _TARGET.search(args) if op.startswith("BRA") else None
@@ -84,22 +106,26 @@ def loop_body_counts(lib: Path) -> dict:
 
 def inputs(seed: int, lanes: int, dev) -> dict:
     """Random digits, random keys (about half decompress) and K3's table of
-    them, a 64-validator committee table with random indices, and K4's
-    inputs: K1's points, R rows that match them on every even lane, valid
-    on all but every seventh lane."""
+    them, a 64-validator committee table with random indices (every 97th
+    out of range), K4's inputs: K1's points, R rows that match them on
+    every even lane, valid on all but every seventh lane; and K2's R and M
+    rows."""
     rng = np.random.default_rng(seed)
     digits = lambda: torch.from_numpy(rng.integers(0, 16, (64, lanes), np.uint8)).to(dev)
     keys = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
     table, _ = ed.decompress_table(keys)
     vkeys = [pysigner.keypair_from_seed(bytes(r))[0] for r in rng.integers(0, 256, (64, 32), np.uint8)]
     ct = ed.CommitteeTable(vkeys, dev)
-    idx = torch.from_numpy(rng.integers(0, ct.size, lanes).astype(np.int32)).to(dev)
+    idx_np = rng.integers(0, ct.size, lanes).astype(np.int32)
+    idx_np[::97] = -1
+    idx = torch.from_numpy(idx_np).to(dev)
     sd, hd = digits(), digits()
     xyzt = ladder.ladder(sd, hd, table)
     r = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
     r[:, ::2] = ed.compress(xyzt)[:, ::2]
     valid = torch.tensor([i % 7 != 5 for i in range(lanes)], device=dev)
-    return dict(keys=keys, sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid)
+    m = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
+    return dict(keys=keys, sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid, m=m)
 
 
 def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
@@ -111,6 +137,14 @@ def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
         xyzt, r, valid = cut(x["xyzt"]), cut(x["r"]), cut(x["valid"])
         mask = torch.empty((w,), dtype=torch.bool, device=dev)
         return mask, None, lambda: kernel.launch(xyzt, r, valid, mask, w)
+    if src in ("h_digits", "h_digits_idx"):
+        r, m, idx = cut(x["r"]), cut(x["m"]), cut(x["idx"])
+        digits = torch.empty((64, w), dtype=torch.uint8, device=dev)
+        if src == "h_digits":
+            keys = cut(x["keys"])
+            return digits, None, lambda: kernel.launch(r, keys, m, digits, w)
+        keys = x["ct"].keys_u8
+        return digits, None, lambda: kernel.launch(r, keys, idx, m, digits, keys.shape[1], w)
     if src == "decompress_table":
         keys = cut(x["keys"])
         table = torch.empty((4, 16, field.NL, w), dtype=torch.int32, device=dev)
@@ -138,7 +172,7 @@ def main() -> int:
     dev = torch.device("cuda")
     _build.build_all()
     builds = {"shipped": {src: (_build.build_dir() / f"lib{src}.so", _build.build_dir() / f"{src}.log")
-                          for src in SOURCES}}
+                          for src in map(source_of, SOURCES)}}
     jobs = {}
     for spec in args.csrc:
         name, _, path = spec.partition("=")
@@ -149,12 +183,14 @@ def main() -> int:
     report, kernels = {"card": card, "builds": {}}, {}
     for name, per_src in builds.items():
         report["builds"][name] = {}
-        for src, (lib, log) in per_src.items():
-            ptxas = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
+        for src in SOURCES:
+            lib, log = per_src[source_of(src)]
+            ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             row = dict(ptxas=" | ".join(ptxas), spill_bytes=_build.spill_bytes("\n".join(ptxas)),
-                       sass_loop=loop_body_counts(lib))
+                       sass=sass_counts(lib, src))
             report["builds"][name][src] = row
-            kernels[name, src] = _build.Kernel(src, lib=lib)
+            kernels[name, src] = _build.Kernel(src, source_of(src), lib=lib)
             print(f"{name} {src}: {row}", flush=True)
 
     x = inputs(args.seed, max(WIDTHS), dev)
@@ -168,13 +204,16 @@ def main() -> int:
             for name, (out, valid, _) in runs.items():
                 if not torch.equal(out, ref_out) or (valid is not None and not torch.equal(valid, ref_valid)):
                     raise SystemExit(f"ladder_ab: {name}/{src} differs from the shipped build at {w} lanes")
-            times = collections.defaultdict(list)
+            times, queued = collections.defaultdict(list), collections.defaultdict(list)
             for _ in range(args.reps):
                 for name, (_, _, run) in runs.items():
                     times[name].append(events_ms(run, 20 if w <= 128 else 5))
+                    queued[name].append(queued_ms(run, 20))
             for name, t in times.items():
                 report["builds"][name][src][f"ms_{w}"] = t
-                print(f"{name} {src} {w} lanes: {[round(v, 4) for v in t]} ms", flush=True)
+                report["builds"][name][src][f"queued_ms_{w}"] = queued[name]
+                print(f"{name} {src} {w} lanes: {[round(v, 4) for v in t]} ms, queued "
+                      f"{[round(v, 4) for v in queued[name]]} ms", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps(report), flush=True)
     return 0

@@ -12,8 +12,9 @@ Every exported C function has the shape
 launches on the given stream, and returns `cudaGetLastError()`;
 `Kernel.launch` raises when that is not 0. There is no fallback: a kernel
 that does not build or launch is an error. A source may export more than
-one entry point (`h_digits.cu`: `hs_h_digits` and `hs_h_digits_idx`); each
-entry point is a `Kernel` with its own launch count.
+one entry point (`h_digits.cu`: `hs_h_digits`, `hs_h_digits_idx` and the
+test entry `hs_reduce_mod_l`); each entry point is a `Kernel` with its own
+launch count.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
 NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder")
 # Entry points beyond `hs_<source name>`: kernel name -> its source.
-EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits"}
+EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits"}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -110,13 +111,14 @@ def build_all() -> float:
 
 
 def ptxas_report() -> dict[str, str]:
-    """Per kernel, the ptxas lines on registers / spills of its last build."""
+    """Per kernel source, the ptxas lines of its last build on each entry
+    function, its registers, stack frame and spills."""
     out = {}
     for name in NAMES:
         log = build_dir() / f"{name}.log"
         if log.exists():
             lines = [ln.strip() for ln in log.read_text().splitlines()
-                     if "registers" in ln or "spill" in ln]
+                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             out[name] = " | ".join(lines)
     return out
 

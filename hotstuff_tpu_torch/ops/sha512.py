@@ -8,13 +8,15 @@ uint32 pairs and reduces mod L with f32 limb folds; the port has native
 
   * `sha512_96`: 80 rounds on int64 words (two's complement wraps like
     uint64; right shifts are masked to act as logical shifts);
-  * `reduce_mod_l`: TweetNaCl's `modL` on 64 signed byte limbs — folds the
-    top bytes down with 2^256 = -16C (mod L), C = L - 2^252, then one
-    estimate-and-subtract at the 2^252 boundary; exact for any 512-bit x;
-  * `nibble_rows`: the 64 little-endian 4-bit ladder digits.
+  * `reduce_mod_l`: three limb-aligned folds with 2^252 = -C (mod L),
+    C = L - 2^252, on radix-2^28 limbs in int64 columns, then one
+    conditional add of L; exact and canonical for any 512-bit x;
+  * `nibble_rows`: the 64 little-endian 4-bit ladder digits of bytes.
 
 `h_digits` is the kernel wrapper: CUDA tensors launch `csrc/h_digits.cu`,
-CPU tensors take `h_digits_plain`, which runs the same integer steps.
+CPU tensors take `h_digits_plain`, which runs the kernel's integer steps
+(the digits come straight from the reduction's limbs, as in the kernel).
+`reduce_mod_l_device` runs the kernel's reduction alone (a test entry).
 `h_digits_gather` (kernel K2g, the committee path) is the same hash with
 each lane's key read from the committee's key table by validator index.
 """
@@ -28,7 +30,6 @@ import torch
 from . import _build
 
 L = 2**252 + 27742317777372353535851937790883648493
-L_BYTES = tuple(L.to_bytes(32, "little"))
 
 # --- round constants (FIPS 180-4: frac of cube/square roots of primes) -----
 
@@ -118,30 +119,145 @@ def sha512_96(r: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor
     return torch.stack(rows).to(torch.uint8)
 
 
+# --- h mod L on radix-2^28 limbs (the kernel's reduction, step for step) ----
+#
+# x < 2^512 is 19 limbs of 28 bits. 2^252 = 2^(9 * 28) is the start of limb
+# 9, and 2^252 = -C (mod L) with C = L - 2^252 < 2^125 (5 limbs), so each
+# fold x_lo - x_hi * C is limb-aligned:
+#   fold 1: 19 limbs -> 14 columns, 10 x 5 products; y in (-2^385, 2^252);
+#   fold 2: limbs 9..13 of y (signed top) -> 9 columns, 5 x 5 products;
+#           z in [0, 2^252 + 2^258), carried to 10 limbs, z_hi = limb 9 <= 65;
+#   fold 3: 5 products z_hi * C; w in (-2^132, 2^252), w_hi = limb 9 in {-1, 0};
+#   w < 0: add L, i.e. w_lo + C < L, so the result is canonical.
+# Columns are signed int64 sums of int32 products (one IMAD.WIDE each on
+# the card); `column_bounds` gives the largest |column| of each fold
+# (< 2^58; tests/test_torch_sha512.py pins it below 2^63).
+
+RADIX = 28
+MASK28 = (1 << RADIX) - 1
+C = L - 2**252
+C_LIMBS = tuple((C >> (RADIX * i)) & MASK28 for i in range(5))
+# Ranges of the limbs each fold reads (w: what the final add of L reads),
+# as the comment above derives them from the value bounds: (low limbs, top
+# limb).
+LIMB_RANGES = {
+    "x": ((0, MASK28), (0, 255)),  # 19 limbs, limb 18 holds bits 504..511
+    "y": ((0, MASK28), (-(1 << 21), 0)),  # 14 limbs, floor(y / 2^364)
+    "z": ((0, MASK28), (0, 65)),  # 10 limbs, floor(z / 2^252)
+    "w": ((0, MASK28), (-1, 0)),  # 10 limbs, floor(w / 2^252)
+}
+
+
+def _le_words(x64: torch.Tensor) -> list[torch.Tensor]:
+    """(64, B) uint8 little-endian value -> 8 int64 words, word q holding
+    bytes 8q..8q+7 (value = sum of word q * 2^(64 q), words as uint64)."""
+    x = x64.long()
+    words = []
+    for q in range(8):
+        w = x[8 * q + 7] << 56
+        for k in range(6, -1, -1):
+            w = w | (x[8 * q + k] << (8 * k))
+        words.append(w)
+    return words
+
+
+def _limbs_of_words(e: list[torch.Tensor]) -> list[torch.Tensor]:
+    """8 little-endian 64-bit words -> 19 limbs of 28 bits (limb k = bits
+    28k..28k+27; limb 18 = bits 504..511)."""
+    limbs = []
+    for k in range(19):
+        q, off = divmod(RADIX * k, 64)
+        v = _shr(e[q], off) if off else e[q]
+        if off > 64 - RADIX and q + 1 < 8:
+            v = v | (e[q + 1] << (64 - off))
+        limbs.append(v & MASK28)
+    return limbs
+
+
+def _carry(cols: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Normalise columns: limbs 0..n-2 into [0, 2^28), the top limb takes
+    the (signed) rest. Arithmetic shifts, as `>>` on int64 on the card."""
+    out = list(cols)
+    for k in range(len(out) - 1):
+        carry = out[k] >> RADIX
+        out[k] = out[k] & MASK28
+        out[k + 1] = out[k + 1] + carry
+    return out
+
+
+def _reduce_stages(e: list[torch.Tensor]) -> dict[str, list[torch.Tensor]]:
+    """The reduction of the value held by 8 little-endian 64-bit words, fold
+    by fold: {"x", "y", "z", "w", "h"} limb lists, `h` the 10 canonical
+    limbs of value mod L (limb 9 is bit 252)."""
+    x = _limbs_of_words(e)
+    zero = torch.zeros_like(x[0])
+    y = [x[k] if k < 9 else zero for k in range(14)]
+    for i in range(10):
+        for j in range(5):
+            y[i + j] = y[i + j] - x[9 + i] * C_LIMBS[j]
+    y = _carry(y)
+    z = y[:9] + [zero]
+    for i in range(5):
+        for j in range(5):
+            z[i + j] = z[i + j] - y[9 + i] * C_LIMBS[j]
+    z = _carry(z)
+    w = z[:9] + [zero]
+    for j in range(5):
+        w[j] = w[j] - z[9] * C_LIMBS[j]
+    w = _carry(w)
+    h = w[:9] + [zero]  # w < 0 (w_hi = -1): w + L = w_lo + C
+    for j in range(5):
+        h[j] = h[j] + (w[9] & C_LIMBS[j])
+    return {"x": x, "y": y, "z": z, "w": w, "h": _carry(h)}
+
+
+def column_bounds() -> dict[str, int]:
+    """Largest |column| of each fold as its carry reads it: the kept low
+    limb, the column's products -limb * C_j over the limb ranges of
+    LIMB_RANGES, and the carry in from the column below."""
+
+    def fold(src: str, n_hi: int, n_cols: int) -> int:
+        low, top = LIMB_RANGES[src]
+        ranges = [low] * (n_hi - 1) + [top]
+        best = carry = 0
+        for k in range(n_cols):
+            lo, hi = -carry, (MASK28 if k < 9 else 0) + carry
+            for i, (a, b) in enumerate(ranges):
+                if 0 <= k - i < 5:
+                    lo, hi = lo - b * C_LIMBS[k - i], hi - a * C_LIMBS[k - i]
+            best = max(best, -lo, hi)
+            carry = (max(-lo, hi) >> RADIX) + 1
+        return best
+
+    return {"fold1": fold("x", 10, 14), "fold2": fold("y", 5, 9), "fold3": fold("z", 1, 5)}
+
+
 def reduce_mod_l(x64: torch.Tensor) -> torch.Tensor:
     """(64, B) uint8 little-endian value < 2^512 -> (32, B) uint8 bytes of
-    value mod L, canonical (TweetNaCl `modL`, the algorithm of the kernel)."""
-    x = list(x64.long().unbind(0))
-    for i in range(63, 31, -1):
-        carry = torch.zeros_like(x[0])
-        for j in range(i - 32, i - 12):
-            x[j] = x[j] + carry - 16 * x[i] * L_BYTES[j - (i - 32)]
-            carry = (x[j] + 128) >> 8
-            x[j] = x[j] - (carry << 8)
-        x[i - 12] = x[i - 12] + carry
-        x[i] = torch.zeros_like(x[i])
-    carry = torch.zeros_like(x[0])
-    for j in range(32):
-        x[j] = x[j] + carry - (x[31] >> 4) * L_BYTES[j]
-        carry = x[j] >> 8
-        x[j] = x[j] & 255
-    for j in range(32):
-        x[j] = x[j] - carry * L_BYTES[j]
-    out = []
-    for i in range(32):
-        x[i + 1] = x[i + 1] + (x[i] >> 8)
-        out.append(x[i] & 255)
-    return torch.stack(out).to(torch.uint8)
+    value mod L, canonical. The kernel's limb steps (`_reduce_stages`)."""
+    d = _limb_nibbles(_reduce_stages(_le_words(x64))["h"])
+    return d[0::2] | (d[1::2] << 4)
+
+
+def _limb_nibbles(h: list[torch.Tensor]) -> torch.Tensor:
+    """10 canonical limbs -> (64, B) uint8 4-bit digits: 7 per 28-bit limb,
+    digit 63 = limb 9 (bit 252)."""
+    rows = [(h[k] >> (4 * i)) & 15 for k in range(9) for i in range(7)] + [h[9]]
+    return torch.stack(rows).to(torch.uint8)
+
+
+def reduce_mod_l_device(x64: torch.Tensor) -> torch.Tensor:
+    """The kernel's reduction alone (`hs_reduce_mod_l` in
+    `csrc/h_digits.cu`, a test entry): CPU tensors -> `reduce_mod_l`; CUDA
+    tensors -> the kernel's own `__device__` reduction on the given
+    (64, B) uint8 little-endian values (raises if it cannot launch)."""
+    if x64.device.type == "cpu":
+        return reduce_mod_l(x64)
+    batch = x64.shape[1]
+    _build.check(x64, (64, batch), torch.uint8, x64.device)
+    out = torch.empty((32, batch), dtype=torch.uint8, device=x64.device)
+    _build.KERNELS["reduce_mod_l"].launch(x64, out, batch)
+    return out
 
 
 def nibble_rows(b: torch.Tensor) -> torch.Tensor:
@@ -153,7 +269,7 @@ def nibble_rows(b: torch.Tensor) -> torch.Tensor:
 def h_digits_plain(r: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """(32, B) uint8 x3 -> (64, B) uint8 ladder digits of
     SHA-512(R||A||M) mod L."""
-    return nibble_rows(reduce_mod_l(sha512_96(r, a, m)))
+    return _limb_nibbles(_reduce_stages(_le_words(sha512_96(r, a, m)))["h"])
 
 
 def h_digits(r: torch.Tensor, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

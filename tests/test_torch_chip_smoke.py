@@ -27,7 +27,7 @@ ROW_KEYS = {"ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "bytes", "o
 @pytest.fixture
 def small_smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "LANES", LANES)
-    monkeypatch.setattr(breakdown, "events_ms", lambda fn, reps=10: 0.0)
+    monkeypatch.setattr(breakdown, "queued_ms", lambda fn, reps=20: 0.0)
     monkeypatch.setattr(chip_smoke, "_plain_ms", lambda fn: (0.0, fn()))
     return chip_smoke
 
@@ -94,3 +94,19 @@ def test_spill_bytes_parses_ptxas():
     assert _build.spill_bytes(clean) == 0
     assert _build.spill_bytes(clean.replace("0 bytes spill stores", "24 bytes spill stores")) == 24
     assert _build.spill_bytes("") == 0
+
+
+def test_phase_reduce_compare_on_cpu(small_smoke, capsys):
+    """The reduction phase's values are the reduction tests' own: the 11
+    edge values and the 4,096-value sweep (its first rows all-ones with a
+    zero byte, rows 256..511 near multiples of L)."""
+    edges, sweep = small_smoke._reduce_values()
+    assert len(edges) == 11 and len(sweep) == 4096
+    assert all(0 <= v < 2**512 for v in edges + sweep)
+    assert sum(v % pysigner.L < 4 or pysigner.L - v % pysigner.L < 4 for v in sweep[256:512]) == 256
+    results = small_smoke.phase_reduce_compare("cpu")
+    assert set(results) == {"reduce_mod_l"}
+    res = results["reduce_mod_l"]
+    assert ROW_KEYS <= set(res) and res["max_abs_err"] == 0
+    assert res["bytes"] == 4096 * 96 and res["bound_by"] in ("bytes", "operations")
+    assert "on 11 edge values and the 4096-value sweep" in capsys.readouterr().out

@@ -77,6 +77,60 @@ def test_reduce_mod_l_random_sweep():
     assert got == [v % L for v in vals]
 
 
+def _edge_and_sweep_values():
+    """The edge list of test_reduce_mod_l_exact and values around multiples
+    of L, where the reduction's last fold goes negative."""
+    vals = [0, 1, L - 1, L, L + 1, 2 * L - 1, 2**252, 2**256 - 1, 2**512 - 1,
+            (L << 134) + 5, (L << 259) - 1]
+    vals += [(k * L + d) % 2**512 for k in (1, 2, 3, 2**100, 2**259 - 1) for d in (-2, -1, 0, 1)]
+    rng = random.Random(23)
+    vals += [rng.randrange(2**512) for _ in range(200)]
+    return vals
+
+
+def _value_rows(vals):
+    return torch.from_numpy(np.array([list(v.to_bytes(64, "little")) for v in vals], np.uint8).T.copy())
+
+
+def test_column_bounds_below_int64():
+    """The largest |column| of each fold, from the limb ranges the folds
+    read: well inside int64 (the card accumulates them in int64 too)."""
+    bounds = TS.column_bounds()
+    assert set(bounds) == {"fold1", "fold2", "fold3"}
+    assert max(bounds.values()) < 2**63
+    assert bounds["fold1"] < 2**58 and bounds["fold2"] < 2**58 and bounds["fold3"] < 2**35
+    assert TS.C_LIMBS == tuple((TS.C >> (28 * i)) & (2**28 - 1) for i in range(5))
+    assert sum(c << (28 * i) for i, c in enumerate(TS.C_LIMBS)) == L - 2**252
+
+
+def test_limb_ranges_hold_at_the_edges():
+    """Every fold's limbs stay inside LIMB_RANGES (what column_bounds
+    assumes), the result limbs are canonical, and both sides of the final
+    conditional add of L are taken."""
+    vals = _edge_and_sweep_values()
+    st = TS._reduce_stages(TS._le_words(_value_rows(vals)))
+    for name, ((lo_min, lo_max), (top_min, top_max)) in TS.LIMB_RANGES.items():
+        limbs = st[name]
+        low = torch.stack(limbs[:-1])
+        assert int(low.min()) >= lo_min and int(low.max()) <= lo_max, name
+        assert int(limbs[-1].min()) >= top_min and int(limbs[-1].max()) <= top_max, name
+    assert [len(st[k]) for k in "xyzwh"] == [19, 14, 10, 10, 10]
+    assert 0 < int((st["w"][9] == -1).sum()) < len(vals)
+    got = [sum(st["h"][k][i].item() << (28 * k) for k in range(10)) for i in range(len(vals))]
+    assert got == [v % L for v in vals]
+
+
+def test_reduce_mod_l_device_on_cpu():
+    """The wrapper of the kernel's test entry takes `reduce_mod_l` on CPU
+    tensors; both agree with Python ints on the edge values."""
+    vals = _edge_and_sweep_values()
+    x = _value_rows(vals)
+    got = TS.reduce_mod_l_device(x)
+    assert got.dtype == torch.uint8 and got.shape == (32, len(vals))
+    assert torch.equal(got, TS.reduce_mod_l(x))
+    assert [int.from_bytes(bytes(got[:, i].tolist()), "little") for i in range(len(vals))] == [v % L for v in vals]
+
+
 def test_h_digits_matches_jax_and_host_staging():
     B = 32
     rs = [RNG.randbytes(32) for _ in range(B)]
@@ -118,3 +172,25 @@ def test_host_staging_matches_reference():
     ref = jed.prepare_batch_packed(long_msgs, keys, sigs, allow_native=False)
     np.testing.assert_array_equal(ours["packed"], ref["packed"])
     np.testing.assert_array_equal(ours["s_ok"], ref["s_ok"])
+
+
+def test_h_digits_gather_plain_matches_jax():
+    """K2g's plain version against the JAX committee path's gather
+    (`jnp.take(keys_u8, idx, axis=1)`) + `h_digits_on_device`, at the B = 32
+    shape of test_h_digits_matches_jax_and_host_staging; out-of-range
+    indices give all-zero digits."""
+    B, n = 32, 5
+    rng = np.random.default_rng(11)
+    r, m = (rng.integers(0, 256, (32, B), np.uint8) for _ in range(2))
+    keys = rng.integers(0, 256, (32, n), np.uint8)
+    idx = rng.integers(0, n, B).astype(np.int32)
+    oob = [3, 17, 31]
+    idx[oob] = [-1, n, 2**31 - 1]
+    got = TS.h_digits_gather_plain(*(torch.from_numpy(t) for t in (r, keys, idx, m)))
+    safe = np.clip(idx, 0, n - 1)
+    a = np.asarray(jnp.take(jnp.asarray(keys), jnp.asarray(safe), axis=1))
+    ref = np.asarray(jax.jit(JS.h_digits_on_device)(jnp.asarray(r), jnp.asarray(a), jnp.asarray(m)))
+    ref = ref.astype(np.uint8)
+    ref[:, oob] = 0
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert not got[:, oob].any()
