@@ -48,19 +48,57 @@ caught:
      `cryptography` wheel is installed, as a reported column); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
      against their plain versions at 4,096 lanes (random indices over the
      67-entry table, a few out of range, a ragged width), exactly; both
-     also at every width of WIDTHS and timed at 128 lanes beside 4,096.
+     also at every width of WIDTHS and timed at 128 lanes beside 4,096;
+  6. the crypto sidecar under full-width load: `remote.start` with the
+     reference's defaults (max_batch 8,192, urgent_below 256) on an event
+     loop in a thread of this process, around a fresh
+     `TorchBackend(device="cuda")` (chunk 4,096, max_bucket 8,192,
+     crossover 1), warmed up, phase 5's committee registered. Four
+     load-generator processes, one connection each as the nodes of a 4-node
+     committee, send back-to-back 976-item requests (one 500,000 B
+     payload of 512 B transactions) in three timed passes of 32,768
+     distinct triples signed through OpenSSL, ~1/16 corrupted; a fifth
+     sends phase 5's 96 QCs of 43 votes on the urgent lane meanwhile.
+     Every mask must equal the expected one, no lane may go to a client's
+     CPU or the host, the card must verify exactly the lanes sent, with no
+     committee batch and no K5 or K2g launch, and every urgent request
+     must be a critical dispatch. A fourth pass of distinct triples runs
+     under `torch.profiler` for the card's busy share, and a replay of it
+     must then be answered by the dedup cache on its valid lanes and by
+     the card on its invalid ones. Prints the rate of each pass with where
+     its host time went (the loop thread's and the process's CPU, the
+     parse, dedup scan, verdict caching and reply encoding, the backend
+     calls, the collector's pauses), each urgent round trip's segments
+     (p50 and the slowest), and the service's flush counts beside phase
+     3's rate;
+  7. four unchanged reference nodes (`python -m hotstuff_tpu.node.main
+     run --crypto remote --crypto-crossover 1`) and four clients (250 tx/s
+     of 512 B each, the reference's local benchmark) run 20 s against
+     phase 6's backend, served by `remote.start` in this process; the
+     sidecar CLI (`python -m hotstuff_tpu_torch.crypto.remote --committee`)
+     boots on the card beside them and answers one QC. Every node must
+     commit, digests must agree per round, no node may log a synthetic
+     verification failure or a fallback to its CPU, and the card must
+     verify lanes with the generic kernels only.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
-or of `hotstuff_tpu`. Exits non-zero without a result when no CUDA device
-is available or the port's package is not beside this script.
+or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
+Exits non-zero without a result when no CUDA device is available or the
+port's package is not beside this script.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import multiprocessing
 import os
+import re
+import shutil
+import signal
+import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -472,16 +510,26 @@ def _corrupt(seed: int, msgs, keys, sigs):
     per lane in turn. Returns (msgs, keys, sigs, expected mask)."""
     import numpy as np
 
-    from hotstuff_tpu_torch.crypto import pysigner
-
     rng = np.random.default_rng(seed + 2)
     M = [msgs[i % LANES] for i in range(BATCH)]
     K = [keys[i % LANES] for i in range(BATCH)]
     S = [sigs[i % LANES] for i in range(BATCH)]
-    expected = np.ones(BATCH, bool)
+    lanes = np.sort(rng.choice(BATCH, BATCH // 16, replace=False))
+    expected = _corrupt_lanes(M, K, S, lanes)
+    return M, K, S, expected, lanes
+
+
+def _corrupt_lanes(M, K, S, lanes):
+    """Corrupt `lanes` of the lists M, K, S in place, the six classes in
+    turn (flipped R byte, flipped S byte, s >= L, wrong message, a key
+    without a square root, non-canonical R). Returns the expected mask."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto import pysigner
+
+    expected = np.ones(len(M), bool)
     bad_key = _bad_key()
     noncanon_r = (pysigner.P + 1).to_bytes(32, "little")
-    lanes = np.sort(rng.choice(BATCH, BATCH // 16, replace=False))
     for n, i in enumerate(lanes):
         kind = n % 6
         s = S[i]
@@ -499,7 +547,7 @@ def _corrupt(seed: int, msgs, keys, sigs):
         else:  # non-canonical R (y = p + 1)
             S[i] = noncanon_r + s[32:]
         expected[i] = False
-    return M, K, S, expected, lanes
+    return expected
 
 
 def _host_hash_batch(pool):
@@ -895,7 +943,8 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
     identity = set(identity_lanes)
     ok_lanes = [i for i in range(len(M)) if expected[i] and i not in identity]
     crossover = phase_crossover(backend, M, K, S, ok_lanes)
-    return dict(launches=launches, table_keys=table_keys, rates=rates, crossover=crossover)
+    qcs = (M[:n_signed], K[:n_signed], S[:n_signed], expected[:n_signed].tolist())
+    return dict(launches=launches, table_keys=table_keys, rates=rates, crossover=crossover, qcs=qcs)
 
 
 SWEEP = (1, 2, 4, 8, 16, 32, QUORUM, 64)  # batch sizes of the crossover sweep
@@ -932,8 +981,6 @@ def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
     the card's committee and generic paths (`backend` has crossover 1 and
     the committee registered). A path's break-even is the least n of the
     sweep from which the card is faster at every larger n of the sweep."""
-    import statistics
-
     from hotstuff_tpu_torch.crypto.backend import HostBackend
     from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
     from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
@@ -975,6 +1022,697 @@ def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
     return res
 
 
+# --- phases 6 and 7: the crypto sidecar --------------------------------------
+
+SIDECAR_REQUEST = 976  # items per bulk request: one 500,000 B payload of 512 B transactions
+SIDECAR_PASS = 32_768  # distinct triples per timed pass
+SIDECAR_PASSES = 3
+# One more pass of distinct triples, under torch.profiler, for the card's
+# busy share; it is timed apart and not in the median.
+SIDECAR_TRACED = 1
+SIDECAR_CONNECTIONS = 4  # bulk connections, one per node of the 4-node local committee
+SIDECAR_KEYS = 1024
+URGENT_PER_PASS = SIGNED_QCS // SIDECAR_PASSES  # 43-vote requests on the urgent connection
+
+# The reference's local benchmark (benchmark/fabfile.py:22-43): 4 nodes,
+# 1,000 tx/s of 512 B for 20 s, and its node parameters, here with the
+# mempool's synthetic verification workload on.
+LOCAL_BENCH = {"nodes": 4, "rate": 1_000, "tx_size": 512, "duration": 20}
+LOCAL_NODE_PARAMS = {
+    "consensus": {
+        "timeout_delay": 1_000,
+        "sync_retry_delay": 10_000,
+        "max_payload_size": 1_000,
+        "min_block_delay": 0,
+    },
+    "mempool": {
+        "queue_capacity": 10_000,
+        "sync_retry_delay": 10_000,
+        "max_payload_size": 15_000,
+        "min_block_delay": 0,
+        "benchmark_mode": True,
+    },
+}
+BOOT_TIMEOUT_S = 120
+
+
+def _openssl_sign(args: tuple[bytes, list[bytes]]) -> tuple[bytes, list[bytes]]:
+    """Sign each message with the ed25519 key of `seed` through OpenSSL
+    (the `cryptography` wheel). Returns (public key, signatures)."""
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PrivateKey
+    from cryptography.hazmat.primitives.serialization import Encoding, PublicFormat
+
+    seed, msgs = args
+    sk = Ed25519PrivateKey.from_private_bytes(seed)
+    return sk.public_key().public_bytes(Encoding.Raw, PublicFormat.Raw), [sk.sign(m) for m in msgs]
+
+
+def _sidecar_corpus(seed: int, pool):
+    """(SIDECAR_PASSES + SIDECAR_TRACED) x SIDECAR_PASS distinct triples over distinct 32-byte messages, lane i signed by
+    key i mod SIDECAR_KEYS through OpenSSL, a seeded ~1/16 of lanes corrupted
+    (`_corrupt_lanes`). The expected mask is held against OpenSSL on every
+    corrupted lane and every 64th lane. Returns (M, K, S, expected)."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+
+    n, n_keys = (SIDECAR_PASSES + SIDECAR_TRACED) * SIDECAR_PASS, SIDECAR_KEYS
+    rng = np.random.default_rng(seed + 20)
+    seeds = [bytes(row) for row in rng.integers(0, 256, (n_keys, 32), np.uint8)]
+    M = [bytes(row) for row in rng.integers(0, 256, (n, 32), np.uint8)]
+    signed = pool.map(_openssl_sign, [(seeds[j], M[j::n_keys]) for j in range(n_keys)], chunksize=16)
+    K, S = [b""] * n, [b""] * n
+    for j, (pk, sigs) in enumerate(signed):
+        K[j::n_keys] = [pk] * len(sigs)
+        S[j::n_keys] = sigs
+    lanes = np.sort(rng.choice(n, n // 16, replace=False))
+    expected = _corrupt_lanes(M, K, S, lanes)
+    if len(set(zip(M, K, S))) != n:
+        fail("the sidecar corpus repeats a triple")
+    check = sorted({int(i) for i in lanes} | set(range(0, n, 64)))
+    got = _openssl_verifier()([M[i] for i in check], [PublicKey(K[i]) for i in check],
+                              [Signature(S[i]) for i in check])
+    if got != [bool(expected[i]) for i in check]:
+        fail("the sidecar corpus's expected mask disagrees with OpenSSL")
+    return M, K, S, expected
+
+
+def _requests(M, K, S, expected, lo: int, hi: int) -> list:
+    """Lanes [lo, hi) cut into requests of SIDECAR_REQUEST: (msgs, keys,
+    sigs, expected mask as a list)."""
+    return [(M[a:b], K[a:b], S[a:b], [bool(x) for x in expected[a:b]])
+            for a in range(lo, hi, SIDECAR_REQUEST) for b in [min(a + SIDECAR_REQUEST, hi)]]
+
+
+def _client_loop(conn, port: int) -> None:
+    """One sidecar connection in its own process: a RemoteBackend
+    (crossover 1) sends each job's requests back to back and sends back
+    the lanes whose mask differs from the expected one, each request's
+    send and reply times, the first send and the last reply
+    (time.monotonic, one clock for every process of the host) and the
+    client's stats. A None job ends the loop."""
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.remote import RemoteBackend
+
+    client = RemoteBackend(("127.0.0.1", port), crossover=1)
+    conn.send("ready")
+    while (requests := conn.recv()) is not None:
+        wrapped = [(m, [PublicKey(k) for k in ks], [Signature(s) for s in ss], want)
+                   for m, ks, ss, want in requests]
+        bad, times = 0, []
+        t0 = time.monotonic()
+        for m, ks, ss, want in wrapped:
+            t = time.monotonic()
+            mask = client.verify_batch_mask(m, ks, ss)
+            times.append((t, time.monotonic()))
+            bad += sum(a != b for a, b in zip(mask, want)) + abs(len(mask) - len(want))
+        conn.send(dict(bad=bad, times=times, t0=t0, t1=time.monotonic(), stats=dict(client.stats)))
+    client.close()
+
+
+class _Clients:
+    """`n` load-generator processes, one sidecar connection each."""
+
+    def __init__(self, port: int, n: int) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self.conns, self.procs = [], []
+        for _ in range(n):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_client_loop, args=(child, port), daemon=True)
+            proc.start()
+            self.conns.append(parent)
+            self.procs.append(proc)
+        for conn in self.conns:
+            if not conn.poll(BOOT_TIMEOUT_S) or conn.recv() != "ready":
+                fail("a load-generator process did not start")
+
+    def run(self, jobs: list) -> list[dict]:
+        for conn, job in zip(self.conns, jobs):
+            conn.send(job)
+        out = []
+        for conn in self.conns:
+            if not conn.poll(600):
+                fail("a load-generator process did not answer")
+            out.append(conn.recv())
+        return out
+
+    def close(self) -> None:
+        for conn, proc in zip(self.conns, self.procs):
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+
+
+class _Sidecar:
+    """The port's sidecar (`remote.start`, the reference's defaults unless
+    given) on an event loop in a thread of this process, on a free port.
+    What its loggers warn of and what its loop reports as unhandled lands
+    in `errors`."""
+
+    def __init__(self, backend, **kw) -> None:
+        import asyncio
+        import logging
+        import threading
+
+        from hotstuff_tpu_torch.crypto import remote
+
+        self.errors: list[str] = []
+        errors = self.errors
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                errors.append(f"{record.name}: {record.getMessage()}")
+
+        self._handler = Keep(logging.WARNING)
+        logging.getLogger("hotstuff").addHandler(self._handler)
+        self.loop = asyncio.new_event_loop()
+        self.loop.set_exception_handler(lambda loop, ctx: errors.append(f"loop: {ctx.get('exception') or ctx['message']}"))
+        self._thread = threading.Thread(target=self.loop.run_forever, name="sidecar", daemon=True)
+        self._thread.start()
+        start = remote.start(("127.0.0.1", 0), backend, **kw)
+        self.server, self.service = asyncio.run_coroutine_threadsafe(start, self.loop).result(60)
+        self.port = self.server.sockets[0].getsockname()[1]
+
+    def thread_time(self) -> float:
+        """CPU seconds of the sidecar's event-loop thread so far."""
+        import asyncio
+
+        async def read():
+            return time.thread_time()
+
+        return asyncio.run_coroutine_threadsafe(read(), self.loop).result(60)
+
+    def stop(self) -> None:
+        import asyncio
+        import logging
+
+        async def shutdown():
+            self.server.close()
+            tasks = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+        asyncio.run_coroutine_threadsafe(shutdown(), self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(60)
+        self.loop.close()
+        logging.getLogger("hotstuff").removeHandler(self._handler)
+
+
+class _Timed:
+    """Wraps the function `owner.name` (plain or coroutine) so that each
+    call adds (start, end, thread CPU seconds, size(args, result)) to the
+    records that `take()` returns and clears; `restore()` puts it back.
+    Times are time.monotonic, one clock with the load generators. A
+    coroutine's CPU seconds are those of every task its thread ran
+    meanwhile, so they are not read."""
+
+    def __init__(self, owner, name: str, size) -> None:
+        import inspect
+        import threading
+
+        self.owner, self.name, self.fn = owner, name, getattr(owner, name)
+        self.own = name in vars(owner)
+        self.records, self._lock = [], threading.Lock()
+        fn = self.fn
+
+        def add(t, c, out, args):
+            rec = (t, time.monotonic(), time.thread_time() - c, size(args, out))
+            with self._lock:
+                self.records.append(rec)
+
+        if inspect.iscoroutinefunction(fn):
+            async def timed(*args, **kw):
+                t, c = time.monotonic(), time.thread_time()
+                out = await fn(*args, **kw)
+                add(t, c, out, args)
+                return out
+        else:
+            def timed(*args, **kw):
+                t, c = time.monotonic(), time.thread_time()
+                out = fn(*args, **kw)
+                add(t, c, out, args)
+                return out
+
+        setattr(owner, name, timed)
+
+    def take(self) -> list[tuple[float, float, float, int]]:
+        with self._lock:
+            out, self.records = self.records, []
+        return out
+
+    def restore(self) -> None:
+        if self.own:
+            setattr(self.owner, self.name, self.fn)
+        else:
+            delattr(self.owner, self.name)
+
+
+class _GcPauses:
+    """The garbage collector's pauses in this process, as (start, end,
+    generation) on time.monotonic, until `close()`."""
+
+    def __init__(self) -> None:
+        self.pauses, self._start = [], 0.0
+        gc.callbacks.append(self._note)
+
+    def _note(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._start = time.monotonic()
+        else:
+            self.pauses.append((self._start, time.monotonic(), info["generation"]))
+
+    def take(self) -> list[tuple[float, float, int]]:
+        out, self.pauses = self.pauses, []
+        return out
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._note)
+
+
+def _wall(records) -> float:
+    return sum(r[1] - r[0] for r in records)
+
+
+def urgent_timeline(times, submits, calls, parses, gcs, n: int) -> tuple[list[dict], int]:
+    """Where each urgent request of `n` lanes spent its round trip, in ms.
+    `times` are the client's (send, reply) pairs; `submits`, `calls` and
+    `parses` the sidecar's `_Timed` records of `verify_group`, the backend
+    call and the parse; `gcs` the collector's pauses. Segments: wait (the
+    send to the parse's start: the wire and the loop thread's backlog),
+    parse, queue (`verify_group`'s start to the backend call's: the
+    scheduler, the dedup scan, the hand-off to a thread), backend (and its
+    thread's CPU), resolve (the call's end to `verify_group`'s return),
+    reply (to the client's receipt); gc is the collector's pause time
+    inside the round trip. Returns the rows and the count of requests
+    whose records were not all found."""
+    rows, unmatched = [], 0
+    for t_send, t_recv in times:
+        sub = [r for r in submits if r[3] == n and t_send <= r[0] <= t_recv]
+        call = sub and [r for r in calls if r[3] == n and sub[0][0] <= r[0] <= sub[0][1]]
+        parse = sub and [r for r in parses if r[3] == n and t_send <= r[0] <= sub[0][0]]
+        if len(sub) != 1 or len(call) != 1 or not parse:
+            unmatched += 1
+            continue
+        (sub,), (call,), parse = sub, call, parse[-1]
+        gc_s = sum(max(0.0, min(b, t_recv) - max(a, t_send)) for a, b, _ in gcs)
+        rows.append({k: v * 1e3 for k, v in dict(
+            rtt=t_recv - t_send, wait=parse[0] - t_send, parse=parse[1] - parse[0],
+            queue=call[0] - sub[0], backend=call[1] - call[0], backend_cpu=call[2],
+            resolve=sub[1] - call[1], reply=t_recv - sub[1], gc=gc_s).items()})
+    return rows, unmatched
+
+
+def phase_sidecar(seed: int, backend, committee_path: dict, direct_rate: float, card: str) -> dict:
+    """The sidecar under full-width load (see the module docstring),
+    serving `backend`."""
+    from hotstuff_tpu_torch.crypto import remote
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.utils import metrics
+    from hotstuff_tpu_torch.utils.metrics import percentile
+
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        M, K, S, expected = _sidecar_corpus(seed, pool)
+    n_bad = int((~expected).sum())
+    print(f"sidecar corpus: {len(M)} distinct triples over {SIDECAR_KEYS} keys (OpenSSL), {n_bad} corrupted "
+          f"lanes, in {time.perf_counter() - t0:.1f} s", flush=True)
+    QM, QK, QS, qexp = committee_path["qcs"]
+    urgent = [(QM[a:a + QUORUM], QK[a:a + QUORUM], QS[a:a + QUORUM], qexp[a:a + QUORUM])
+              for a in range(0, SIGNED_QCS * QUORUM, QUORUM)]
+
+    t0 = time.perf_counter()
+    remote.warmup_backend(backend)
+    backend.register_committee(committee_path["table_keys"], warmup=True)
+    sidecar = _Sidecar(backend)
+    print(f"sidecar: warmup and {len(committee_path['table_keys'])}-key committee in "
+          f"{time.perf_counter() - t0:.1f} s, serving on port {sidecar.port}; {len(gc.get_objects())} "
+          f"objects tracked by the collector in this process", flush=True)
+    clients = None
+    # Where a pass's host time goes: the event-loop thread's parse, dedup
+    # scan, verdict caching and reply encoding, the backend calls on the
+    # dispatch threads (they overlap), the collector's pauses, and the CPU
+    # seconds of the loop thread and of the whole process.
+    service = sidecar.service
+    timers = dict(
+        parse=_Timed(remote, "_parse_request", lambda a, r: len(r[0])),
+        reply=_Timed(remote, "_encode_reply", lambda a, r: len(a[0])),
+        lookup=_Timed(service, "_lookup", lambda a, r: len(a[0])),
+        remember=_Timed(service, "_remember", lambda a, r: len(a[1])),
+        submit=_Timed(service, "verify_group", lambda a, r: len(a[0])),
+        backend=_Timed(backend, "verify_batch_mask", lambda a, r: len(a[0])),
+    )
+    gc_pauses = _GcPauses()
+
+    def run_pass(p: int, jobs: list, lanes: int) -> tuple[list, dict, dict]:
+        """One pass of `jobs`; fails unless every mask is exact, no client
+        fell back and the card verified exactly `lanes`. Returns the
+        results, the pass's numbers and the timers' records."""
+        for t in timers.values():
+            t.take()
+        gc_pauses.take()
+        dev0, loop0, cpu0 = backend.stats["device_sigs"], sidecar.thread_time(), time.process_time()
+        res = clients.run(jobs)
+        loop_cpu, cpu = sidecar.thread_time() - loop0, time.process_time() - cpu0
+        device = backend.stats["device_sigs"] - dev0
+        rec = {k: t.take() for k, t in timers.items()}
+        rec["gc"] = gc_pauses.take()
+        wall = max(r["t1"] for r in res) - min(r["t0"] for r in res)
+        if any(r["bad"] for r in res):
+            fail(f"sidecar pass {p}: masks differ from the expected masks on {[r['bad'] for r in res]} lanes")
+        if any(r["stats"]["cpu_sigs"] for r in res):
+            fail(f"sidecar pass {p}: a client fell back to its CPU: {[r['stats'] for r in res]}")
+        if device != lanes:
+            fail(f"sidecar pass {p}: the card verified {device} lanes, {lanes} were sent")
+        gcs = rec["gc"]
+        out = dict(
+            device_sigs=device, wall_s=wall, sigs_per_s=device / wall, loop_cpu_s=loop_cpu, process_cpu_s=cpu,
+            **{f"{k}_s": _wall(rec[k]) for k in ("parse", "lookup", "remember", "reply", "backend")},
+            backend_cpu_s=sum(r[2] for r in rec["backend"]), backend_calls=len(rec["backend"]),
+            gc_s=sum(b - a for a, b, _ in gcs), gc_max_s=max((b - a for a, b, _ in gcs), default=0.0),
+            gc_full=sum(g == 2 for _, _, g in gcs),
+        )
+        print(f"sidecar pass {p}: {device} lanes on the card in {wall * 1e3:.1f} ms, {device / wall:.1f} sigs/s; "
+              f"loop thread CPU {loop_cpu * 1e3:.1f} ms ({loop_cpu / wall:.1%} of the pass), process CPU "
+              f"{cpu / wall:.2f} cores; on the loop thread parse {out['parse_s'] * 1e3:.1f} ms "
+              f"({out['parse_s'] / device * 1e6:.2f} us a lane), dedup scan {out['lookup_s'] * 1e3:.1f} ms, "
+              f"verdict caching {out['remember_s'] * 1e3:.1f} ms, reply encoding {out['reply_s'] * 1e3:.1f} ms; "
+              f"backend calls {out['backend_s'] * 1e3:.1f} ms wall and {out['backend_cpu_s'] * 1e3:.1f} ms CPU "
+              f"summed over {out['backend_calls']} calls; collector {out['gc_s'] * 1e3:.1f} ms in {len(gcs)} "
+              f"pauses (max {out['gc_max_s'] * 1e3:.1f} ms, {out['gc_full']} full)", flush=True)
+        return res, out, rec
+
+    try:
+        clients = _Clients(sidecar.port, SIDECAR_CONNECTIONS + 1)
+        metrics.reset()
+        stats0 = dict(backend.stats)
+        _build.reset_launches()
+        passes, urgent_rtts, urgent_rows, unmatched = [], [], [], 0
+        for p in range(SIDECAR_PASSES):
+            reqs = _requests(M, K, S, expected, p * SIDECAR_PASS, (p + 1) * SIDECAR_PASS)
+            jobs = [reqs[c::SIDECAR_CONNECTIONS] for c in range(SIDECAR_CONNECTIONS)]
+            jobs.append(urgent[p * URGENT_PER_PASS:(p + 1) * URGENT_PER_PASS])
+            res, out, rec = run_pass(p, jobs, SIDECAR_PASS + URGENT_PER_PASS * QUORUM)
+            rows, missed = urgent_timeline(res[-1]["times"], rec["submit"], rec["backend"], rec["parse"],
+                                           rec["gc"], QUORUM)
+            urgent_rtts += [b - a for a, b in res[-1]["times"]]
+            urgent_rows += [dict(row, pass_=p) for row in rows]
+            unmatched += missed
+            passes.append(out)
+        sched = dict(service.scheduler.stats)
+        service_stats = dict(service.stats)
+        buckets = metrics.dump()["histograms"]["scheduler.bucket_size"]
+        queue = service.lane_stats.summary()
+
+        # The traced pass: bulk load alone under torch.profiler (device
+        # activity only), for the card's busy share over the pass's wall.
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        p = SIDECAR_PASSES
+        reqs = _requests(M, K, S, expected, p * SIDECAR_PASS, (p + 1) * SIDECAR_PASS)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, traced, _ = run_pass(p, [reqs[c::SIDECAR_CONNECTIONS] for c in range(SIDECAR_CONNECTIONS)] + [[]],
+                                    SIDECAR_PASS)
+            torch.cuda.synchronize()
+        device_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+                        for e in prof.key_averages())
+        traced["device_busy_share"] = device_us / 1e6 / traced["wall_s"] if device_us else "not measured"
+        print(f"sidecar traced pass {p}: card busy {traced['device_busy_share']} of the pass "
+              f"({device_us / 1e3:.1f} ms of device time)", flush=True)
+
+        launches = _build.launches()
+        counters = metrics.dump()["counters"]
+        st = backend.stats
+        if st["host_sigs"] != stats0["host_sigs"] or st["committee_batches"] != stats0["committee_batches"]:
+            fail(f"sidecar lanes on the host or the committee path: {st}")
+        if counters["verifier.dedup_hits"]:
+            fail(f"distinct triples hit the dedup cache: {counters}")
+        if launches["committee_ladder"] or launches["h_digits_idx"] or any(launches[k] == 0 for k in GENERIC_KERNELS):
+            fail(f"wire traffic did not launch exactly the generic kernels: {launches}")
+        if sched["critical_dispatches"] < SIDECAR_PASSES * URGENT_PER_PASS:
+            fail(f"urgent requests did not take the critical lane: {sched}")
+
+        # Replay the traced pass: its valid lanes are all still cached (no
+        # valid triple was inserted after them).
+        lo = SIDECAR_PASSES * SIDECAR_PASS
+        last = _requests(M, K, S, expected, lo, lo + SIDECAR_PASS)
+        hits0, dev0 = counters["verifier.dedup_hits"], backend.stats["device_sigs"]
+        res = clients.run([last[c::SIDECAR_CONNECTIONS] for c in range(SIDECAR_CONNECTIONS)] + [[]])
+        seg = expected[lo:lo + SIDECAR_PASS]
+        hits = metrics.dump()["counters"]["verifier.dedup_hits"] - hits0
+        device = backend.stats["device_sigs"] - dev0
+        if any(r["bad"] or r["stats"]["cpu_sigs"] for r in res):
+            fail("sidecar replay: masks differ or a client fell back to its CPU")
+        if hits != int(seg.sum()) or device != int((~seg).sum()):
+            fail(f"sidecar replay: {hits} dedup hits for {int(seg.sum())} valid lanes, "
+                 f"{device} card lanes for {int((~seg).sum())} invalid ones")
+        print(f"sidecar replay of pass {SIDECAR_PASSES}: {hits} dedup hits (its valid lanes), "
+              f"{device} lanes on the card (its invalid lanes)", flush=True)
+        if sidecar.errors:
+            fail(f"the sidecar reported: {sidecar.errors[:5]}")
+    finally:
+        for t in timers.values():
+            t.restore()
+        gc_pauses.close()
+        if clients is not None:
+            clients.close()
+        sidecar.stop()
+
+    rates = [p["sigs_per_s"] for p in passes]
+    # Segments of the urgent requests whose records were all found (an
+    # urgent group that shared a flush with another has none of its own).
+    worst = max(urgent_rows, key=lambda row: row["rtt"])
+    segments = [k for k in worst if k != "pass_"]
+    urgent_p50 = {k: percentile([row[k] for row in urgent_rows], 0.5) for k in segments}
+    result = dict(
+        passes=passes, sigs_per_s_median=statistics.median(rates), sigs_per_s_min=min(rates),
+        sigs_per_s_max=max(rates), direct_sigs_per_s=direct_rate, traced=traced,
+        urgent_rtt_ms_p50=1e3 * percentile(urgent_rtts, 0.5), urgent_rtt_ms_max=1e3 * max(urgent_rtts),
+        urgent_requests=len(urgent_rtts), urgent_p50_ms=urgent_p50, urgent_slowest_ms=worst,
+        urgent_unmatched=unmatched, service=service_stats, scheduler=sched,
+        bucket_size={k: buckets[k] for k in ("count", "min", "p50", "mean", "max")}, queue_delay=queue,
+        launches=launches, card=card,
+    )
+    print(f"sidecar: {statistics.median(rates):.1f} sigs/s median of {SIDECAR_PASSES} passes "
+          f"(min {min(rates):.1f}, max {max(rates):.1f}) over TCP, {SIDECAR_CONNECTIONS} connections of "
+          f"{SIDECAR_REQUEST}-item requests; direct TorchBackend (phase 3) {direct_rate:.1f} sigs/s; "
+          f"urgent {QUORUM}-vote round trip p50 {result['urgent_rtt_ms_p50']:.3f} ms, max "
+          f"{result['urgent_rtt_ms_max']:.3f} ms (request {urgent_rtts.index(max(urgent_rtts))}) over "
+          f"{len(urgent_rtts)} requests, {URGENT_PER_PASS} a pass; {card}", flush=True)
+    print(f"sidecar urgent round trip in ms over the {len(urgent_rows)} requests with a flush of their own "
+          f"({unmatched} without), p50 of each segment: "
+          + ", ".join(f"{k} {urgent_p50[k]:.3f}" for k in segments)
+          + f"; the slowest request (pass {worst['pass_']}): " + ", ".join(f"{k} {worst[k]:.3f}" for k in segments), flush=True)
+    print(f"sidecar service: {json.dumps(dict(service=service_stats, scheduler=sched, bucket_size=result['bucket_size'], queue_delay=queue, launches=launches))}", flush=True)
+    return result
+
+
+# --- phase 7: four reference nodes against the port's sidecar ----------------
+
+
+def _free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def write_node_configs(run_dir: Path, names: list[str], ports: list[int]) -> tuple[Path, Path]:
+    """The committee and parameters files of a local committee, in the
+    format of benchmark/config.py (`LocalCommittee`, `NodeParameters`):
+    node i's consensus, mempool and front addresses on ports[i],
+    ports[n + i] and ports[2n + i]; parameters LOCAL_NODE_PARAMS."""
+    n = len(names)
+    addr = lambda p: f"127.0.0.1:{p}"
+    committee = {
+        "consensus": {"epoch": 1, "authorities": {
+            name: {"stake": 1, "address": addr(ports[i])} for i, name in enumerate(names)}},
+        "mempool": {"epoch": 1, "authorities": {
+            name: {"front_address": addr(ports[2 * n + i]), "mempool_address": addr(ports[n + i])}
+            for i, name in enumerate(names)}},
+    }
+    paths = run_dir / ".committee.json", run_dir / ".parameters.json"
+    for path, obj in zip(paths, (committee, LOCAL_NODE_PARAMS)):
+        path.write_text(json.dumps(obj, indent=2, sort_keys=True))
+    return paths
+
+
+def committed_blocks(log_text: str) -> dict[int, str]:
+    """Round -> block digest of every `Committed B<r>(<digest>)` line of a
+    node log (consensus/core.py's commit line; the per-payload lines that
+    follow it are skipped)."""
+    return {int(r): d for r, d in re.findall(r"Committed B(\d+)\(([^)]*)\)\s*$", log_text, re.M)}
+
+
+def check_commits(logs: dict[str, str]) -> dict[str, dict[int, str]]:
+    """Every node committed a block, and where two nodes committed the same
+    round, the digests are equal. Returns the commits by node."""
+    commits = {name: committed_blocks(text) for name, text in logs.items()}
+    empty = [name for name, c in commits.items() if not c]
+    if empty:
+        fail(f"nodes committed no block: {empty}")
+    seen: dict[int, tuple[str, str]] = {}
+    for name, c in commits.items():
+        for r, d in c.items():
+            if r in seen and seen[r][1] != d:
+                fail(f"round {r}: {seen[r][0]} committed {seen[r][1]}, {name} committed {d}")
+            seen.setdefault(r, (name, d))
+    return commits
+
+
+def _spawn(cmd: list[str], log: Path, cwd: Path):
+    with open(log, "w") as out:
+        return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=cwd,
+                                env=dict(os.environ, PYTHONPATH=str(REPO)), start_new_session=True)
+
+
+def _await_logs(waits: list, phrase: str, what: str) -> None:
+    """Until every (log, process) has `phrase` in its log; fails when a
+    process exits first or BOOT_TIMEOUT_S passes."""
+    deadline = time.monotonic() + BOOT_TIMEOUT_S
+    pending = list(waits)
+    while pending:
+        if time.monotonic() > deadline:
+            fail(f"{what} never ready: {[str(p) for p, _ in pending]}")
+        time.sleep(0.25)
+        for log, proc in list(pending):
+            if phrase in log.read_text(errors="replace"):
+                pending.remove((log, proc))
+            elif proc.poll() is not None:
+                fail(f"{what} exited at start (rc {proc.returncode}); see {log}:\n{log.read_text()[-2000:]}")
+
+
+def _kill(procs: list) -> None:
+    for proc in procs:
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+        except (ProcessLookupError, PermissionError):
+            pass
+    for proc in procs:
+        try:
+            proc.wait(10)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(10)
+
+
+def phase_committee_run(backend, qcs, run_dir: Path) -> dict:
+    """Four unchanged reference nodes commit against the port's sidecar
+    (see the module docstring). `backend` serves them in this process;
+    the CLI (`python -m hotstuff_tpu_torch.crypto.remote`) boots beside
+    them on the card and answers one QC."""
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.remote import RemoteBackend
+    from hotstuff_tpu_torch.node.config import read_consensus_keys
+    from hotstuff_tpu_torch.ops import _build
+
+    n = LOCAL_BENCH["nodes"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    py = sys.executable
+    t0 = time.perf_counter()
+    keygen = [_spawn([py, "-m", "hotstuff_tpu.node.main", "keys", "--filename", f".node-{i}.json"],
+                     run_dir / f"keys-{i}.log", run_dir) for i in range(n)]
+    if any(p.wait(BOOT_TIMEOUT_S) for p in keygen):
+        fail(f"the reference key generation failed; see {run_dir}")
+    names = [json.loads((run_dir / f".node-{i}.json").read_text())["name"] for i in range(n)]
+    ports = _free_ports(3 * n)
+    committee, parameters = write_node_configs(run_dir, names, ports)
+    backend.register_committee(read_consensus_keys(str(committee)), warmup=True)
+    procs, cli, sidecar = [], None, None
+    try:
+        cli_log = run_dir / "sidecar-cli.log"
+        cli = _spawn([py, "-m", "hotstuff_tpu_torch.crypto.remote", "-vv", "--port", "0",
+                      "--committee", str(committee)], cli_log, run_dir)
+        sidecar = _Sidecar(backend)
+        stats0 = dict(backend.stats)
+        _build.reset_launches()
+        nodes = []
+        for i in range(n):
+            log = run_dir / f"node-{i}.log"
+            nodes.append((log, _spawn([
+                py, "-m", "hotstuff_tpu.node.main", "-vv", "run", "--keys", f".node-{i}.json",
+                "--committee", committee.name, "--store", f".db-{i}/log", "--parameters", parameters.name,
+                "--crypto", "remote", "--crypto-addr", f"127.0.0.1:{sidecar.port}", "--crypto-crossover", "1",
+            ], log, run_dir)))
+        procs += [p for _, p in nodes]
+        t_nodes = time.monotonic()
+        _await_logs(nodes, "successfully booted", "node")
+        consensus = [f"127.0.0.1:{p}" for p in ports[:n]]
+        clients = []
+        for i in range(n):
+            log = run_dir / f"client-{i}.log"
+            clients.append((log, _spawn([
+                py, "-m", "hotstuff_tpu.node.client", "-vv", f"127.0.0.1:{ports[2 * n + i]}",
+                "--size", str(LOCAL_BENCH["tx_size"]), "--rate", str(LOCAL_BENCH["rate"] // n),
+                "--nodes", *consensus], log, run_dir)))
+        procs += [p for _, p in clients]
+        _await_logs(clients, "Start sending transactions", "client")
+        t_run = time.monotonic()
+        print(f"committee run: keys, {n} nodes and {n} clients up in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # The CLI on the card: boots (warmup and committee included) and
+        # answers one QC of votes with the expected mask.
+        _await_logs([(cli_log, cli)], "successfully booted", "the sidecar CLI")
+        cli_port = int(re.search(r"successfully booted on [\d.]+:(\d+)", cli_log.read_text()).group(1))
+        client = RemoteBackend(("127.0.0.1", cli_port), crossover=1)
+        QM, QK, QS, qexp = qcs
+        mask = client.verify_batch_mask(QM[:QUORUM], [PublicKey(k) for k in QK[:QUORUM]],
+                                        [Signature(s) for s in QS[:QUORUM]])
+        client.close()
+        if mask != qexp[:QUORUM] or client.stats["remote_sigs"] != QUORUM:
+            fail(f"the sidecar CLI answered a QC wrongly: {client.stats}")
+        print(f"sidecar CLI: booted on the card, one {QUORUM}-vote QC answered with the expected mask", flush=True)
+
+        time.sleep(max(0.0, LOCAL_BENCH["duration"] - (time.monotonic() - t_run)))
+        errors = list(sidecar.errors)  # before the kill, which resets connections
+        launches = _build.launches()
+        device = backend.stats["device_sigs"] - stats0["device_sigs"]
+        host = backend.stats["host_sigs"] - stats0["host_sigs"]
+        wall, node_s = time.monotonic() - t_run, time.monotonic() - t_nodes
+    finally:
+        _kill(procs + ([cli] if cli is not None else []))
+        if sidecar is not None:
+            sidecar.stop()
+        for store in run_dir.glob(".db-*"):
+            shutil.rmtree(store, ignore_errors=True)
+    logs = {f"node-{i}": (run_dir / f"node-{i}.log").read_text(errors="replace") for i in range(n)}
+    for name, text in logs.items():
+        for phrase in ("synthetic batch verification failed", "sidecar unreachable"):
+            if phrase in text:
+                fail(f"{name} logged '{phrase}'; see {run_dir}")
+    commits = check_commits(logs)
+    if errors:
+        fail(f"the sidecar reported: {errors[:5]}")
+    if device <= 0 or host:
+        fail(f"the sidecar verified {device} lanes on the card and {host} on the host")
+    if any(launches[k] == 0 for k in GENERIC_KERNELS) or launches["committee_ladder"] or launches["h_digits_idx"]:
+        fail(f"the committee's traffic did not launch exactly the generic kernels: {launches}")
+    synthetic = sum(int(x) for text in logs.values()
+                    for x in re.findall(r"transaction batch\. Size: (\d+)", text))
+    blocks = {name: len(c) for name, c in commits.items()}
+    rounds = max(max(c) for c in commits.values())
+    result = dict(blocks=blocks, max_round=rounds, commits_per_s=min(blocks.values()) / node_s,
+                  synthetic_sigs=synthetic, device_sigs=device, launches=launches, wall_s=wall, node_s=node_s)
+    print(f"committee run: {n} reference nodes, --crypto remote --crypto-crossover 1, {wall:.1f} s of client "
+          f"traffic, {node_s:.1f} s from the nodes' start: blocks committed {blocks} (digests agree), "
+          f"{result['commits_per_s']:.2f} commits/s per node, synthetic workload {synthetic} signatures, "
+          f"{device} lanes on the card, launches {launches}", flush=True)
+    return result
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
@@ -1012,7 +1750,12 @@ def main() -> int:
     committee_path = phase_committee_path(args.seed)
     committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])
 
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
     from hotstuff_tpu_torch.ops import _build
+
+    sidecar_backend = TorchBackend(device="cuda", crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    sidecar = phase_sidecar(args.seed, sidecar_backend, committee_path, main_path["sigs_per_s"], card)
+    phase_committee_run(sidecar_backend, committee_path["qcs"], REPO / ".chip_smoke" / "committee")
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -1021,6 +1764,7 @@ def main() -> int:
                 name=name, route="cuda",
                 source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
                 replaces=REPLACES[name], launches=path["launches"][name],
+                sidecar_launches=sidecar["launches"][name],
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,

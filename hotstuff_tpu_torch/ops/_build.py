@@ -148,7 +148,9 @@ class Kernel:
     """One CUDA kernel's binding (`hs_<name>` in the library built from
     `csrc/<source>.cu`, or in the library `lib` built elsewhere) and its
     launch count (`launches` goes up by one per launch of the kernel, and
-    nowhere else)."""
+    nowhere else). Threads may launch one kernel concurrently (the crypto
+    sidecar dispatches each flush on its own thread): the binding and the
+    count are taken under the kernel's lock."""
 
     def __init__(self, name: str, source: str | None = None, lib: Path | None = None) -> None:
         self.name = name
@@ -156,15 +158,18 @@ class Kernel:
         self.lib = lib
         self.launches = 0
         self._fn = None
+        self._lock = threading.Lock()
 
     def _bind(self):
-        if self._fn is None:
-            if self.lib is None:
-                build_all()
-            lib = ctypes.CDLL(str(self.lib or _lib_path(self.source)))
-            self._fn = getattr(lib, f"hs_{self.name}")
-            self._fn.restype = ctypes.c_int
-        return self._fn
+        with self._lock:
+            if self._fn is None:
+                if self.lib is None:
+                    build_all()
+                lib = ctypes.CDLL(str(self.lib or _lib_path(self.source)))
+                fn = getattr(lib, f"hs_{self.name}")
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            return self._fn
 
     def launch(self, *args) -> None:
         """Launch on the current stream of the first tensor's device.
@@ -182,7 +187,8 @@ class Kernel:
             rc = fn(*c_args, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch (cudaError {rc})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 KERNELS = {name: Kernel(name) for name in NAMES}
@@ -191,7 +197,8 @@ KERNELS.update({name: Kernel(name, src) for name, src in EXTRA_ENTRY_POINTS.item
 
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        with k._lock:
+            k.launches = 0
 
 
 def launches() -> dict[str, int]:

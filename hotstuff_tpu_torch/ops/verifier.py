@@ -30,6 +30,7 @@ them with streams and pinned buffers is later work.
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -65,6 +66,9 @@ class Ed25519TorchVerifier:
         self._committee: ed.CommitteeTable | None = None
         self._device_hash_ok = True
         self.device_hash_fallbacks = 0  # batches redone with host hashing (CPU only)
+        # Callers on several threads (the sidecar's dispatches) share one
+        # verifier; the fallback count is taken under this lock.
+        self._latch_lock = threading.Lock()
 
     # -- committee-resident path ------------------------------------------
 
@@ -141,7 +145,8 @@ class Ed25519TorchVerifier:
             return run(device_hash)
         except Exception:
             log.exception("device-hash verification failed; retrying with host hashing")
-            self.device_hash_fallbacks += 1
+            with self._latch_lock:
+                self.device_hash_fallbacks += 1
             out = run(False)
             self._device_hash_ok = False
             return out

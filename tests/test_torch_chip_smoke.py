@@ -110,3 +110,128 @@ def test_phase_reduce_compare_on_cpu(small_smoke, capsys):
     assert ROW_KEYS <= set(res) and res["max_abs_err"] == 0
     assert res["bytes"] == 4096 * 96 and res["bound_by"] in ("bytes", "operations")
     assert "on 11 edge values and the 4096-value sweep" in capsys.readouterr().out
+
+
+# -- phases 6 and 7: the sidecar's load and the committee run ------------------
+
+
+class _InlinePool:
+    """`Pool.map` in this process."""
+
+    def map(self, fn, iterable, chunksize=1):
+        return [fn(x) for x in iterable]
+
+
+def test_sidecar_requests_cut_a_pass_into_payload_sized_requests():
+    import numpy as np
+
+    n = chip_smoke.SIDECAR_PASS
+    lanes = list(range(2 * n))
+    reqs = chip_smoke._requests(lanes, lanes, lanes, np.ones(2 * n, bool), n, 2 * n)
+    sizes = [len(m) for m, _, _, _ in reqs]
+    assert sizes == [chip_smoke.SIDECAR_REQUEST] * (n // 976) + [n % 976]
+    assert reqs[0][0][0] == n and reqs[-1][0][-1] == 2 * n - 1
+    assert all(len(set(map(len, r[:3]))) == 1 and len(r[3]) == len(r[0]) for r in reqs)
+    assert min(sizes) >= 256  # every bulk request stays off the urgent lane
+
+
+def test_sidecar_corpus_is_distinct_and_agrees_with_openssl(monkeypatch):
+    pytest.importorskip("cryptography")
+    monkeypatch.setattr(chip_smoke, "SIDECAR_PASS", 32)
+    monkeypatch.setattr(chip_smoke, "SIDECAR_KEYS", 4)
+    M, K, S, expected = chip_smoke._sidecar_corpus(0, _InlinePool())
+    n = (chip_smoke.SIDECAR_PASSES + chip_smoke.SIDECAR_TRACED) * 32
+    assert len(M) == n and len(set(zip(M, K, S))) == n and len(set(M)) >= n - n // 16
+    assert int((~expected).sum()) == n // 16
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+
+    verify = chip_smoke._openssl_verifier()
+    assert verify(M, [PublicKey(k) for k in K], [Signature(s) for s in S]) == expected.tolist()
+
+
+def test_urgent_timeline_splits_each_round_trip():
+    """Two urgent requests of 3 lanes among bulk records of 9: each round
+    trip splits into its segments, a collector pause inside it counts, and
+    a request without a backend call is reported as unmatched."""
+    times = [(10.0, 10.1), (20.0, 20.2), (30.0, 30.1)]
+    submits = [(10.02, 10.09, 0.0, 3), (10.0, 10.5, 0.0, 9), (20.05, 20.15, 0.0, 3), (30.01, 30.09, 0.0, 3)]
+    calls = [(10.03, 10.07, 0.01, 3), (10.03, 10.08, 0.0, 9), (20.06, 20.14, 0.02, 3)]
+    parses = [(9.0, 9.1, 0.0, 3), (10.005, 10.01, 0.0, 3), (10.0, 10.01, 0.0, 9), (20.01, 20.04, 0.0, 3),
+              (30.0, 30.005, 0.0, 3)]
+    gcs = [(20.1, 20.13, 2), (25.0, 26.0, 0)]
+    rows, unmatched = chip_smoke.urgent_timeline(times, submits, calls, parses, gcs, 3)
+    assert unmatched == 1 and len(rows) == 2
+    want = [dict(rtt=100, wait=5, parse=5, queue=10, backend=40, backend_cpu=10, resolve=20, reply=10, gc=0),
+            dict(rtt=200, wait=10, parse=30, queue=10, backend=80, backend_cpu=20, resolve=10, reply=50, gc=30)]
+    for row, w in zip(rows, want):
+        assert row.keys() == w.keys()
+        assert all(abs(row[k] - w[k]) < 1e-6 for k in w), (row, w)
+
+
+def test_timers_record_calls_and_restore():
+    """`_Timed` records each call of a plain and a coroutine function with
+    its size, and puts both back; `_GcPauses` sees a forced collection."""
+    import asyncio
+    import gc
+    import types
+
+    owner = types.SimpleNamespace(f=lambda xs: sum(xs))
+
+    async def g(xs):
+        await asyncio.sleep(0)
+        return list(xs)
+
+    owner.g = g
+    f = owner.f
+    plain, coro = chip_smoke._Timed(owner, "f", lambda a, r: len(a[0])), chip_smoke._Timed(owner, "g", lambda a, r: len(r))
+    pauses = chip_smoke._GcPauses()
+    try:
+        assert owner.f([1, 2, 3]) == 6
+        assert asyncio.run(owner.g([1, 2])) == [1, 2]
+        gc.collect()
+        (rec,), (crec,) = plain.take(), coro.take()
+        assert rec[3] == 3 and crec[3] == 2 and rec[0] <= rec[1] and plain.take() == []
+        assert any(gen == 2 and a <= b for a, b, gen in pauses.take())
+    finally:
+        plain.restore()
+        coro.restore()
+        pauses.close()
+    assert owner.f is f and owner.g is g
+
+
+def test_node_configs_read_back_by_the_reference(tmp_path):
+    from hotstuff_tpu.consensus.config import Committee as ConsensusCommittee
+    from hotstuff_tpu.node.config import Committee, NodeParameters, Secret
+
+    names = [Secret.new().name.encode_base64() for _ in range(4)]
+    ports = list(range(30_000, 30_012))
+    committee, parameters = chip_smoke.write_node_configs(tmp_path, names, ports)
+    c = Committee.read(str(committee))
+    addresses = {k.encode_base64(): c.consensus.address(k) for k in c.consensus.authorities}
+    assert addresses == {name: ("127.0.0.1", p) for name, p in zip(names, ports[:4])}
+    assert c.consensus.quorum_threshold() == 3
+    assert isinstance(c.consensus, ConsensusCommittee)
+    p = NodeParameters.read(str(parameters))
+    assert p.mempool.benchmark_mode is True
+    assert (p.consensus.timeout_delay, p.consensus.max_payload_size, p.mempool.max_payload_size) == (1_000, 1_000, 15_000)
+    assert p.consensus.min_block_delay == 0 and p.mempool.min_block_delay == 0
+
+
+_LOG = """\
+[2026-10-17T05:40:56.101Z INFO hotstuff.consensus] Committed B1(AAAA+/==)
+[2026-10-17T05:40:56.102Z INFO hotstuff.consensus] Committed B1(AAAA+/==) -> cGF5bG9hZA==
+[2026-10-17T05:40:56.201Z INFO hotstuff.consensus] Committed B2(BBBB)
+[2026-10-17T05:40:56.301Z INFO hotstuff.mempool] Verifying OWN transaction batch. Size: 24
+"""
+
+
+def test_commit_parser_and_digest_agreement():
+    assert chip_smoke.committed_blocks(_LOG) == {1: "AAAA+/==", 2: "BBBB"}
+    lagging = _LOG.replace("Committed B2(BBBB)", "Created B2(BBBB)")
+    commits = chip_smoke.check_commits({"node-0": _LOG, "node-1": lagging})
+    assert commits == {"node-0": {1: "AAAA+/==", 2: "BBBB"}, "node-1": {1: "AAAA+/=="}}
+    forked = _LOG.replace("Committed B2(BBBB)", "Committed B2(CCCC)")
+    with pytest.raises(SystemExit, match="round 2"):
+        chip_smoke.check_commits({"node-0": _LOG, "node-1": forked})
+    with pytest.raises(SystemExit, match="committed no block"):
+        chip_smoke.check_commits({"node-0": _LOG, "node-1": "no commits here\n"})

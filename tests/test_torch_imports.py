@@ -42,7 +42,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert res["bad"] == []
     for mod in ("hotstuff_tpu_torch.ops.field", "hotstuff_tpu_torch.ops.verifier",
                 "hotstuff_tpu_torch.ops.committee", "hotstuff_tpu_torch.crypto.torch_backend",
-                "hotstuff_tpu_torch.convert"):
+                "hotstuff_tpu_torch.convert", "hotstuff_tpu_torch.crypto.remote",
+                "hotstuff_tpu_torch.crypto.batch_service", "hotstuff_tpu_torch.crypto.scheduler",
+                "hotstuff_tpu_torch.node.config", "hotstuff_tpu_torch.utils.metrics",
+                "hotstuff_tpu_torch.utils.actors", "hotstuff_tpu_torch.utils.logging"):
         assert mod in res["modules"]
 
 
