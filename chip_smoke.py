@@ -27,11 +27,24 @@ caught:
      vectors). Masks must equal the expected masks, which the host verifier
      (`pysigner.verify_device_semantics`, what `HostBackend` runs)
      cross-checks; on the card a device-hash failure raises, so it fails
-     the phase;
+     the phase. Every batch of phases 3 and 5-7 runs through the
+     verifier's dispatch pipeline at its default depth
+     (`HOTSTUFF_PIPELINE_DEPTH`, else 2) from page-locked staging buffers
+     on two CUDA streams; the phase fails unless it is;
   4. launch counts of the main path, end-to-end rate, per-kernel times
      beside the plain versions' and the least time the card could take
      (kernel times are device times of launches queued behind a spin
      kernel, `breakdown.queued_ms`, so the host's launch time stays out);
+     then `bench.py --pipeline-ab` on the card: phase 3's batch tiled to
+     24,576 lanes (6 chunks) through a depth 1 and a depth 2 verifier in
+     turns, 3 attempts of 3 batches each (no early stop), printing per
+     leg sigs/s, the device timeline's occupancy and overlap headroom,
+     stalls, `pipeline.buffer_allocs` / `buffer_reuse`, and, over one
+     traced batch, the `torch.profiler` busy share and the streams the
+     kernels and copies ran on. Fails when a mask differs from the
+     expected one, when a leg allocates a staging buffer after its warm-up,
+     or when the depth 2 leg puts a launch or copy on the default stream;
+     never on speed;
   5. the committee path: `TorchBackend.verify_batch_mask(...,
      committee=True)` on a QC-shaped batch as `bench.py --committee-cache`
      builds it (64 validators, 381 QCs x 43 votes = 16,383 votes over
@@ -42,7 +55,8 @@ caught:
      Then a host-hash committee batch, a tagged batch with an unregistered
      key (generic kernels, one miss) and a batch pinned to a replaced
      table; votes/s of the committee and generic paths on the same votes,
-     in turns; the host-vs-card break-even of both
+     in turns; one committee batch under `torch.profiler` (busy share,
+     nothing on the default stream); the host-vs-card break-even of both
      paths (a sweep of batch sizes 1..64 against the host verifier that
      `TorchBackend` runs below its crossover, and against OpenSSL where the
      `cryptography` wheel is installed, as a reported column); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
@@ -644,7 +658,139 @@ def phase_main_path(seed: int) -> dict:
         fail("host-hash mask differs from expected")
     if hlaunches["h_digits"] != 0 or any(hlaunches[k] == 0 for k in ("ladder", "decompress_table", "compress_eq")):
         fail(f"host-hash batch launched the wrong kernels: {hlaunches}")
-    return dict(launches=launches, sigs_per_s=BATCH * iters / sum(wall), batch_ms=[w * 1e3 for w in wall])
+    print(f"main path pipeline: {_pipeline_line(backend._verifier)}", flush=True)
+    return dict(launches=launches, sigs_per_s=BATCH * iters / sum(wall), batch_ms=[w * 1e3 for w in wall],
+                batch=(M, K, S, expected))
+
+
+def _pipeline_line(v, depth: int | None = None) -> dict:
+    """The verifier's dispatch pipeline: depth, chunks and stalls so far,
+    and whether its staging buffers are page-locked (one buffer taken from
+    the pool and given back). Fails unless the buffers are pinned and the
+    depth is `depth`, by default the pipeline's default
+    (`HOTSTUFF_PIPELINE_DEPTH`, else 2)."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops.pipeline import default_depth
+
+    depth = default_depth() if depth is None else depth
+    pool = v.pipeline.pool
+    buf = pool.take((128, CHUNK), np.uint8)
+    pinned = bool(torch.from_numpy(buf).is_pinned())
+    pool.give(buf)
+    line = dict(depth=v.pipeline.depth, pin=pool.pin, pinned=pinned, **v.pipeline.stats)
+    if v.pipeline.depth != depth or not pinned:
+        fail(f"the verifier's pipeline is not at depth {depth} with pinned buffers: {line}")
+    return line
+
+
+# --- phase 4, continued: the dispatch pipeline, depth 1 against depth 2 -------
+
+AB_LANES = 6 * CHUNK  # 24,576 lanes, 6 chunks
+AB_ATTEMPTS = 3  # fixed, no early stop (bench.py --pipeline-ab)
+AB_ITERS = 3  # batches per attempt and leg
+
+
+def _top_up(pipeline) -> None:
+    """Give the pool `depth` buffers of every shape it has handed out: the
+    most a window of `depth` chunks holds at once (a chunk's buffers go back
+    before its window slot frees). Whether one warm-up batch reached that
+    many depends on timing; after this, any allocation is a buffer that did
+    not come back."""
+    import numpy as np
+
+    pool = pipeline.pool
+    for shape, dtype in list(pool.sizes()):
+        bufs = [pool.take(shape, np.dtype(dtype)) for _ in range(pipeline.depth)]
+        for b in bufs:
+            pool.give(b)
+
+
+def phase_pipeline_ab(batch, device: str = "cuda") -> dict:
+    """bench.py --pipeline-ab on the card: phase 3's batch tiled to AB_LANES
+    through `pipeline_depth=1` and `pipeline_depth=2` verifiers, in turns,
+    AB_ATTEMPTS attempts of AB_ITERS batches each after one warm-up batch
+    per leg (its pool then topped up, `_top_up`). Each attempt reports
+    sigs/s (host clock), the device timeline's occupancy, overlap headroom
+    and per-chunk phase times, stalls, and the pool's allocations and
+    reuses; then one batch per leg under torch.profiler gives the card's
+    busy share and the streams of its kernels and copies.
+    Fails when a mask differs from the expected one, when a leg allocates a
+    staging buffer after its warm-up, or when a launch or copy of the depth
+    2 leg lands on the default stream. Never fails on speed."""
+    import numpy as np
+
+    from hotstuff_tpu_torch import breakdown
+    from hotstuff_tpu_torch.ops import timeline
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+    from hotstuff_tpu_torch.utils import metrics
+
+    M, K, S, expected = batch
+    lanes = np.arange(AB_LANES) % len(M)
+    msgs, keys, sigs = [M[i] for i in lanes], [K[i] for i in lanes], [S[i] for i in lanes]
+    want = expected[lanes].tolist()
+    allocs, reuse = metrics.counter("pipeline.buffer_allocs"), metrics.counter("pipeline.buffer_reuse")
+    legs = {d: Ed25519TorchVerifier(device=device, max_bucket=MAX_BUCKET, chunk=CHUNK, pipeline_depth=d)
+            for d in (1, 2)}
+    try:
+        for d, v in legs.items():
+            if v.verify_batch_mask(msgs, keys, sigs).tolist() != want:
+                fail(f"pipeline A/B: the depth {d} warm-up mask differs from expected")
+            _top_up(v.pipeline)
+        _pipeline_line(legs[2], depth=2)
+        attempts = {d: [] for d in legs}
+        for _ in range(AB_ATTEMPTS):
+            for d, v in legs.items():
+                a0, r0, st0 = allocs.value, reuse.value, v.pipeline.stats["stalls"]
+                timeline.reset()
+                t0 = time.perf_counter()
+                masks = [v.verify_batch_mask(msgs, keys, sigs) for _ in range(AB_ITERS)]
+                wall = time.perf_counter() - t0
+                tl = timeline.summary()
+                if any(m.tolist() != want for m in masks):
+                    fail(f"pipeline A/B: a depth {d} mask differs from expected")
+                if allocs.value != a0:
+                    fail(f"pipeline A/B: depth {d} allocated {allocs.value - a0} staging buffers after warm-up")
+                attempts[d].append(dict(
+                    sigs_per_s=AB_LANES * AB_ITERS / wall, batch_ms=wall * 1e3 / AB_ITERS,
+                    occupancy=tl["occupancy"], overlap_headroom=tl["overlap_headroom"],
+                    idle_ms=tl["idle"]["total_s"] * 1e3 / AB_ITERS, stalls=v.pipeline.stats["stalls"] - st0,
+                    phase_ms={p: ms * 1e3 / tl["chunks"] for p, ms in tl["phase_s"].items()},
+                    buffer_allocs=allocs.value - a0, buffer_reuse=reuse.value - r0, chunks=tl["chunks"]))
+        traced = {}
+        for d, v in legs.items():
+            out = []
+            trace = breakdown.device_trace(lambda: out.append(v.verify_batch_mask(msgs, keys, sigs)),
+                                           REPO / ".chip_smoke" / f"trace_depth{d}.json")
+            if out[0].tolist() != want:
+                fail(f"pipeline A/B: the traced depth {d} mask differs from expected")
+            traced[d] = {k: trace[k] for k in ("busy_share", "device_ms", "device_ms_sum", "wall_ms", "kernels",
+                                                "streams", "default_stream", "on_default_stream",
+                                                "on_default_names")}
+        if traced[2]["on_default_stream"]:
+            fail(f"pipeline A/B: depth 2 put work on the default stream: {traced[2]}")
+    finally:
+        for v in legs.values():
+            v.close()
+    res = {}
+    for d in legs:
+        rows = attempts[d]
+        res[f"depth{d}"] = dict(
+            sigs_per_s=[round(r["sigs_per_s"], 1) for r in rows],
+            sigs_per_s_median=round(statistics.median(r["sigs_per_s"] for r in rows), 1),
+            batch_ms=[round(r["batch_ms"], 3) for r in rows],
+            occupancy=[r["occupancy"] for r in rows], overlap_headroom=[r["overlap_headroom"] for r in rows],
+            idle_ms=[round(r["idle_ms"], 3) for r in rows], stalls=[r["stalls"] for r in rows],
+            phase_ms_per_chunk={p: [round(r["phase_ms"][p], 4) for r in rows] for p in rows[0]["phase_ms"]},
+            buffer_allocs=[r["buffer_allocs"] for r in rows], buffer_reuse=[r["buffer_reuse"] for r in rows],
+            chunks=rows[0]["chunks"], profiler=traced[d])
+        print(f"pipeline A/B depth {d}: {json.dumps(res[f'depth{d}'])}", flush=True)
+    speedup = res["depth2"]["sigs_per_s_median"] / res["depth1"]["sigs_per_s_median"]
+    print(f"pipeline A/B: {AB_LANES} lanes ({AB_LANES // CHUNK} chunks) x {AB_ITERS} batches x "
+          f"{AB_ATTEMPTS} attempts in turns; masks equal to expected on both legs; depth 2 / depth 1 "
+          f"median sigs/s {speedup:.3f}; depth 2 launched nothing on the default stream", flush=True)
+    return res
 
 
 # --- phase 5: the committee path ---------------------------------------------
@@ -940,6 +1086,16 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
     for path, t in times.items():
         print(f"e2e {path}: {len(M)} votes per batch, {iters} batches: {rates[path]:.1f} votes/s "
               f"(host clock), per batch {[round(x * 1e3, 3) for x in t]} ms", flush=True)
+    from hotstuff_tpu_torch import breakdown
+
+    out = []
+    trace = breakdown.device_trace(lambda: out.append(backend.verify_batch_mask(M, vpks, vsgs, committee=True)),
+                                   REPO / ".chip_smoke" / "trace_committee.json")
+    if out[0] != mask or trace["on_default_stream"]:
+        fail(f"traced committee batch: mask changed or work on the default stream ({trace})")
+    print(f"committee path pipeline: {_pipeline_line(backend._verifier)}; traced batch: card busy "
+          f"{trace['busy_share']:.4f} of {trace['wall_ms']:.3f} ms, {trace['kernels']} kernels, "
+          f"events per stream {trace['streams']} (default stream {trace['default_stream']}: none)", flush=True)
     identity = set(identity_lanes)
     ok_lanes = [i for i in range(len(M)) if expected[i] and i not in identity]
     crossover = phase_crossover(backend, M, K, S, ok_lanes)
@@ -1747,6 +1903,7 @@ def main() -> int:
     kernels = phase_compare(args.seed)
     kernels.update(phase_reduce_compare())
     main_path = phase_main_path(args.seed)
+    phase_pipeline_ab(main_path["batch"])
     committee_path = phase_committee_path(args.seed)
     committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])
 
@@ -1756,6 +1913,7 @@ def main() -> int:
     sidecar_backend = TorchBackend(device="cuda", crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
     sidecar = phase_sidecar(args.seed, sidecar_backend, committee_path, main_path["sigs_per_s"], card)
     phase_committee_run(sidecar_backend, committee_path["qcs"], REPO / ".chip_smoke" / "committee")
+    print(f"sidecar pipeline: {_pipeline_line(sidecar_backend._verifier)}", flush=True)
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):

@@ -1,21 +1,26 @@
 """Where a verification batch spends its time on the card.
 
     python -m hotstuff_tpu_torch.breakdown [--batch 16384] [--chunk 4096] [--iters 5] [--committee]
+                                           [--depth N] [--trace PATH]
 
 Times `TorchBackend`'s verifier end to end on one batch of seeded random
 wire bytes (the cost does not depend on validity: no step has
-data-dependent control flow), then each layer of one chunk in the order
-the verifier runs them: host staging, upload, the wire unpack, kernels K2,
-K3, K1, K4, and the mask readback. With `--committee` the batch is a
-committee batch (64 validators, `bench.py --committee-cache`'s size, random
-validator indices) through `verify_batch_mask_committee`, and the layers
-are staging, upload (wire rows and indices), unpack, K2g, K5, K4 and
-readback. A kernel's time is its device time with launches queued behind
-a spin kernel (`queued_ms`); upload and unpack are CUDA events around
-calls as the host issues them (`events_ms`), staging and readback host
-clock. Finally `torch.profiler` over one batch gives the device's busy
-share (device time / wall time of the batch). Prints one JSON line. Needs a
-CUDA device; exits non-zero without one.
+data-dependent control flow) through its dispatch pipeline at `--depth`
+(default: `HOTSTUFF_PIPELINE_DEPTH`, else 2), with the device timeline's
+occupancy and overlap headroom over those batches (`ops/timeline.py`).
+Then each layer of one chunk in the order the verifier runs them: host
+staging into a pooled (page-locked) buffer, upload, the wire unpack,
+kernels K2, K3, K1, K4, and the mask readback. With `--committee` the batch
+is a committee batch (64 validators, `bench.py --committee-cache`'s size,
+random validator indices) through `verify_batch_mask_committee`, and the
+layers are staging, upload (wire rows and indices), unpack, K2g, K5, K4 and
+readback. A kernel's time is its device time with launches queued behind a
+spin kernel (`queued_ms`); upload and unpack are CUDA events around calls
+as the host issues them (`events_ms`), staging and readback host clock.
+Finally `torch.profiler` over one batch gives the device's busy share: the
+union of its kernel and copy intervals in the profiler's trace (written to
+`--trace`) over the batch's wall time, and the streams they ran on. Prints
+one JSON line. Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import json
 import statistics
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,8 +38,12 @@ import torch
 from . import resolve_device
 from .ops import committee as cm
 from .ops import ed25519 as ed
-from .ops import ladder, sha512
-from .ops.verifier import Ed25519TorchVerifier, pad
+from .ops import ladder, sha512, timeline
+from .ops.verifier import Ed25519TorchVerifier
+
+# Device-side events of a torch.profiler Chrome trace.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_DIR = Path(__file__).resolve().parents[1] / ".chip_smoke"
 
 
 def events_ms(fn, reps: int = 10) -> float:
@@ -85,6 +95,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--committee", action="store_true",
                     help="a committee batch over 64 validators (K2g, K5, K4)")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="dispatch pipeline depth (default HOTSTUFF_PIPELINE_DEPTH, else 2; 1 = inline)")
+    ap.add_argument("--trace", default=str(TRACE_DIR / "breakdown_trace.json"),
+                    help="where the profiled batch's Chrome trace is written")
     args = ap.parse_args()
     dev = resolve_device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -92,7 +106,8 @@ def main() -> int:
     msgs = [bytes(r[96:]) for r in wire]
     keys = [bytes(r[:32]) for r in wire]
     sigs = [bytes(r[32:96]) for r in wire]
-    v = Ed25519TorchVerifier(device=dev, max_bucket=max(args.chunk, 8192), chunk=args.chunk)
+    v = Ed25519TorchVerifier(device=dev, max_bucket=max(args.chunk, 8192), chunk=args.chunk,
+                             pipeline_depth=args.depth)
     if args.committee:
         table = v.set_committee(keys[:64])
         indices = rng.integers(0, 64, args.batch).tolist()
@@ -101,11 +116,14 @@ def main() -> int:
         run = lambda: v.verify_batch_mask(msgs, keys, sigs)
 
     run()  # builds and binds the kernels
+    timeline.reset()
+    stalls0 = v.pipeline.stats["stalls"]
     e2e = []
     for _ in range(args.iters):
         t0 = time.perf_counter()
         run()
         e2e.append((time.perf_counter() - t0) * 1e3)
+    tl = timeline.summary()
 
     n = args.chunk
     if args.committee:
@@ -113,35 +131,107 @@ def main() -> int:
     else:
         layers = _generic_layers(v, msgs, keys, sigs, n)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_us = 0.0
-    by_kernel = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
-        if t:
-            device_us += t
-            by_kernel[evt.key] = t
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    trace = device_trace(run, Path(args.trace))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "path": "committee" if args.committee else "generic",
         "batch": args.batch, "chunk": n, "chunks": -(-args.batch // n),
+        "pipeline_depth": v.pipeline.depth,
         "e2e_ms": e2e, "e2e_ms_median": statistics.median(e2e),
         "sigs_per_s": args.batch / statistics.median(e2e) * 1e3,
+        "occupancy": tl["occupancy"], "overlap_headroom": tl["overlap_headroom"],
+        "stalls": v.pipeline.stats["stalls"] - stalls0,
         "chunk_layers": layers,
-        "profiled_wall_ms": wall_us / 1e3,
-        "device_busy_share": (device_us / wall_us) if device_us else "not measured",
-        "device_ms_by_op": {k: t / 1e3 for k, t in top},
+        "profiled_wall_ms": trace["wall_ms"],
+        "device_busy_share": trace["busy_share"] if trace["device_ms"] else "not measured",
+        "device_ms": trace["device_ms"], "streams": trace["streams"],
+        "default_stream_events": trace["on_default_stream"],
+        "device_ms_by_op": trace["device_ms_by_name"],
     }))
+    v.close()
     return 0
+
+
+def device_trace(run, trace_path: Path) -> dict:
+    """Run `run()` once under `torch.profiler` (CPU and CUDA activity),
+    write its Chrome trace to `trace_path` and read the device's work from
+    it (`read_device_trace`). A spin kernel queued on the default stream
+    just before `run()` and another just after it mark that stream's id in
+    the trace; they stay outside the timed wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    return read_device_trace(json.loads(trace_path.read_text()), wall_s)
+
+
+def read_device_trace(trace: dict, wall_s: float) -> dict:
+    """The device's kernels and copies in a Chrome trace: the union of their
+    intervals (`device_ms`) over `wall_s` (`busy_share`), their summed
+    durations (`device_ms_sum`, larger than the union where streams
+    overlap), the count of events per stream id, and the events on the
+    default stream, whose id is the spin kernels' (`device_trace`'s
+    markers, left out of every other number). Raises when no marker is
+    there."""
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    stream = lambda e: e.get("args", {}).get("stream", e.get("tid"))
+    marker = [e for e in events if "spin" in e.get("name", "")]
+    if not marker:
+        names = sorted({e.get("name", "") for e in events})[:8]
+        raise RuntimeError(f"no default-stream marker kernel in the profiler trace "
+                           f"({len(events)} device events, e.g. {names})")
+    default = stream(marker[0])
+    work = [e for e in events if "spin" not in e.get("name", "")]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in work)
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    streams: dict[str, int] = {}
+    by_name: dict[str, float] = {}
+    for e in work:
+        streams[str(stream(e))] = streams.get(str(stream(e)), 0) + 1
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0)) / 1e3
+    on_default = sorted({e["name"] for e in work if stream(e) == default})
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_ms": busy_us / 1e3,
+        "device_ms_sum": sum(t1 - t0 for t0, t1 in spans) / 1e3,
+        "busy_share": busy_us / (wall_s * 1e6) if wall_s > 0 else 0.0,
+        "kernels": sum(e["cat"] == "kernel" for e in work),
+        "streams": streams,
+        "default_stream": str(default),
+        "on_default_stream": sum(stream(e) == default for e in work),
+        "on_default_names": on_default[:8],
+        "device_ms_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
+    }
+
+
+def _readback_ms(mask: torch.Tensor) -> float:
+    """Host ms of the mask's copy into page-locked memory, as the chunk
+    loop reads it back."""
+    host = torch.empty(mask.shape, dtype=mask.dtype, pin_memory=True)
+    return _host_ms(lambda: host.copy_(mask, non_blocking=True))
+
+
+def _pooled(v, arr, previous):
+    """`arr` padded into one of the verifier's pooled staging buffers, as
+    the chunk loop stages it; the previous call's buffer goes back first."""
+    if previous is not None:
+        v.pipeline.pool.give(previous)
+    return v.pipeline.pool.pad(arr, v._bucket(arr.shape[-1]))
 
 
 def _generic_layers(v, msgs, keys, sigs, n) -> dict:
@@ -150,11 +240,11 @@ def _generic_layers(v, msgs, keys, sigs, n) -> dict:
 
     def stage():
         st = ed.prepare_batch_packed_dh(msgs[:n], keys[:n], sigs[:n])
-        staged["packed"] = pad(st["packed"], v._bucket(n))
+        staged["packed"] = _pooled(v, st["packed"], staged.get("packed"))
 
     stage_ms = _host_ms(stage)
     host = torch.from_numpy(staged["packed"])
-    upload_ms = events_ms(lambda: host.to(dev))
+    upload_ms = events_ms(lambda: host.to(dev, non_blocking=True))
     packed = host.to(dev)
     a, r, s, m = ed.split_packed128(packed)
     unpack_ms = events_ms(lambda: sha512.nibble_rows(s))
@@ -171,7 +261,7 @@ def _generic_layers(v, msgs, keys, sigs, n) -> dict:
         "decompress_table_ms": queued_ms(lambda: ed.decompress_table(a)),
         "ladder_ms": queued_ms(lambda: ladder.ladder(sd, hd, table)),
         "compress_eq_ms": queued_ms(lambda: ed.compress_eq(point, r, valid)),
-        "readback_ms": _host_ms(lambda: mask.cpu()),
+        "readback_ms": _readback_ms(mask),
     }
 
 
@@ -181,12 +271,12 @@ def _committee_layers(v, table, msgs, indices, sigs, n) -> dict:
 
     def stage():
         st = ed.prepare_batch_committee_dh(msgs[:n], indices[:n], sigs[:n])
-        staged["packed"] = pad(st["packed"], v._bucket(n))
-        staged["idx"] = pad(st["idx"], v._bucket(n))
+        staged["packed"] = _pooled(v, st["packed"], staged.get("packed"))
+        staged["idx"] = _pooled(v, st["idx"], staged.get("idx"))
 
     stage_ms = _host_ms(stage)
     host_p, host_i = torch.from_numpy(staged["packed"]), torch.from_numpy(staged["idx"])
-    upload_ms = events_ms(lambda: (host_p.to(dev), host_i.to(dev)))
+    upload_ms = events_ms(lambda: (host_p.to(dev, non_blocking=True), host_i.to(dev, non_blocking=True)))
     packed, idx = host_p.to(dev), host_i.to(dev)
     r, s, m = cm.split_packed96(packed)
     unpack_ms = events_ms(lambda: sha512.nibble_rows(s))
@@ -201,7 +291,7 @@ def _committee_layers(v, table, msgs, indices, sigs, n) -> dict:
         "h_digits_idx_ms": queued_ms(lambda: sha512.h_digits_gather(r, table.keys_u8, idx, m)),
         "committee_ladder_ms": queued_ms(lambda: cm.committee_ladder(sd, hd, table, idx)),
         "compress_eq_ms": queued_ms(lambda: ed.compress_eq(point, r, lane_valid)),
-        "readback_ms": _host_ms(lambda: mask.cpu()),
+        "readback_ms": _readback_ms(mask),
     }
 
 

@@ -27,6 +27,10 @@ booted"). The reference's `--multihost` is not ported, nor its
 flush loop: the port's scheduler sets every flush deadline per source
 class. The wire carries the urgent bit alone, so requests take the
 consensus lane (under `urgent_below` items) or the mempool lane.
+
+On a normal exit (the server's end or an interrupt) the dispatch pipelines'
+worker threads are drained by `ops.pipeline.close_all`, which that module
+registers with `atexit`; on SIGTERM they end with the process.
 """
 
 from __future__ import annotations

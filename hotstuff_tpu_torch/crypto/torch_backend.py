@@ -22,6 +22,10 @@ sends every batch to the card: on one H100 80GB HBM3 (700 W) the card
 verified a single signature faster than the port's host verifier, on the
 committee path and on the generic path alike, so one crossover serves both
 (`chip_smoke.py`'s crossover sweep; numbers in PERF.md).
+
+The verifier's dispatch pipeline runs at `HOTSTUFF_PIPELINE_DEPTH` chunks in
+flight (default 2; 1 runs every chunk inline on the caller's thread);
+`close()` drains its worker threads.
 """
 
 from __future__ import annotations
@@ -65,6 +69,12 @@ class TorchBackend(CryptoBackend):
             "device_batches": 0, "device_sigs": 0, "host_batches": 0, "host_sigs": 0,
             "committee_batches": 0, "committee_sigs": 0, "committee_misses": 0,
         }
+
+    def close(self) -> None:
+        """Drain the verifier's dispatch-pipeline workers
+        (`ops/pipeline.py`). Optional: dropped backends are reaped by GC and
+        at exit."""
+        self._verifier.close()
 
     @property
     def device(self) -> torch.device:

@@ -1,4 +1,4 @@
-"""Bucketed, chunked dispatcher for batched ed25519 verification.
+"""Bucketed, pipelined dispatcher for batched ed25519 verification.
 
 Counterpart of `Ed25519TpuVerifier` (`hotstuff_tpu/ops/ed25519.py:876-1248`).
 Generic path: batches are split at `chunk`,
@@ -23,12 +23,37 @@ device-hash run raises is logged, counted in `device_hash_fallbacks` and
 redone with host hashing, and the device hash latches off only when that
 retry succeeds; a retry that raises too propagates and leaves it on.
 
-Chunks run one after another (upload, kernels, mask readback); overlapping
-them with streams and pinned buffers is later work.
+Both paths run their chunks through the verifier's own `DispatchPipeline`
+(`ops/pipeline.py`, depth `pipeline_depth`, default 2): the caller thread
+stages chunk N+1 into a pooled staging buffer while the upload worker
+uploads and launches chunk N and the readback worker waits for chunk N-1's
+mask. `pipeline_depth=1` runs every chunk inline on the caller thread.
+On the card:
+  * the staging buffers and the mask buffers are page-locked (the pool's
+    `pin`), so the upload (`non_blocking`) and the mask's copy back are
+    asynchronous;
+  * the verifier owns two CUDA streams and chunk k runs on stream k % 2:
+    its upload, its kernels, the torch ops between them and its mask's copy
+    back are all issued inside `torch.cuda.stream(...)` on the thread that
+    issues them (the current stream is per thread, and `Kernel.launch`
+    launches on it), so chunk k+1's upload and kernels need not wait for
+    chunk k's. The readback waits on the chunk's own `torch.cuda.Event`,
+    never on the whole device;
+  * the device constants (`field.const`) and a committee table's tensors
+    are made by blocking copies, which have landed before the copy returns,
+    so kernels on either stream read them complete; a chunk's task holds
+    its `CommitteeTable` until its readback, so a table replaced mid-batch
+    cannot return to the allocator while a kernel still reads it.
+A CUDA stream or pinned-memory failure raises; there is no pageable or
+default-stream fallback.
+
+The reference's deferred readback (`_defer_readback`, the multi-process
+mesh) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from typing import Sequence
@@ -37,18 +62,28 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import metrics
 from . import committee as cm
 from . import ed25519 as ed
-from . import ladder
+from . import ladder, timeline
+from .pipeline import ChunkTask, DispatchPipeline
 
 log = logging.getLogger(__name__)
 
-
-def pad(a: np.ndarray, width: int) -> np.ndarray:
-    """Zero-pad the last (lane) axis of a staged array to `width` lanes."""
-    out = np.zeros(a.shape[:-1] + (width,), a.dtype)
-    out[..., : a.shape[-1]] = a
-    return out
+# The reference verifier's metric names (`hotstuff_tpu/ops/ed25519.py:55-80`).
+_M_STAGE = metrics.histogram("verifier.stage_s")
+_M_UPLOAD = metrics.histogram("verifier.upload_s")
+_M_DISPATCH = metrics.histogram("verifier.dispatch_s")
+_M_READBACK = metrics.histogram("verifier.readback_s")
+_M_CHUNKS = metrics.counter("verifier.chunks")
+_M_PAD_LANES = metrics.counter("verifier.pad_lanes")
+_M_DH_FALLBACKS = metrics.counter("verifier.device_hash_fallbacks")
+# The generic kernels decompress every lane's key and build its -A table per
+# chunk; the committee path reads precomputed tables and counts neither.
+_M_DECOMPRESSIONS = metrics.counter("verifier.decompressions")
+_M_TABLE_BUILDS = metrics.counter("verifier.table_builds")
+_M_COMMITTEE_BATCHES = metrics.counter("verifier.committee_batches")
+_M_COMMITTEE_SIGS = metrics.counter("verifier.committee_sigs")
 
 
 class Ed25519TorchVerifier:
@@ -58,17 +93,28 @@ class Ed25519TorchVerifier:
         min_bucket: int = 128,
         max_bucket: int = 8192,
         chunk: int | None = None,
+        pipeline_depth: int | None = None,
     ):
         self.device = resolve_device(device)
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
         self.chunk = min(chunk or 4096, max_bucket)
+        on_card = self.device.type == "cuda"
+        # The owned dispatch pipeline; its worker threads start on the first
+        # run at depth > 1, and close() (or GC, or atexit) reaps them.
+        self.pipeline = DispatchPipeline(depth=pipeline_depth, name="ed25519-torch", pin=on_card)
+        self._streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device)) if on_card else None
         self._committee: ed.CommitteeTable | None = None
         self._device_hash_ok = True
         self.device_hash_fallbacks = 0  # batches redone with host hashing (CPU only)
         # Callers on several threads (the sidecar's dispatches) share one
         # verifier; the fallback count is taken under this lock.
         self._latch_lock = threading.Lock()
+
+    def close(self) -> None:
+        """Drain the owned pipeline's worker threads. Safe to call more than
+        once; a closed verifier keeps working, every later batch inline."""
+        self.pipeline.close()
 
     # -- committee-resident path ------------------------------------------
 
@@ -99,11 +145,14 @@ class Ed25519TorchVerifier:
         ct = table or self._committee
         if ct is None:
             raise RuntimeError("no committee registered (call set_committee first)")
+        n = len(messages)
+        if n == 0:
+            return np.empty(0, bool)
+        _M_COMMITTEE_BATCHES.inc()
+        _M_COMMITTEE_SIGS.inc(n)
         indices = list(indices)
 
         def run(device_hash: bool) -> np.ndarray:
-            verify = cm.verify_committee96_dh if device_hash else cm.verify_committee96
-
             def stage(lo: int, hi: int) -> dict:
                 if device_hash:
                     return ed.prepare_batch_committee_dh(messages[lo:hi], indices[lo:hi], signatures[lo:hi])
@@ -111,7 +160,12 @@ class Ed25519TorchVerifier:
                     messages[lo:hi], [ct.keys[i] for i in indices[lo:hi]], indices[lo:hi], signatures[lo:hi]
                 )
 
-            return self._run_chunks(len(messages), stage, ("packed", "idx"), lambda p, i: verify(ct, i, p))
+            def dispatch(bufs, mask_buf, stream, tlkey):
+                # `ct` stays pinned in this closure, which the chunk's task
+                # holds until its readback.
+                return self._upload_dispatch_committee(ct, device_hash, bufs, mask_buf, stream, tlkey)
+
+            return self._run_chunks(n, stage, ("packed", "idx"), dispatch)
 
         return self._with_latch(messages, run)
 
@@ -123,11 +177,23 @@ class Ed25519TorchVerifier:
         keys: Sequence[bytes],
         signatures: Sequence[bytes],
     ) -> np.ndarray:
+        n = len(messages)
+        if n == 0:
+            return np.empty(0, bool)
+
         def run(device_hash: bool) -> np.ndarray:
             prepare = ed.prepare_batch_packed_dh if device_hash else ed.prepare_batch_packed
             verify = ladder.verify_packed128_dh if device_hash else ladder.verify_packed128
-            stage = lambda lo, hi: prepare(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
-            return self._run_chunks(len(messages), stage, ("packed",), verify)
+
+            def stage(lo: int, hi: int) -> dict:
+                _M_TABLE_BUILDS.inc()
+                _M_DECOMPRESSIONS.inc(hi - lo)
+                return prepare(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
+
+            def dispatch(bufs, mask_buf, stream, tlkey):
+                return self._upload_dispatch(verify, bufs, mask_buf, stream, tlkey)
+
+            return self._run_chunks(n, stage, ("packed",), dispatch)
 
         return self._with_latch(messages, run)
 
@@ -145,6 +211,7 @@ class Ed25519TorchVerifier:
             return run(device_hash)
         except Exception:
             log.exception("device-hash verification failed; retrying with host hashing")
+            _M_DH_FALLBACKS.inc()
             with self._latch_lock:
                 self.device_hash_fallbacks += 1
             out = run(False)
@@ -157,16 +224,76 @@ class Ed25519TorchVerifier:
             b *= 2
         return min(b, self.max_bucket)
 
-    def _run_chunks(self, n: int, stage, wire: tuple[str, ...], verify) -> np.ndarray:
-        """Verify lanes [0, n) one chunk after another: `stage(lo, hi)` gives
-        the chunk's staged host arrays; the `wire` ones are padded to the
-        chunk's bucket width, uploaded and passed to `verify`, whose (W,)
-        device mask is read back and ANDed with the host s < L mask."""
-        out = np.empty(n, bool)
-        for lo in range(0, n, self.chunk):
-            hi = min(lo + self.chunk, n)
-            staged = stage(lo, hi)
-            width = self._bucket(hi - lo)
-            tensors = [torch.from_numpy(pad(staged[k], width)).to(self.device) for k in wire]
-            out[lo:hi] = verify(*tensors).cpu().numpy()[: hi - lo] & staged["s_ok"]
-        return out
+    def _run_chunks(self, n: int, stage, wire: tuple[str, ...], dispatch) -> np.ndarray:
+        """Verify lanes [0, n) chunk by chunk through the pipeline.
+        `stage(lo, hi)` gives the chunk's staged host arrays; the `wire` ones
+        are padded into pooled buffers of the chunk's bucket width, and
+        `dispatch(bufs, mask_buf, stream, tlkey)` uploads them, launches the
+        kernels and queues the (W,) mask's copy into `mask_buf`, returning the
+        event to wait on (None on the CPU). The readback ANDs the mask with
+        the host s < L mask."""
+        pool = self.pipeline.pool
+        tl_on = timeline.enabled()
+        tl_batch = timeline.TIMELINE.next_batch() if tl_on else 0
+        streams = self._streams
+
+        def make_task(ci: int, lo: int, hi: int) -> ChunkTask:
+            tlkey = (tl_batch, ci, hi - lo) if tl_on else None
+            release: list = []
+
+            def stage_chunk():
+                _M_CHUNKS.inc()
+                with metrics.span(_M_STAGE):
+                    staged = stage(lo, hi)
+                width = self._bucket(hi - lo)
+                _M_PAD_LANES.inc(width - (hi - lo))
+                bufs = [pool.pad(staged[k], width) for k in wire]
+                mask_buf = pool.take((width,), np.bool_)
+                release.extend(bufs)
+                release.append(mask_buf)
+                return bufs, mask_buf, staged["s_ok"]
+
+            def submit(payload):
+                bufs, mask_buf, s_ok = payload
+                stream = streams[ci % 2] if streams else None
+                return dispatch(bufs, mask_buf, stream, tlkey), mask_buf, s_ok
+
+            def readback(handle):
+                event, mask_buf, s_ok = handle
+                with metrics.span(_M_READBACK):
+                    if event is not None:
+                        event.synchronize()
+                    # A fresh array: mask_buf goes back to the pool next.
+                    return mask_buf[: hi - lo] & s_ok
+
+            return ChunkTask(stage=stage_chunk, submit=submit, readback=readback, tlkey=tlkey, release=release)
+
+        tasks = [make_task(ci, lo, min(lo + self.chunk, n)) for ci, lo in enumerate(range(0, n, self.chunk))]
+        return np.concatenate(self.pipeline.run(tasks))
+
+    def _upload_dispatch(self, verify, bufs, mask_buf, stream, tlkey):
+        """Upload-worker leg of a chunk (the seam of the reference's
+        `_upload_dispatch`): upload the pooled wire buffers, launch
+        `verify(*tensors)` and queue its (W,) mask's copy into the pooled
+        `mask_buf`, all on `stream` (None on the CPU). Returns the event
+        recorded after the copy, or None on the CPU, where everything has
+        run by the time this returns."""
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            with metrics.span(_M_UPLOAD), timeline.span_for("upload", tlkey):
+                tensors = [torch.from_numpy(b).to(self.device, non_blocking=True) for b in bufs]
+            with metrics.span(_M_DISPATCH), timeline.span_for("dispatch", tlkey):
+                mask = verify(*tensors)
+                torch.from_numpy(mask_buf).copy_(mask, non_blocking=True)
+                if stream is None:
+                    return None
+                event = torch.cuda.Event()
+                event.record(stream)
+                return event
+
+    def _upload_dispatch_committee(self, ct, device_hash: bool, bufs, mask_buf, stream, tlkey):
+        """The committee path's upload-worker leg (the reference's
+        `_upload_dispatch_committee`): as `_upload_dispatch`, against the
+        resident tables of `ct` (pinned by the caller, never re-read from
+        self), with the (96, W) wire rows and the (W,) indices."""
+        verify = cm.verify_committee96_dh if device_hash else cm.verify_committee96
+        return self._upload_dispatch(lambda packed, idx: verify(ct, idx, packed), bufs, mask_buf, stream, tlkey)

@@ -1,22 +1,27 @@
-"""In-process metrics registry for the port's batch service and scheduler.
+"""In-process metrics registry for the port's verifier, batch service and
+scheduler.
 
 A trimmed copy of `hotstuff_tpu/utils/metrics.py`: only what
-`crypto/batch_service.py` and `crypto/scheduler.py` record into, and the
-`dump` / `reset` that read and clear it.
+`crypto/batch_service.py`, `crypto/scheduler.py` and the verifier's chunk
+loop (`ops/verifier.py`, `ops/pipeline.py`, `ops/timeline.py`) record into,
+and the `dump` / `reset` that read and clear it.
 
   * `counter(name)` / `gauge(name)` / `histogram(name)` — get-or-create
     metrics in a process-global registry. Counters are monotonic;
     histograms use fixed bucket bounds and derive p50/p95/p99 by
     interpolation inside the owning bucket.
+  * `span(histogram)` — a context manager timing its block into a
+    histogram.
   * `percentile(values, q)` — the nearest-rank percentile over raw samples
-    (the scheduler's `LaneStats`).
+    (the scheduler's `LaneStats`, the timeline's idle gaps).
 
-Metric names are the reference's (`scheduler.*`, `verifier.dedup_*`), so
-a dump of either package reads the same. Every
-metric guards its state with its own lock: the service's dispatch threads
-and the event loop record concurrently.
+Metric names are the reference's (`scheduler.*`, `verifier.*`,
+`pipeline.*`, `timeline.*`), so a dump of either package reads the
+same. Every metric guards its state with its own lock: the service's
+dispatch threads, the pipeline's workers and the event loop record
+concurrently.
 
-The reference's periodic emitter, spans, the recording switch and the
+The reference's periodic emitter, `timed`, the recording switch and the
 eagerly registered namespace are not ported.
 """
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from bisect import bisect_left
 from typing import Sequence
 
@@ -40,6 +46,7 @@ __all__ = [
     "dump",
     "percentile",
     "reset",
+    "span",
 ]
 
 # Wall-seconds buckets (1-2-5 series, 10 us .. 60 s).
@@ -234,6 +241,29 @@ def gauge(name: str) -> Gauge:
 
 def histogram(name: str, buckets: Sequence[float] = TIME_BUCKETS_S) -> Histogram:
     return REGISTRY.histogram(name, buckets)
+
+
+class _Span:
+    """Context manager timing one stage into a histogram (see `span`)."""
+
+    __slots__ = ("_hist", "_t0")
+
+    def __init__(self, hist: Histogram) -> None:
+        self._hist = hist
+        self._t0 = 0.0
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._hist.record(time.perf_counter() - self._t0)
+
+
+def span(hist: Histogram) -> _Span:
+    """`with metrics.span(h): ...` — time the block's wall seconds into
+    histogram `h`."""
+    return _Span(hist)
 
 
 def dump() -> dict:

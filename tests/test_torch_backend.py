@@ -15,6 +15,7 @@ from hotstuff_tpu_torch.crypto import pysigner
 from hotstuff_tpu_torch.crypto.backend import HostBackend, get_backend, set_backend
 from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+from tests.common_torch_verifier import check_verifier_depth
 from tests.test_rfc8032_vectors import VECTORS
 
 P = pysigner.P
@@ -78,6 +79,16 @@ def test_masks_match_tpu_backend(msg_len):
     assert ours == ref
     want = [i not in classes for i in range(16)]
     assert ours == want, [classes.get(i) for i, (a, b) in enumerate(zip(ours, want)) if a != b]
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_verifier_pipeline_matches_reference_verifier(depth):
+    """The generic path through the dispatch pipeline: 16 lanes of every
+    adversarial class, tiled to 128 so that both chunks hold them."""
+    msgs, keys, sigs = _signed(16, 32, seed=90)
+    classes = _adversarial(msgs, keys, sigs)
+    got = check_verifier_depth("generic", depth, msgs * 8, keys * 8, sigs * 8)
+    assert got == [i % 16 not in classes for i in range(128)]
 
 
 def test_rfc8032_vectors():

@@ -235,3 +235,29 @@ def test_commit_parser_and_digest_agreement():
         chip_smoke.check_commits({"node-0": _LOG, "node-1": forked})
     with pytest.raises(SystemExit, match="committed no block"):
         chip_smoke.check_commits({"node-0": _LOG, "node-1": "no commits here\n"})
+
+
+def test_read_device_trace_unions_intervals_and_finds_the_default_stream():
+    """`breakdown.read_device_trace` on a hand-made Chrome trace: the spin
+    marker names the default stream and is left out; kernels and copies on
+    two side streams overlap, so the union is shorter than the sum; a
+    kernel on the default stream is reported; a trace without the marker
+    raises."""
+    ev = lambda cat, name, ts, dur, stream: {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                                            "args": {"stream": stream}}
+    trace = {"traceEvents": [
+        ev("kernel", "spin_kernel(long)", 0.0, 1.0, 7),
+        ev("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 10.0, 2.0, 13),
+        ev("kernel", "ladder_kernel", 12.0, 6.0, 13),
+        ev("kernel", "h_digits_kernel", 14.0, 6.0, 17),
+        ev("kernel", "compress_eq_kernel", 30.0, 4.0, 7),
+        {"ph": "X", "cat": "cpu_op", "name": "aten::copy_", "ts": 0.0, "dur": 50.0},
+    ]}
+    res = breakdown.read_device_trace(trace, 50e-6)
+    assert res["device_ms"] == pytest.approx(14e-3) and res["device_ms_sum"] == pytest.approx(18e-3)
+    assert res["busy_share"] == pytest.approx(14 / 50)
+    assert res["streams"] == {"13": 2, "17": 1, "7": 1} and res["default_stream"] == "7"
+    assert res["on_default_stream"] == 1 and res["on_default_names"] == ["compress_eq_kernel"]
+    assert res["kernels"] == 3
+    with pytest.raises(RuntimeError, match="marker"):
+        breakdown.read_device_trace({"traceEvents": trace["traceEvents"][1:]}, 50e-6)

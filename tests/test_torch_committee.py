@@ -28,7 +28,9 @@ from hotstuff_tpu_torch.ops import committee as tcm
 from hotstuff_tpu_torch.ops import ed25519 as ted
 from hotstuff_tpu_torch.ops import field as tf
 from hotstuff_tpu_torch.ops import sha512 as tsha
-from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier, pad
+from hotstuff_tpu_torch.ops.pipeline import StagingBufferPool
+from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+from tests.common_torch_verifier import check_verifier_depth
 
 P, L = pysigner.P, pysigner.L
 B = 128
@@ -211,7 +213,8 @@ def test_verify_committee96_matches_jax(msg_len):
         ref_staged = jed.prepare_batch_committee(msgs, keys, indices, sigs)
     for name in ("packed", "idx", "s_ok"):
         np.testing.assert_array_equal(staged[name], ref_staged[name])
-    packed, idx = pad(staged["packed"], B), pad(staged["idx"], B)
+    pool = StagingBufferPool()
+    packed, idx = pool.pad(staged["packed"], B), pool.pad(staged["idx"], B)
     put = jax.device_put
     if msg_len == 32:
         ours = tcm.verify_committee96_dh(ct, torch.from_numpy(idx), torch.from_numpy(packed))
@@ -261,6 +264,17 @@ def test_backend_committee_miss_takes_generic_path():
     assert tb.verify_batch_mask(msgs, pks, sgs, committee=True) == want
     assert tb.stats["committee_misses"] == 1 and tb.stats["committee_batches"] == 0
     assert tb.stats["device_batches"] == 2
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_verifier_pipeline_matches_reference_verifier(depth):
+    """The committee path through the dispatch pipeline, against the
+    reference verifier at the 128-lane, 4-key shape compiled above: every
+    rejection class of `_vote_batch`, tiled to 128 so both chunks hold it."""
+    msgs, keys, sigs, want = _vote_batch(32, seed=91)
+    idx = [COMMITTEE.index(k) for k in keys]
+    got = check_verifier_depth("committee", depth, msgs * 8, idx * 8, sigs * 8, committee=COMMITTEE)
+    assert got == want * 8
 
 
 def test_committee_crossover():
