@@ -63,6 +63,25 @@ caught:
      against their plain versions at 4,096 lanes (random indices over the
      67-entry table, a few out of range, a ragged width), exactly; both
      also at every width of WIDTHS and timed at 128 lanes beside 4,096;
+  5b. the sharded verifier (`hotstuff_tpu_torch/parallel/mesh.py`) on a mesh
+     of every visible GPU and on virtual meshes of 2 and 4 shards on
+     `cuda:0`: `TorchBackend(mesh=...)` (chunk 4,096, max_bucket 8,192),
+     warmed up, phase 5's table registered, runs phase 3's generic batch
+     and phase 5's committee votes. Each mask must equal the expected one
+     and the single-device backend's, with 0 host lanes; each kernel must
+     launch the shard count times its single-device count (the others 0);
+     the registration and every committee batch must count no
+     decompression and no table build; the table must have one replica per
+     distinct device of the mesh; no staging buffer may be allocated after
+     warm-up; one traced generic and one traced committee batch must put
+     nothing on the default stream. Each mesh is timed against the
+     single-device backend in turns (3 attempts of 3 batches a path;
+     medians, busy share of the traced batches, each kernel's device ms at
+     the shard width with the bound of their sum). Then
+     `sharded_qc_counts` on a virtual 2 x 2 mesh over phase 5's 96 signed
+     QCs (each padded to 44 lanes) must give the expected masks and per-QC
+     counts, and the sidecar CLI with `--sharded --committee` (every
+     visible GPU) must boot and answer one QC with the expected mask;
   6. the crypto sidecar under full-width load: `remote.start` with the
      reference's defaults (max_batch 8,192, urgent_below 256) on an event
      loop in a thread of this process, around a fresh
@@ -103,6 +122,7 @@ port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import base64
 import gc
 import hashlib
 import json
@@ -1100,7 +1120,8 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
     ok_lanes = [i for i in range(len(M)) if expected[i] and i not in identity]
     crossover = phase_crossover(backend, M, K, S, ok_lanes)
     qcs = (M[:n_signed], K[:n_signed], S[:n_signed], expected[:n_signed].tolist())
-    return dict(launches=launches, table_keys=table_keys, rates=rates, crossover=crossover, qcs=qcs)
+    return dict(launches=launches, table_keys=table_keys, rates=rates, crossover=crossover, qcs=qcs,
+                votes=(M, K, S, expected))
 
 
 SWEEP = (1, 2, 4, 8, 16, 32, QUORUM, 64)  # batch sizes of the crossover sweep
@@ -1176,6 +1197,251 @@ def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
     res["default_crossover"] = TorchBackend(device=backend.device).crossover
     print(f"crossover sweep: {json.dumps(res)}", flush=True)
     return res
+
+
+# --- phase 5b: the sharded verifier on a mesh -----------------------------------
+
+MESH_ATTEMPTS = 3  # in turns with the single-device backend; medians
+MESH_ITERS = 3  # batches per attempt, leg and path
+COMMITTEE_KERNELS = ("h_digits_idx", "committee_ladder", "compress_eq")
+
+
+def meshes(device: str = "cuda") -> dict:
+    """The meshes of the phase: every visible GPU (`default_mesh()`; on the
+    CPU one shard), then virtual meshes of 2 and 4 shards on the first
+    device (`cuda:0`)."""
+    from hotstuff_tpu_torch.parallel import default_mesh
+
+    gpus = default_mesh() if device == "cuda" else default_mesh(device=device)
+    first = gpus.devices[0]
+    kind = "GPU" if first.type == "cuda" else "CPU"
+    return {f"{gpus.size} {kind}": gpus, "virtual 2": default_mesh(2, device=first),
+            "virtual 4": default_mesh(4, device=first)}
+
+
+def mesh_launch_errors(launches: dict, single: dict, kernels, shards: int) -> list[str]:
+    """Where a mesh run's launch counts are not `shards` times the
+    single-device run's for `kernels`, and not 0 for every other kernel."""
+    bad = [f"{k}: {launches[k]} != {shards} x {single[k]}" for k in kernels if launches[k] != shards * single[k]]
+    return bad + [f"{k}: {n} launches off the path" for k, n in launches.items() if n and k not in kernels]
+
+
+def qc_wire(qcs, quorum: int, n_dp: int):
+    """Phase 5's signed QCs (QC q = votes [q quorum, (q + 1) quorum)) as a
+    QC-major (Q, 128, B) device-hash wire batch for `sharded_qc_counts`,
+    each QC padded to B, a multiple of n_dp, with copies of its first vote
+    whose s < L bit is off. Returns (packed, s_ok, expected masks (Q, B),
+    expected counts (Q,))."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+
+    M, K, S, expected = qcs
+    n_q = len(M) // quorum
+    width = -(-quorum // n_dp) * n_dp
+    staged = ed.prepare_batch_packed_dh(M[: n_q * quorum], K[: n_q * quorum], S[: n_q * quorum])
+    packed = staged["packed"].reshape(128, n_q, quorum).transpose(1, 0, 2)
+    s_ok = staged["s_ok"].reshape(n_q, quorum)
+    want = np.asarray(expected[: n_q * quorum], bool).reshape(n_q, quorum)
+    pad = width - quorum
+    packed = np.concatenate([packed, np.repeat(packed[:, :, :1], pad, axis=2)], axis=2)
+    s_ok = np.concatenate([s_ok, np.zeros((n_q, pad), bool)], axis=1)
+    want = np.concatenate([want, np.zeros((n_q, pad), bool)], axis=1)
+    return np.ascontiguousarray(packed), s_ok, want, want.sum(axis=1)
+
+
+def _mesh_run(label: str, mesh, single, batch, votes, table_keys, main_launches, committee_launches) -> dict:
+    """One mesh against the single-device backend `single` (see
+    `phase_mesh`)."""
+    import torch
+
+    from hotstuff_tpu_torch import breakdown
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.utils import metrics
+
+    M, K, S, expected = batch
+    CM, CK, CS, cexpected = votes
+    pks, sgs = [PublicKey(k) for k in K], [Signature(s) for s in S]
+    cpks, csgs = [PublicKey(k) for k in CK], [Signature(s) for s in CS]
+    allocs = metrics.counter("pipeline.buffer_allocs")
+    decomp, builds = metrics.counter("verifier.decompressions"), metrics.counter("verifier.table_builds")
+    backend = TorchBackend(mesh=mesh, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    v, n = backend._verifier, mesh.size
+    try:
+        backend.warmup()
+        d0, b0 = decomp.value, builds.value
+        backend.register_committee(table_keys, warmup=True)
+        table = v.committee
+        if (decomp.value, builds.value) != (d0, b0):
+            fail(f"mesh {label}: registration counted decompressions or table builds")
+        replicas = table.replicas
+        if list(replicas) != list(mesh.distinct) or any(
+                r.entries.device != d or not torch.equal(r.entries.cpu(), table.entries.cpu())
+                for d, r in replicas.items()):
+            fail(f"mesh {label}: replicas {list(replicas)} are not one equal table per device of {mesh.distinct}")
+        _top_up(v.pipeline)
+        a0, st0 = allocs.value, dict(backend.stats)
+        _build.reset_launches()
+        mask = backend.verify_batch_mask(M, pks, sgs)
+        launches = _build.launches()
+        bad = mesh_launch_errors(launches, main_launches, GENERIC_KERNELS, n)
+        if mask != expected.tolist() or bad:
+            fail(f"mesh {label}: generic mask equal to expected: {mask == expected.tolist()}; launches {bad}")
+        _build.reset_launches()
+        d0, b0 = decomp.value, builds.value
+        cmask = backend.verify_batch_mask(CM, cpks, csgs, committee=True)
+        claunches = _build.launches()
+        bad = mesh_launch_errors(claunches, committee_launches, COMMITTEE_KERNELS, n)
+        if cmask != cexpected.tolist() or bad or (decomp.value, builds.value) != (d0, b0):
+            fail(f"mesh {label}: committee mask equal to expected: {cmask == cexpected.tolist()}; launches "
+                 f"{bad}; decompressions {decomp.value - d0}, table builds {builds.value - b0}")
+
+        legs = {"single": single, "mesh": backend}
+        rates = {leg: {"generic": [], "committee": []} for leg in legs}
+        for _ in range(MESH_ATTEMPTS):
+            for leg, b in legs.items():
+                for path, args, want in (("generic", (M, pks, sgs), mask), ("committee", (CM, cpks, csgs), cmask)):
+                    d0, b0 = decomp.value, builds.value
+                    t0 = time.perf_counter()
+                    outs = [b.verify_batch_mask(*args, committee=path == "committee") for _ in range(MESH_ITERS)]
+                    rates[leg][path].append(len(args[0]) * MESH_ITERS / (time.perf_counter() - t0))
+                    if any(o != want for o in outs):
+                        fail(f"mesh {label}: a timed {leg} {path} mask differs")
+                    if path == "committee" and (decomp.value, builds.value) != (d0, b0):
+                        fail(f"mesh {label}: timed {leg} committee batches decompressed or built tables")
+        if allocs.value != a0:
+            fail(f"mesh {label}: {allocs.value - a0} staging buffers allocated after warm-up")
+        if backend.stats["host_sigs"] != st0["host_sigs"]:
+            fail(f"mesh {label}: lanes verified on the host: {backend.stats}")
+        traced = {}
+        for leg, b in legs.items():
+            for path, args in (("generic", (M, pks, sgs)), ("committee", (CM, cpks, csgs))):
+                out = []
+                trace_path = REPO / ".chip_smoke" / f"trace_mesh_{label.replace(' ', '')}_{leg}_{path}.json"
+                tr = breakdown.device_trace(
+                    lambda: out.append(b.verify_batch_mask(*args, committee=path == "committee")), trace_path)
+                if out[0] != (mask if path == "generic" else cmask) or tr["on_default_stream"]:
+                    fail(f"mesh {label}: traced {leg} {path} batch: mask changed or work on the default stream ({tr})")
+                traced[f"{leg}_{path}"] = tr
+        pipeline = _pipeline_line(v)
+    finally:
+        backend.close()
+    med = {leg: {p: statistics.median(r) for p, r in paths.items()} for leg, paths in rates.items()}
+    return dict(
+        devices=[str(d) for d in mesh.devices], replicas=len(replicas), launches=launches, committee_launches=claunches,
+        sigs_per_s={leg: {p: [round(x, 1) for x in r] for p, r in paths.items()} for leg, paths in rates.items()},
+        median={leg: {p: round(x, 1) for p, x in paths.items()} for leg, paths in med.items()},
+        ratio={p: round(med["mesh"][p] / med["single"][p], 3) for p in ("generic", "committee")},
+        busy_share={k: round(tr["busy_share"], 4) for k, tr in traced.items()},
+        streams={k: tr["streams"] for k, tr in traced.items()}, pipeline=pipeline)
+
+
+def _shard_kernel_ms(v, batch, votes, table_keys, width: int, kernels: dict, committee_kernels: dict) -> dict:
+    """Each kernel's device ms at one shard's width (`breakdown`'s layer
+    timers on the first `width` lanes of each batch), their sums per path,
+    and the bound of each sum: the per-kernel bounds of phases 2 and 5
+    scaled from LANES to `width` lanes, summed."""
+    from hotstuff_tpu_torch import breakdown
+
+    M, K, S, _ = batch
+    CM, CK, CS, _ = votes
+    table = v.set_committee(table_keys)
+    gl = breakdown._generic_layers(v, M, K, S, width)
+    cl = breakdown._committee_layers(v, table, CM, [table.index[k] for k in CK], CS, width)
+    rows = {**kernels, **committee_kernels}
+    out = {}
+    for path, layers, names in (("generic", gl, GENERIC_KERNELS), ("committee", cl, COMMITTEE_KERNELS)):
+        ms = {k: layers[f"{k}_ms"] for k in names}
+        bounds = [_bound_ms(rows[k]["bytes"] * width / LANES, rows[k]["ops"] * width / LANES) for k in names]
+        out[path] = dict(ms={k: round(x, 4) for k, x in ms.items()}, sum_ms=round(sum(ms.values()), 4),
+                         bound_ms=round(sum(b for b, _ in bounds), 5))
+    return out
+
+
+def phase_mesh(batch, committee_path: dict, main_launches: dict, kernels: dict, committee_kernels: dict,
+               card: str, device: str = "cuda") -> dict:
+    """The sharded verifier (`hotstuff_tpu_torch/parallel/mesh.py`) on every
+    mesh of `meshes()`, with phase 3's generic batch and phase 5's committee
+    votes (see the module docstring); then `sharded_qc_counts` on a virtual
+    2 x 2 mesh over phase 5's signed QCs, and the sidecar CLI with
+    `--sharded --committee` answering one QC."""
+    import torch
+
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.remote import RemoteBackend
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.parallel import mesh_2d, sharded_qc_counts
+
+    run_dir = REPO / ".chip_smoke" / "mesh"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    table_keys = committee_path["table_keys"]
+    cli_log = run_dir / "sidecar-cli.log"
+    cli = None
+    if device == "cuda":
+        # The table's keys as a committee's authorities; no node listens on the ports.
+        names = [base64.standard_b64encode(k).decode() for k in table_keys]
+        committee_file, _ = write_node_configs(run_dir, names, list(range(9000, 9000 + 3 * len(names))))
+        cli = _spawn([sys.executable, "-m", "hotstuff_tpu_torch.crypto.remote", "-vv", "--port", "0", "--sharded",
+                      "--committee", str(committee_file)], cli_log, run_dir)
+    single = TorchBackend(device=device, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    try:
+        single.warmup()
+        single.register_committee(table_keys, warmup=True)
+        _top_up(single._verifier.pipeline)
+        results = {}
+        for label, mesh in meshes(device).items():
+            res = results[label] = _mesh_run(label, mesh, single, batch, committee_path["votes"], table_keys,
+                                              main_launches, committee_path["launches"])
+            res["shard_kernels"] = _shard_kernel_ms(single._verifier, batch, committee_path["votes"], table_keys,
+                                                    CHUNK // mesh.size, kernels, committee_kernels)
+            print(f"mesh {label}: devices {res['devices']}, {res['replicas']} table replica(s); generic and committee "
+                  f"masks == expected == single-device masks; launches {res['launches']} and "
+                  f"{res['committee_launches']} (= {mesh.size} x single-device); 0 host lanes; committee batches "
+                  f"decompressed nothing and built no table; no staging buffer allocated after warm-up; nothing on "
+                  f"the default stream; pipeline {res['pipeline']}", flush=True)
+            print(f"mesh timing {label} ({card}): {MESH_ATTEMPTS} attempts x {MESH_ITERS} batches in turns with "
+                  f"one device: sigs/s {json.dumps(res['sigs_per_s'])}, medians {json.dumps(res['median'])}, "
+                  f"mesh / single {json.dumps(res['ratio'])}; busy share {json.dumps(res['busy_share'])}; "
+                  f"per-shard kernels at {CHUNK // mesh.size} lanes {json.dumps(res['shard_kernels'])}", flush=True)
+
+        qmesh = mesh_2d(2, 2, devices=[single.device] * 4)
+        packed, s_ok, qwant, qcounts = qc_wire(committee_path["qcs"], QUORUM, qmesh.shape["dp"])
+        _build.reset_launches()
+        qmask, counts = sharded_qc_counts(qmesh, packed, s_ok)
+        qlaunches = _build.launches()
+        if qmask.cpu().numpy().tolist() != qwant.tolist() or counts.cpu().tolist() != qcounts.tolist():
+            fail(f"sharded_qc_counts on {qmesh}: masks or counts differ from expected")
+        if device == "cuda" and mesh_launch_errors(qlaunches, dict.fromkeys(GENERIC_KERNELS, 1), GENERIC_KERNELS, 4):
+            fail(f"sharded_qc_counts launched {qlaunches}, not each generic kernel once per device")
+        print(f"mesh qc counts: {qmesh}: {packed.shape[0]} QCs x {packed.shape[2]} lanes ({QUORUM} votes and "
+              f"padding), masks and per-QC counts == expected (counts {counts.cpu().tolist()[:8]}...), "
+              f"launches {qlaunches}", flush=True)
+
+        if cli is not None:
+            _await_logs([(cli_log, cli)], "successfully booted", "the sharded sidecar CLI")
+            text = cli_log.read_text()
+            cli_port = int(re.search(r"successfully booted on [\d.]+:(\d+)", text).group(1))
+            client = RemoteBackend(("127.0.0.1", cli_port), crossover=1)
+            QM, QK, QS, qexp = committee_path["qcs"]
+            cmask = client.verify_batch_mask(QM[:QUORUM], [PublicKey(k) for k in QK[:QUORUM]],
+                                             [Signature(s) for s in QS[:QUORUM]])
+            client.close()
+            if cmask != qexp[:QUORUM] or client.stats["remote_sigs"] != QUORUM:
+                fail(f"the sharded sidecar CLI answered a QC wrongly: {client.stats}")
+            registered = f"registered {len(set(table_keys))}-key committee"
+            if registered not in text or "batches split over DeviceMesh" not in text:
+                fail(f"the sharded sidecar CLI did not split batches or register the committee; see {cli_log}")
+            print(f"sidecar CLI --sharded --committee: booted on {torch.cuda.device_count()} GPU(s), one "
+                  f"{QUORUM}-vote QC answered with the expected mask", flush=True)
+    finally:
+        if cli is not None:
+            _kill([cli])
+        single.close()
+    return dict(meshes=results, qc_launches=qlaunches)
 
 
 # --- phases 6 and 7: the crypto sidecar --------------------------------------
@@ -1906,6 +2172,7 @@ def main() -> int:
     phase_pipeline_ab(main_path["batch"])
     committee_path = phase_committee_path(args.seed)
     committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])
+    mesh = phase_mesh(main_path["batch"], committee_path, main_path["launches"], kernels, committee_kernels, card)
 
     from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
     from hotstuff_tpu_torch.ops import _build
@@ -1923,6 +2190,8 @@ def main() -> int:
                 source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
                 replaces=REPLACES[name], launches=path["launches"][name],
                 sidecar_launches=sidecar["launches"][name],
+                mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
+                               for label, m in mesh["meshes"].items()},
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,

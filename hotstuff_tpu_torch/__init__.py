@@ -20,10 +20,14 @@ __all__ = ["resolve_device", "kernels_built"]
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: `cuda` unless `cpu` is asked for.
+    A card is returned in indexed form (`cuda` is the current card,
+    `cuda:0` on a fresh process), as a tensor's `device` reads, so devices
+    compare equal to the tensors placed on them.
 
     Raises RuntimeError when the card is asked for (explicitly or by
     default) and `torch.cuda.is_available()` is False — callers that want
-    the plain CPU path must say so."""
+    the plain CPU path must say so — or when the index names no visible
+    card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -31,7 +35,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions of the kernels"
             )
-        return dev
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"{dev} asked for, {torch.cuda.device_count()} CUDA devices visible")
+        return torch.device("cuda", index)
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r} (cuda or cpu)")

@@ -4,8 +4,9 @@ A copy of `hotstuff_tpu/crypto/backend.py:19-83` for the port. The
 reference hard-wires ed25519_dalek's `verify_batch`
 (crypto/src/lib.rs:194-220); here every batch verification dispatches
 through an interchangeable backend — the host (`HostBackend`, exact
-Python integers with the card's verdicts) or the card
-(`torch_backend.TorchBackend`).
+Python integers with the card's verdicts), the card
+(`torch_backend.TorchBackend`) or a sidecar (`remote.RemoteBackend`),
+made by `make_backend`.
 """
 
 from __future__ import annotations
@@ -81,3 +82,21 @@ def set_backend(backend: CryptoBackend) -> CryptoBackend:
     with _lock:
         prev, _backend = _backend, backend
     return prev
+
+
+def make_backend(kind: str, **kwargs) -> CryptoBackend:
+    """The backend of `kind` (`host` | `torch` | `remote`), made with
+    `kwargs`, as the reference's factory (`hotstuff_tpu/crypto/backend.py:
+    86-98`); e.g. `make_backend("torch", sharded=True)` splits batches over
+    every visible GPU."""
+    if kind == "host":
+        return HostBackend(**kwargs)
+    if kind == "torch":
+        from .torch_backend import TorchBackend
+
+        return TorchBackend(**kwargs)
+    if kind == "remote":
+        from .remote import RemoteBackend
+
+        return RemoteBackend(**kwargs)
+    raise ValueError(f"unknown crypto backend {kind!r}")

@@ -22,7 +22,10 @@ Run it as
 
 It prints `Crypto sidecar (torch) successfully booted on host:port` once it
 accepts connections (the benchmark harness waits for "successfully
-booted"). The reference's `--multihost` is not ported, nor its
+booted"). `--sharded` splits every batch over every visible GPU
+(`parallel/mesh.py`), the counterpart of the reference node's
+`--crypto-sharded`; with `--committee` each GPU then holds a replica of the
+committee's tables. The reference's `--multihost` is not ported, nor its
 `--max-delay`, which bound only the reference service's single-queue
 flush loop: the port's scheduler sets every flush deadline per source
 class. The wire carries the urgent bit alone, so requests take the
@@ -42,7 +45,7 @@ import struct
 import threading
 from typing import Sequence
 
-from .backend import CryptoBackend, HostBackend
+from .backend import CryptoBackend, HostBackend, make_backend
 from .batch_service import BatchVerificationService
 from .primitives import PublicKey, Signature
 
@@ -326,7 +329,6 @@ def main(argv: list[str] | None = None) -> None:
 
     from ..node.config import read_consensus_keys
     from ..utils.logging import setup_logging
-    from .torch_backend import TorchBackend
 
     p = argparse.ArgumentParser(description="crypto verification sidecar on the card")
     p.add_argument("-v", "--verbose", action="count", default=2)
@@ -343,12 +345,18 @@ def main(argv: list[str] | None = None) -> None:
         help="node committee file: register its consensus keys as device-resident "
         "tables at boot",
     )
+    p.add_argument("--sharded", action="store_true",
+                   help="split every batch over every visible GPU (needs --device cuda); "
+                   "--committee then registers one table replica per GPU")
     p.add_argument("--no-warmup", action="store_true", help="skip the bucket warmup")
     args = p.parse_args(argv)
     if args.chunk is not None and args.chunk <= 0:
         p.error("--chunk must be positive")
+    if args.sharded and args.device != "cuda":
+        p.error("--sharded needs --device cuda")
     setup_logging(args.verbose)
-    backend = TorchBackend(device=args.device, min_bucket=args.min_bucket, chunk=args.chunk)
+    placement = dict(sharded=True) if args.sharded else dict(device=args.device)
+    backend = make_backend("torch", min_bucket=args.min_bucket, chunk=args.chunk, **placement)
     if not args.no_warmup:
         warmup_backend(backend)
     if args.committee is not None:

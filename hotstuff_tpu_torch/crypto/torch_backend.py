@@ -26,6 +26,17 @@ committee path and on the generic path alike, so one crossover serves both
 The verifier's dispatch pipeline runs at `HOTSTUFF_PIPELINE_DEPTH` chunks in
 flight (default 2; 1 runs every chunk inline on the caller's thread);
 `close()` drains its worker threads.
+
+`sharded=True` splits every batch over every visible GPU, and `mesh=` over
+the devices of a `parallel.DeviceMesh` (`tpu_backend.py:74-86`): the
+verifier is then `ShardedEd25519TorchVerifier`, buckets are multiples of its
+`mesh_alignment`, and a registered committee has a table replica per device.
+Deliberate departure: the reference's mesh-aware committee crossover floor
+(`tpu_backend.py:110-124`, `max(crossover // 4, mesh_alignment // 8)`) is
+not carried over. Its host path is OpenSSL; the port's is the exact-integer
+verifier, far slower than the card even on a quorum padded to a mesh
+bucket, and the floor would send every QC of a 4-device mesh to it. Routing
+never changes a verdict, only where it is computed.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import torch
 
 from ..ops import _build
 from ..ops.verifier import Ed25519TorchVerifier
+from ..parallel.mesh import DeviceMesh, ShardedEd25519TorchVerifier, default_mesh
 from .backend import CryptoBackend, HostBackend
 from .primitives import PublicKey, Signature
 
@@ -58,10 +70,17 @@ class TorchBackend(CryptoBackend):
         min_bucket: int = 128,
         chunk: int | None = None,
         device: str | torch.device | None = None,
+        sharded: bool = False,
+        mesh: DeviceMesh | None = None,
     ):
-        self._verifier = Ed25519TorchVerifier(
-            device=device, min_bucket=min_bucket, max_bucket=max_bucket, chunk=chunk
-        )
+        kw = dict(min_bucket=min_bucket, max_bucket=max_bucket, chunk=chunk)
+        if sharded or mesh is not None:
+            if device is not None:
+                raise ValueError("a sharded backend takes its devices from its mesh, not device=")
+            self._verifier = ShardedEd25519TorchVerifier(mesh=mesh or default_mesh(), **kw)
+            log.info("batches split over %s", self._verifier.mesh)
+        else:
+            self._verifier = Ed25519TorchVerifier(device=device, **kw)
         self._host = HostBackend()
         self.crossover = crossover
         self._lock = threading.Lock()
@@ -82,9 +101,11 @@ class TorchBackend(CryptoBackend):
 
     @property
     def bucket_alignment(self) -> int:
-        """The narrowest bucket width: the batch scheduler sizes bulk
-        buckets against it so a closed bucket pads no lanes."""
-        return self._verifier.min_bucket
+        """The bucket grid: the mesh's `mesh_alignment` on a sharded
+        verifier, else the narrowest bucket width. The batch scheduler sizes
+        bulk buckets against it so a closed bucket pads no lanes."""
+        v = self._verifier
+        return getattr(v, "mesh_alignment", 0) or v.min_bucket
 
     def register_committee(self, keys: Sequence[PublicKey | bytes], warmup: bool = False) -> int:
         """Install the committee keys as device-resident tables. Idempotent
@@ -99,12 +120,23 @@ class TorchBackend(CryptoBackend):
         return table.size
 
     def _warmup_widths(self) -> list[int]:
+        """Batch sizes that, run through the verifier, dispatch at every
+        bucket width it uses, each once (`tpu_backend.py:175-205`): sizes
+        doubling from `min_bucket` up to the chunk, then the chunk, each
+        mapped through the verifier's own `_bucket` and kept only when its
+        width is new (mesh alignment can land two sizes on one width)."""
         v = self._verifier
-        widths, w = [], v.min_bucket
+        sizes, w = [], v.min_bucket
         while w < v.chunk:
-            widths.append(w)
+            sizes.append(w)
             w *= 2
-        return widths + [v.chunk]
+        seen, out = set(), []
+        for n in sizes + [v.chunk]:
+            width = v._bucket(n)
+            if width not in seen:
+                seen.add(width)
+                out.append(n)
+        return out
 
     def warmup(self) -> float:
         """Build the CUDA kernels (on the card) and run one batch at every
@@ -116,13 +148,13 @@ class TorchBackend(CryptoBackend):
             _build.build_all()
         v = self._verifier
         rng = np.random.default_rng(0)
-        widths = self._warmup_widths()
-        for n in widths:
+        sizes = self._warmup_widths()
+        for n in sizes:
             junk = [bytes(row) for row in rng.integers(0, 256, (n, 128), np.uint8)]
             v.verify_batch_mask([j[:32] for j in junk], [j[32:64] for j in junk], [j[64:] for j in junk])
         v.verify_batch_mask([b"\x00" * 33], [bytes(32)], [bytes(64)])
         secs = time.perf_counter() - t0
-        log.info("torch verifier warmup: widths %s in %.1f s", widths, secs)
+        log.info("torch verifier warmup: widths %s in %.1f s", [v._bucket(n) for n in sizes], secs)
         return secs
 
     def _warmup_committee(self) -> float:
@@ -133,13 +165,13 @@ class TorchBackend(CryptoBackend):
             _build.build_all()
         v = self._verifier
         rng = np.random.default_rng(1)
-        widths = self._warmup_widths()
-        for n in widths:
+        sizes = self._warmup_widths()
+        for n in sizes:
             junk = [bytes(row) for row in rng.integers(0, 256, (n, 96), np.uint8)]
             v.verify_batch_mask_committee([j[:32] for j in junk], [0] * n, [j[32:] for j in junk])
         v.verify_batch_mask_committee([b"\x00" * 33], [0], [bytes(64)])
         secs = time.perf_counter() - t0
-        log.info("torch committee warmup: widths %s in %.1f s", widths, secs)
+        log.info("torch committee warmup: widths %s in %.1f s", [v._bucket(n) for n in sizes], secs)
         return secs
 
     def verify_batch_mask(

@@ -191,7 +191,9 @@ class CommitteeTable:
       valid   : (N,) bool, False for keys with no decompression
       keys_u8 : (32, N) uint8 raw key bytes, read by index by kernel K2g
     `index` maps raw key -> validator index (the first index wins for a
-    duplicate key)."""
+    duplicate key). `replicas` maps each device that holds a copy of the
+    table to that copy, this table's own device to itself; the mesh verifier
+    (`parallel/mesh.py`) adds one copy per device of its mesh with `to`."""
 
     def __init__(self, keys: Sequence[bytes], device: str | torch.device = "cpu") -> None:
         keys = [bytes(k) for k in keys]
@@ -226,6 +228,23 @@ class CommitteeTable:
             np.frombuffer(b"".join(keys), np.uint8).reshape(n, 32).T.copy()
         ).to(dev)
         self.size = n
+        self.replicas: dict[torch.device, CommitteeTable] = {self.entries.device: self}
+
+    def to(self, device: str | torch.device) -> CommitteeTable:
+        """This table on `device`: itself when it is there already, else a
+        copy that shares `keys` and `index` and redoes none of the host's
+        exact-integer work. The copy goes through host memory by blocking
+        copies, so it has landed when this returns and a kernel on any
+        stream reads it complete (a device-to-device copy would still be in
+        flight on the caller's stream)."""
+        dev = torch.device(device)
+        if dev == self.entries.device:
+            return self
+        out = object.__new__(CommitteeTable)
+        out.keys, out.index, out.size = self.keys, self.index, self.size
+        out.entries, out.valid, out.keys_u8 = (t.cpu().to(dev) for t in (self.entries, self.valid, self.keys_u8))
+        out.replicas = {out.entries.device: out}
+        return out
 
 # --- decompression and the per-item -A table ---------------------------------
 

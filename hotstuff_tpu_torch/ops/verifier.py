@@ -32,22 +32,32 @@ On the card:
   * the staging buffers and the mask buffers are page-locked (the pool's
     `pin`), so the upload (`non_blocking`) and the mask's copy back are
     asynchronous;
-  * the verifier owns two CUDA streams and chunk k runs on stream k % 2:
-    its upload, its kernels, the torch ops between them and its mask's copy
-    back are all issued inside `torch.cuda.stream(...)` on the thread that
-    issues them (the current stream is per thread, and `Kernel.launch`
-    launches on it), so chunk k+1's upload and kernels need not wait for
-    chunk k's. The readback waits on the chunk's own `torch.cuda.Event`,
-    never on the whole device;
+  * the verifier owns two CUDA streams per shard (one shard here; one per
+    mesh entry in the mesh verifier, `parallel/mesh.py`) and chunk k runs
+    on stream k % 2 of each shard: its upload, its kernels, the torch ops
+    between them and its mask's copy back are all issued inside
+    `torch.cuda.stream(...)` on the thread that issues them (the current
+    stream is per thread, and `Kernel.launch` launches on it), so chunk
+    k+1's upload and kernels need not wait for chunk k's. The readback
+    waits on the chunk's own `torch.cuda.Event`s, one per shard, never on
+    the whole device;
   * the device constants (`field.const`) and a committee table's tensors
-    are made by blocking copies, which have landed before the copy returns,
-    so kernels on either stream read them complete; a chunk's task holds
-    its `CommitteeTable` until its readback, so a table replaced mid-batch
-    cannot return to the allocator while a kernel still reads it.
+    (and its replicas, `CommitteeTable.to`) are made by blocking copies,
+    which have landed before the copy returns, so kernels on any stream
+    read them complete; a chunk's task holds its `CommitteeTable` until its
+    readback, so a table replaced mid-batch cannot return to the allocator
+    while a kernel still reads it.
 A CUDA stream or pinned-memory failure raises; there is no pageable or
 default-stream fallback.
 
-The reference's deferred readback (`_defer_readback`, the multi-process
+Staging buffers are shard-major: a chunk's (rows, W) wire array is padded
+into a pooled (shards, rows, W / shards) buffer, so each shard uploads one
+contiguous block, and shard s writes lanes [s W / shards, (s + 1) W /
+shards) of the chunk's pooled mask buffer.
+
+The mesh verifier (`parallel/mesh.py`) splits each chunk over the devices
+of a mesh through the hooks here (`shard_devices`, `_build_committee_table`);
+the reference's deferred readback (`_defer_readback`, the multi-process
 mesh) is not ported.
 """
 
@@ -103,13 +113,22 @@ class Ed25519TorchVerifier:
         # The owned dispatch pipeline; its worker threads start on the first
         # run at depth > 1, and close() (or GC, or atexit) reaps them.
         self.pipeline = DispatchPipeline(depth=pipeline_depth, name="ed25519-torch", pin=on_card)
-        self._streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device)) if on_card else None
+        # Two streams per shard; chunk k runs on stream k % 2 of each.
+        self._streams = (
+            [(torch.cuda.Stream(d), torch.cuda.Stream(d)) for d in self.shard_devices] if on_card else None
+        )
         self._committee: ed.CommitteeTable | None = None
         self._device_hash_ok = True
         self.device_hash_fallbacks = 0  # batches redone with host hashing (CPU only)
         # Callers on several threads (the sidecar's dispatches) share one
         # verifier; the fallback count is taken under this lock.
         self._latch_lock = threading.Lock()
+
+    @property
+    def shard_devices(self) -> tuple[torch.device, ...]:
+        """The device of each shard a chunk is split over, in lane order:
+        this verifier's one device (the mesh verifier: its mesh's devices)."""
+        return (self.device,)
 
     def close(self) -> None:
         """Drain the owned pipeline's worker threads. Safe to call more than
@@ -128,8 +147,13 @@ class Ed25519TorchVerifier:
         table and replaces the old (the reconfiguration contract)."""
         keys = [bytes(k) for k in keys]
         if self._committee is None or self._committee.keys != keys:
-            self._committee = ed.CommitteeTable(keys, self.device)
+            self._committee = self._build_committee_table(keys)
         return self._committee
+
+    def _build_committee_table(self, keys: list[bytes]) -> ed.CommitteeTable:
+        """Placement hook (the reference's, `hotstuff_tpu/ops/ed25519.py:954`):
+        the mesh verifier overrides it to add a replica per device."""
+        return ed.CommitteeTable(keys, self.device)
 
     def verify_batch_mask_committee(
         self,
@@ -160,10 +184,10 @@ class Ed25519TorchVerifier:
                     messages[lo:hi], [ct.keys[i] for i in indices[lo:hi]], indices[lo:hi], signatures[lo:hi]
                 )
 
-            def dispatch(bufs, mask_buf, stream, tlkey):
+            def dispatch(bufs, mask_buf, streams, tlkey):
                 # `ct` stays pinned in this closure, which the chunk's task
                 # holds until its readback.
-                return self._upload_dispatch_committee(ct, device_hash, bufs, mask_buf, stream, tlkey)
+                return self._upload_dispatch_committee(ct, device_hash, bufs, mask_buf, streams, tlkey)
 
             return self._run_chunks(n, stage, ("packed", "idx"), dispatch)
 
@@ -190,8 +214,8 @@ class Ed25519TorchVerifier:
                 _M_DECOMPRESSIONS.inc(hi - lo)
                 return prepare(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
 
-            def dispatch(bufs, mask_buf, stream, tlkey):
-                return self._upload_dispatch(verify, bufs, mask_buf, stream, tlkey)
+            def dispatch(bufs, mask_buf, streams, tlkey):
+                return self._upload_dispatch(lambda dev, packed: verify(packed), bufs, mask_buf, streams, tlkey)
 
             return self._run_chunks(n, stage, ("packed",), dispatch)
 
@@ -227,15 +251,16 @@ class Ed25519TorchVerifier:
     def _run_chunks(self, n: int, stage, wire: tuple[str, ...], dispatch) -> np.ndarray:
         """Verify lanes [0, n) chunk by chunk through the pipeline.
         `stage(lo, hi)` gives the chunk's staged host arrays; the `wire` ones
-        are padded into pooled buffers of the chunk's bucket width, and
-        `dispatch(bufs, mask_buf, stream, tlkey)` uploads them, launches the
-        kernels and queues the (W,) mask's copy into `mask_buf`, returning the
-        event to wait on (None on the CPU). The readback ANDs the mask with
-        the host s < L mask."""
+        are padded into pooled shard-major buffers of the chunk's bucket
+        width, and `dispatch(bufs, mask_buf, streams, tlkey)` uploads them,
+        launches the kernels and queues the (W,) mask's copy into `mask_buf`,
+        returning the events to wait on (none on the CPU). The readback ANDs
+        the mask with the host s < L mask."""
         pool = self.pipeline.pool
         tl_on = timeline.enabled()
         tl_batch = timeline.TIMELINE.next_batch() if tl_on else 0
         streams = self._streams
+        shards = len(self.shard_devices)
 
         def make_task(ci: int, lo: int, hi: int) -> ChunkTask:
             tlkey = (tl_batch, ci, hi - lo) if tl_on else None
@@ -247,7 +272,7 @@ class Ed25519TorchVerifier:
                     staged = stage(lo, hi)
                 width = self._bucket(hi - lo)
                 _M_PAD_LANES.inc(width - (hi - lo))
-                bufs = [pool.pad(staged[k], width) for k in wire]
+                bufs = [pad_shards(pool, staged[k], width, shards) for k in wire]
                 mask_buf = pool.take((width,), np.bool_)
                 release.extend(bufs)
                 release.append(mask_buf)
@@ -255,13 +280,13 @@ class Ed25519TorchVerifier:
 
             def submit(payload):
                 bufs, mask_buf, s_ok = payload
-                stream = streams[ci % 2] if streams else None
-                return dispatch(bufs, mask_buf, stream, tlkey), mask_buf, s_ok
+                chunk_streams = [pair[ci % 2] for pair in streams] if streams else [None] * shards
+                return dispatch(bufs, mask_buf, chunk_streams, tlkey), mask_buf, s_ok
 
             def readback(handle):
-                event, mask_buf, s_ok = handle
+                events, mask_buf, s_ok = handle
                 with metrics.span(_M_READBACK):
-                    if event is not None:
+                    for event in events:
                         event.synchronize()
                     # A fresh array: mask_buf goes back to the pool next.
                     return mask_buf[: hi - lo] & s_ok
@@ -271,29 +296,62 @@ class Ed25519TorchVerifier:
         tasks = [make_task(ci, lo, min(lo + self.chunk, n)) for ci, lo in enumerate(range(0, n, self.chunk))]
         return np.concatenate(self.pipeline.run(tasks))
 
-    def _upload_dispatch(self, verify, bufs, mask_buf, stream, tlkey):
+    def _upload_dispatch(self, verify, bufs, mask_buf, streams, tlkey):
         """Upload-worker leg of a chunk (the seam of the reference's
-        `_upload_dispatch`): upload the pooled wire buffers, launch
-        `verify(*tensors)` and queue its (W,) mask's copy into the pooled
-        `mask_buf`, all on `stream` (None on the CPU). Returns the event
-        recorded after the copy, or None on the CPU, where everything has
-        run by the time this returns."""
-        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            with metrics.span(_M_UPLOAD), timeline.span_for("upload", tlkey):
-                tensors = [torch.from_numpy(b).to(self.device, non_blocking=True) for b in bufs]
-            with metrics.span(_M_DISPATCH), timeline.span_for("dispatch", tlkey):
-                mask = verify(*tensors)
-                torch.from_numpy(mask_buf).copy_(mask, non_blocking=True)
-                if stream is None:
-                    return None
-                event = torch.cuda.Event()
-                event.record(stream)
-                return event
+        `_upload_dispatch`): upload each shard's block of the pooled
+        shard-major wire buffers to its device, launch `verify(device,
+        *tensors)` there and queue the shard's mask's copy into its slice of
+        the pooled `mask_buf`, all on the shard's stream (None on the CPU).
+        Every shard's upload is issued before any shard's kernels. Returns
+        the events recorded after each shard's copy: none on the CPU, where
+        everything has run by the time this returns."""
+        devices = self.shard_devices
+        width = mask_buf.shape[0] // len(devices)
+        with metrics.span(_M_UPLOAD), timeline.span_for("upload", tlkey):
+            uploads = []
+            for s, (dev, stream) in enumerate(zip(devices, streams)):
+                with _on(stream):
+                    uploads.append([torch.from_numpy(b[s]).to(dev, non_blocking=True) for b in bufs])
+        with metrics.span(_M_DISPATCH), timeline.span_for("dispatch", tlkey):
+            events = []
+            for s, (dev, stream, tensors) in enumerate(zip(devices, streams, uploads)):
+                with _on(stream):
+                    mask = verify(dev, *tensors)
+                    torch.from_numpy(mask_buf[s * width : (s + 1) * width]).copy_(mask, non_blocking=True)
+                    if stream is not None:
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                        events.append(event)
+            return events
 
-    def _upload_dispatch_committee(self, ct, device_hash: bool, bufs, mask_buf, stream, tlkey):
+    def _upload_dispatch_committee(self, ct, device_hash: bool, bufs, mask_buf, streams, tlkey):
         """The committee path's upload-worker leg (the reference's
-        `_upload_dispatch_committee`): as `_upload_dispatch`, against the
-        resident tables of `ct` (pinned by the caller, never re-read from
-        self), with the (96, W) wire rows and the (W,) indices."""
+        `_upload_dispatch_committee`): as `_upload_dispatch`, each shard
+        against the replica on its device of `ct` (pinned by the caller,
+        never re-read from self), with the (96, W) wire rows and the (W,)
+        indices."""
         verify = cm.verify_committee96_dh if device_hash else cm.verify_committee96
-        return self._upload_dispatch(lambda packed, idx: verify(ct, idx, packed), bufs, mask_buf, stream, tlkey)
+        return self._upload_dispatch(
+            lambda dev, packed, idx: verify(ct.replicas[dev], idx, packed), bufs, mask_buf, streams, tlkey
+        )
+
+
+def _on(stream):
+    """`torch.cuda.stream(stream)`, or nothing for the CPU's None."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+def pad_shards(pool, arr: np.ndarray, width: int, shards: int) -> np.ndarray:
+    """`arr` (..., n) zero-padded to `width` lanes and split on lanes into
+    `shards` equal blocks, in a pooled shard-major (shards, ..., width /
+    shards) buffer: block s holds lanes [s w, (s + 1) w). Always copies,
+    as `StagingBufferPool.pad`."""
+    w = width // shards
+    out = pool.take((shards, *arr.shape[:-1], w), arr.dtype)
+    n = arr.shape[-1]
+    for s in range(shards):
+        lo = s * w
+        k = max(0, min(w, n - lo))
+        out[s, ..., :k] = arr[..., lo : lo + k]
+        out[s, ..., k:] = 0
+    return out

@@ -15,6 +15,7 @@ from hotstuff_tpu_torch.crypto import pysigner
 from hotstuff_tpu_torch.crypto.backend import HostBackend, get_backend, set_backend
 from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 from tests.common_torch_verifier import check_verifier_depth
 from tests.test_rfc8032_vectors import VECTORS
 

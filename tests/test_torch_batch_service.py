@@ -24,6 +24,7 @@ from hotstuff_tpu.utils import metrics as ref_metrics
 from hotstuff_tpu_torch.crypto import batch_service, scheduler
 from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
 from hotstuff_tpu_torch.utils import metrics
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 
 class RecordingBackend:

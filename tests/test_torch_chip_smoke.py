@@ -18,6 +18,7 @@ import pytest
 import chip_smoke
 from hotstuff_tpu_torch import breakdown
 from hotstuff_tpu_torch.crypto import pysigner
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 LANES = 16
 KEYS = ("ladder", "h_digits", "decompress_table", "compress_eq")
@@ -261,3 +262,47 @@ def test_read_device_trace_unions_intervals_and_finds_the_default_stream():
     assert res["kernels"] == 3
     with pytest.raises(RuntimeError, match="marker"):
         breakdown.read_device_trace({"traceEvents": trace["traceEvents"][1:]}, 50e-6)
+
+
+# -- phase 5b: the sharded verifier on a mesh ----------------------------------
+
+
+def test_mesh_phase_meshes_and_launch_check():
+    """The phase's meshes on the CPU (one shard, then virtual meshes of 2
+    and 4 shards on it), and the launch check: each path kernel at shards
+    x the single-device count, every other kernel at 0."""
+    import torch
+
+    ms = chip_smoke.meshes("cpu")
+    assert list(ms) == ["1 CPU", "virtual 2", "virtual 4"]
+    assert [m.size for m in ms.values()] == [1, 2, 4]
+    assert all(m.distinct == (torch.device("cpu"),) for m in ms.values())
+    single = {"ladder": 4, "h_digits": 4, "decompress_table": 4, "compress_eq": 4, "committee_ladder": 0}
+    ok = {"ladder": 8, "h_digits": 8, "decompress_table": 8, "compress_eq": 8, "committee_ladder": 0}
+    assert chip_smoke.mesh_launch_errors(ok, single, chip_smoke.GENERIC_KERNELS, 2) == []
+    bad = dict(ok, ladder=4, committee_ladder=1)
+    assert chip_smoke.mesh_launch_errors(bad, single, chip_smoke.GENERIC_KERNELS, 2) == [
+        "ladder: 4 != 2 x 4", "committee_ladder: 1 launches off the path"]
+
+
+def test_mesh_phase_qc_wire_pads_each_qc_to_the_dp_axis():
+    """`qc_wire`: QC-major (Q, 128, B) wire lanes equal to the staged votes,
+    each QC padded to a multiple of the "dp" size with lanes whose s < L bit
+    is off, and the expected counts the per-QC sums of the expected mask."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+
+    seeds = [hashlib.sha256(b"qc voter %d" % i).digest() for i in range(3)]
+    pks = [pysigner.keypair_from_seed(s)[0] for s in seeds]
+    M = [hashlib.sha256(b"qc %d" % (i // 3)).digest() for i in range(6)]
+    K = [pks[i % 3] for i in range(6)]
+    S = [bytes(64)] * 6
+    expected = [True, False, True, True, True, True]
+    packed, s_ok, want, counts = chip_smoke.qc_wire((M, K, S, expected), 3, 2)
+    staged = ed.prepare_batch_packed_dh(M, K, S)["packed"]
+    assert packed.shape == (2, 128, 4) and packed.flags.c_contiguous and s_ok.shape == want.shape == (2, 4)
+    assert np.array_equal(packed[1, :, :3], staged[:, 3:6]) and np.array_equal(packed[1, :, 3], staged[:, 3])
+    assert s_ok[:, 3].tolist() == [False, False] and want[:, 3].tolist() == [False, False]
+    assert counts.tolist() == [2, 3]
+

@@ -30,6 +30,7 @@ from hotstuff_tpu_torch.ops import field as tf
 from hotstuff_tpu_torch.ops import sha512 as tsha
 from hotstuff_tpu_torch.ops.pipeline import StagingBufferPool
 from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 from tests.common_torch_verifier import check_verifier_depth
 
 P, L = pysigner.P, pysigner.L

@@ -13,6 +13,7 @@ import torch
 from hotstuff_tpu.ops import field as jf
 from hotstuff_tpu_torch import convert
 from hotstuff_tpu_torch.ops import field as tf
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 P = tf.P
 RNG = random.Random(99)

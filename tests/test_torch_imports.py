@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.crypto.batch_service", "hotstuff_tpu_torch.crypto.scheduler",
                 "hotstuff_tpu_torch.node.config", "hotstuff_tpu_torch.utils.metrics",
                 "hotstuff_tpu_torch.utils.actors", "hotstuff_tpu_torch.utils.logging",
-                "hotstuff_tpu_torch.ops.pipeline", "hotstuff_tpu_torch.ops.timeline"):
+                "hotstuff_tpu_torch.ops.pipeline", "hotstuff_tpu_torch.ops.timeline",
+                "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh"):
         assert mod in res["modules"]
 
 

@@ -21,6 +21,7 @@ from hotstuff_tpu_torch import convert
 from hotstuff_tpu_torch.crypto import pysigner
 from hotstuff_tpu_torch.ops import ed25519 as ted
 from hotstuff_tpu_torch.ops import ladder as tl
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 P = 2**255 - 19
 B = jpl.BLOCK  # 256 lanes: one grid program

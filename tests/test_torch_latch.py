@@ -13,6 +13,7 @@ import torch
 from hotstuff_tpu_torch.crypto import pysigner
 from hotstuff_tpu_torch.ops import committee, ladder
 from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 N = 5
 

@@ -40,6 +40,7 @@ from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
 from hotstuff_tpu_torch.node.config import ConfigError, read_consensus_keys
 from hotstuff_tpu_torch.utils import metrics
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

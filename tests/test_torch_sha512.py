@@ -15,6 +15,7 @@ from hotstuff_tpu.ops import ed25519 as jed
 from hotstuff_tpu.ops import sha512 as JS
 from hotstuff_tpu_torch.ops import ed25519 as ted
 from hotstuff_tpu_torch.ops import sha512 as TS
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 RNG = random.Random(17)
 L = TS.L

@@ -17,6 +17,7 @@ from hotstuff_tpu.ops import ed25519 as jed
 from hotstuff_tpu.ops import field as jf
 from hotstuff_tpu_torch.ops import ed25519 as ted
 from hotstuff_tpu_torch.ops import field as tf
+from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 P = tf.P
 B = 16
