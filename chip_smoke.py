@@ -30,7 +30,20 @@ caught:
      the phase. Every batch of phases 3 and 5-7 runs through the
      verifier's dispatch pipeline at its default depth
      (`HOTSTUFF_PIPELINE_DEPTH`, else 2) from page-locked staging buffers
-     on two CUDA streams; the phase fails unless it is;
+     on two CUDA streams, staged by the native plane
+     (`hotstuff_tpu_torch/native/staging.cpp`, built with g++); the phase
+     fails unless it is, and unless the batch's chunks were each staged by
+     one native call of their form;
+  3b. the native staging plane against the numpy staging it stands for,
+     on the host, over phase 3's batch and phase 5's votes (made here,
+     before the phase): each of the four forms (generic and committee,
+     host and device hash) byte for byte (wire rows, pad lanes, s < L
+     mask, indices) at shards 1, 2 and 4, in a reused pooled buffer at a
+     width above n, over host-hash messages of 0 to 300 bytes (across
+     SHA-512's 112-byte padding edge) and with s = L - 1, L and 2^256 - 1;
+     then each form's stage ms per 4,096-lane chunk through a native and a
+     numpy verifier's `stage_wire`, in turns (median and spread). Fails on
+     any difference, never on speed;
   4. launch counts of the main path, end-to-end rate, per-kernel times
      beside the plain versions' and the least time the card could take
      (kernel times are device times of launches queued behind a spin
@@ -41,10 +54,10 @@ caught:
      leg sigs/s, the device timeline's occupancy and overlap headroom,
      stalls, `pipeline.buffer_allocs` / `buffer_reuse`, and, over one
      traced batch, the `torch.profiler` busy share and the streams the
-     kernels and copies ran on. Fails when a mask differs from the
-     expected one, when a leg allocates a staging buffer after its warm-up,
-     or when the depth 2 leg puts a launch or copy on the default stream;
-     never on speed;
+     kernels and copies ran on, with the staging each leg used. Fails
+     when a mask differs from the expected one, when a leg allocates a
+     staging buffer after its warm-up, or when the depth 2 leg puts a
+     launch or copy on the default stream; never on speed;
   5. the committee path: `TorchBackend.verify_batch_mask(...,
      committee=True)` on a QC-shaped batch as `bench.py --committee-cache`
      builds it (64 validators, 381 QCs x 43 votes = 16,383 votes over
@@ -618,6 +631,7 @@ def phase_main_path(seed: int) -> dict:
     import numpy as np
     import torch
 
+    from hotstuff_tpu_torch.crypto import native_staging
     from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
     from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
     from hotstuff_tpu_torch.ops import _build
@@ -643,9 +657,10 @@ def phase_main_path(seed: int) -> dict:
     backend = TorchBackend(device="cuda", crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
     pks, sgs = [PublicKey(k) for k in K], [Signature(s) for s in S]
     _build.reset_launches()
+    native_staging.reset_calls()
     mask = backend.verify_batch_mask(M, pks, sgs)
-    launches = _build.launches()
-    print(f"main path launches: {launches}", flush=True)
+    launches, staged = _build.launches(), native_staging.calls()
+    print(f"main path launches: {launches}; native staging calls: {staged}", flush=True)
     if np.array(mask).tolist() != expected.tolist():
         bad = np.flatnonzero(np.array(mask) != expected)
         fail(f"main-path mask differs from expected on {len(bad)} lanes, e.g. {bad[:8].tolist()}")
@@ -653,6 +668,8 @@ def phase_main_path(seed: int) -> dict:
         fail(f"the main path did not launch exactly its own kernels: {launches}")
     if backend.stats["host_sigs"] != 0:
         fail(f"lanes verified on the host: {backend.stats}")
+    if staged != {k: (-(-BATCH // CHUNK) if k == "stage_packed_dh" else 0) for k in staged}:
+        fail(f"the main path did not stage each chunk natively: {staged}")
 
     iters, times = 5, []
     for _ in range(iters):
@@ -671,11 +688,14 @@ def phase_main_path(seed: int) -> dict:
           f"per batch {[round(w * 1e3, 3) for w in wall]} ms", flush=True)
 
     _build.reset_launches()
+    native_staging.reset_calls()
     hmask = backend.verify_batch_mask(HM, [PublicKey(k) for k in HK], [Signature(s) for s in HS])
     hlaunches = _build.launches()
-    print(f"host-hash batch launches: {hlaunches}", flush=True)
+    print(f"host-hash batch launches: {hlaunches}; native staging calls: {native_staging.calls()}", flush=True)
     if hmask != hexpected.tolist():
         fail("host-hash mask differs from expected")
+    if native_staging.calls()["stage_packed_hh"] != 1:
+        fail(f"the host-hash batch was not staged natively: {native_staging.calls()}")
     if hlaunches["h_digits"] != 0 or any(hlaunches[k] == 0 for k in ("ladder", "decompress_table", "compress_eq")):
         fail(f"host-hash batch launched the wrong kernels: {hlaunches}")
     print(f"main path pipeline: {_pipeline_line(backend._verifier)}", flush=True)
@@ -684,10 +704,10 @@ def phase_main_path(seed: int) -> dict:
 
 
 def _pipeline_line(v, depth: int | None = None) -> dict:
-    """The verifier's dispatch pipeline: depth, chunks and stalls so far,
-    and whether its staging buffers are page-locked (one buffer taken from
-    the pool and given back). Fails unless the buffers are pinned and the
-    depth is `depth`, by default the pipeline's default
+    """The verifier's dispatch pipeline: depth, staging (native or numpy),
+    chunks and stalls so far, and whether its staging buffers are
+    page-locked (one buffer taken from the pool and given back). Fails
+    unless the buffers are pinned and the depth is `depth`, by default the pipeline's default
     (`HOTSTUFF_PIPELINE_DEPTH`, else 2)."""
     import numpy as np
     import torch
@@ -699,10 +719,162 @@ def _pipeline_line(v, depth: int | None = None) -> dict:
     buf = pool.take((128, CHUNK), np.uint8)
     pinned = bool(torch.from_numpy(buf).is_pinned())
     pool.give(buf)
-    line = dict(depth=v.pipeline.depth, pin=pool.pin, pinned=pinned, **v.pipeline.stats)
+    line = dict(depth=v.pipeline.depth, staging=v.staging, pin=pool.pin, pinned=pinned, **v.pipeline.stats)
     if v.pipeline.depth != depth or not pinned:
         fail(f"the verifier's pipeline is not at depth {depth} with pinned buffers: {line}")
     return line
+
+
+# --- phase 3b: the native staging plane against the numpy staging -----------
+
+STAGE_TURNS = 7  # timed turns of each staging per form
+GROUP_ORDER = 2**252 + 27742317777372353535851937790883648493  # L
+EDGE_S = (GROUP_ORDER - 1, GROUP_ORDER, 2**256 - 1)
+MSG_LENGTHS = 301  # host-hash messages of 0..300 bytes: R || A || M crosses SHA-512's 112-byte padding edge
+# form -> (the verifier's path, device hash)
+STAGING_PATHS = {"packed_hh": ("generic", False), "packed_dh": ("generic", True),
+                 "committee_hh": ("committee", False), "committee_dh": ("committee", True)}
+
+
+def staging_forms(batch, votes) -> dict:
+    """The four staging forms, name -> (native entry, numpy function, its
+    arguments, wire rows): phase 3's batch (generic) and phase 5's votes
+    (committee; each vote's key as the host-hash form's key row, indices
+    into the votes' distinct keys)."""
+    from hotstuff_tpu_torch.crypto import native_staging as ns
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+
+    M, K, S = batch[:3]
+    CM, CK, CS = votes[:3]
+    index = {k: i for i, k in enumerate(dict.fromkeys(CK))}
+    idx = [index[k] for k in CK]
+    return {
+        "packed_hh": (ns.stage_packed_hh, ed.prepare_batch_packed, (M, K, S), 128),
+        "packed_dh": (ns.stage_packed_dh, ed.prepare_batch_packed_dh, (M, K, S), 128),
+        "committee_hh": (ns.stage_committee_hh, ed.prepare_batch_committee, (CM, CK, idx, CS), 96),
+        "committee_dh": (ns.stage_committee_dh, ed.prepare_batch_committee_dh, (CM, idx, CS), 96),
+    }
+
+
+def staging_diff(native, plain, args, rows: int, width: int, shards: int, out=None) -> list[str]:
+    """One staging form both ways: the native entry into `out` (by default a
+    fresh buffer of 0xA5 bytes, so a pad lane left unwritten shows) and the
+    numpy function laid out by `fill_shards` into zeros. Returns what
+    differs: nothing when the wire rows, s_ok and idx are equal byte for
+    byte."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.ops.verifier import fill_shards
+
+    if out is None:
+        out = np.full((shards, rows, width // shards), 0xA5, np.uint8)
+    got, want = native(*args, out, width, shards), plain(*args)
+    ref = np.zeros_like(out)
+    fill_shards(ref, want["packed"])
+    bad = []
+    if got["packed"] is not out or not np.array_equal(out, ref):
+        bad.append(f"wire bytes differ at (shard, row, lane) {np.argwhere(out != ref)[:4].tolist()}")
+    if not np.array_equal(got["s_ok"], want["s_ok"]):
+        bad.append(f"s_ok differs on lanes {np.flatnonzero(got['s_ok'] != want['s_ok'])[:8].tolist()}")
+    if "idx" in want and not np.array_equal(got["idx"], want["idx"]):
+        bad.append("idx differs")
+    return bad
+
+
+def _cut_args(args, n: int) -> tuple:
+    return tuple(a[:n] for a in args)
+
+
+def staging_cases(forms: dict, lanes: int) -> list[tuple]:
+    """(label, form, arguments, width, shards, reuse) of the byte-for-byte
+    checks: every form on its whole batch at shards 1, 2 and 4; in a reused
+    pooled buffer at a width above n (`reuse`: the buffer first holds the
+    form's first `lanes` lanes, then a smaller cut); the host-hash forms on
+    `lanes` lanes of 0..300-byte messages; every form with s = L - 1, L and
+    2^256 - 1 in turn on a third of its first `lanes` lanes."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    cases = []
+    for name, (_, _, args, _) in forms.items():
+        n = len(args[0])
+        width = -(-n // 512) * 512
+        cases += [(f"{name} n={n} shards={sh}", name, args, width, sh, False) for sh in (1, 2, 4)]
+        cut = _cut_args(args, lanes - lanes // 3)
+        cases += [(f"{name} reused buffer n={len(cut[0])} width={lanes} shards={sh}", name, cut, lanes, sh, True)
+                  for sh in (1, 4)]
+        first = _cut_args(args, lanes)
+        if name.endswith("_hh"):
+            msgs = [rng.integers(0, 256, i % MSG_LENGTHS, np.uint8).tobytes() for i in range(len(first[0]))]
+            cases += [(f"{name} messages of 0..{MSG_LENGTHS - 1} bytes shards={sh}", name, (msgs, *first[1:]),
+                       lanes, sh, False) for sh in (1, 2, 4)]
+        sigs = [sig[:32] + EDGE_S[(i // 3) % 3].to_bytes(32, "little") if i % 3 == 0 else sig
+                for i, sig in enumerate(first[-1])]
+        cases.append((f"{name} s in (L - 1, L, 2^256 - 1)", name, (*first[:-1], sigs), lanes, 2, False))
+    return cases
+
+
+def phase_staging(batch, votes, device: str = "cuda") -> dict:
+    """Phase 3b: the native staging plane (`crypto/native_staging.py`)
+    against the numpy staging, on the host: every form byte for byte on
+    every case of `staging_cases`, then each form's stage ms per CHUNK-lane
+    chunk through a native and a numpy verifier's `stage_wire` into their
+    pooled buffers (page-locked on the card), STAGE_TURNS turns in turns.
+    Fails on any difference; never on speed."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.ops.pipeline import StagingBufferPool
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+
+    forms = staging_forms(batch, votes)
+    checked = 0
+    for label, name, args, width, shards, reuse in staging_cases(forms, CHUNK):
+        native, plain, _, rows = forms[name]
+        out = None
+        if reuse:  # a pooled buffer that already held a wider chunk
+            pool = StagingBufferPool()
+            out = pool.take((shards, rows, width // shards), np.uint8)
+            if staging_diff(native, plain, _cut_args(forms[name][2], width), rows, width, shards, out):
+                fail(f"staging {label}: the first fill differs")
+            pool.give(out)
+            if pool.take(out.shape, np.uint8) is not out:
+                fail(f"staging {label}: the pool did not hand the buffer back")
+        bad = staging_diff(native, plain, args, rows, width, shards, out)
+        if bad:
+            fail(f"staging {label}: native != numpy: {bad}")
+        if "s in" in label:
+            s_ok = native(*args, np.zeros((shards, rows, width // shards), np.uint8), width, shards)["s_ok"]
+            if s_ok[0:9:3].tolist() != [True, False, False]:
+                fail(f"staging {label}: s_ok of L - 1, L, 2^256 - 1 is {s_ok[0:9:3].tolist()}")
+        checked += 1
+    print(f"staging: {checked} cases, native == numpy byte for byte (wire rows, pad lanes, s_ok, idx): the four "
+          f"forms at shards 1, 2, 4, reused buffers at a width above n, messages of 0..{MSG_LENGTHS - 1} bytes, "
+          f"s = L - 1, L, 2^256 - 1", flush=True)
+
+    legs = {st: Ed25519TorchVerifier(device=device, max_bucket=MAX_BUCKET, chunk=CHUNK, pipeline_depth=1, staging=st)
+            for st in ("native", "numpy")}
+    times = {name: {st: [] for st in legs} for name in forms}
+    try:
+        for name, (_, _, args, rows) in forms.items():
+            path, device_hash = STAGING_PATHS[name]
+            chunk_args = _cut_args(args, CHUNK)
+            for _ in range(STAGE_TURNS):
+                for st, v in legs.items():
+                    out = v.pipeline.pool.take((1, rows, CHUNK), np.uint8)
+                    t0 = time.perf_counter()
+                    v.stage_wire(path, device_hash, chunk_args, out)
+                    times[name][st].append((time.perf_counter() - t0) * 1e3)
+                    v.pipeline.pool.give(out)
+    finally:
+        for v in legs.values():
+            v.close()
+    res = {name: {st: dict(median_ms=round(statistics.median(t), 4), min_ms=round(min(t), 4), max_ms=round(max(t), 4))
+                  for st, t in by.items()} for name, by in times.items()}
+    for name, r in res.items():
+        r["numpy_over_native"] = round(r["numpy"]["median_ms"] / r["native"]["median_ms"], 3)
+    print(f"staging ms per {CHUNK}-lane chunk ({STAGE_TURNS} turns each, native and numpy in turns, into the "
+          f"verifier's pooled buffers): {json.dumps(res)}", flush=True)
+    return res
 
 
 # --- phase 4, continued: the dispatch pipeline, depth 1 against depth 2 -------
@@ -804,11 +976,12 @@ def phase_pipeline_ab(batch, device: str = "cuda") -> dict:
             idle_ms=[round(r["idle_ms"], 3) for r in rows], stalls=[r["stalls"] for r in rows],
             phase_ms_per_chunk={p: [round(r["phase_ms"][p], 4) for r in rows] for p in rows[0]["phase_ms"]},
             buffer_allocs=[r["buffer_allocs"] for r in rows], buffer_reuse=[r["buffer_reuse"] for r in rows],
-            chunks=rows[0]["chunks"], profiler=traced[d])
+            chunks=rows[0]["chunks"], staging=legs[d].staging, profiler=traced[d])
         print(f"pipeline A/B depth {d}: {json.dumps(res[f'depth{d}'])}", flush=True)
     speedup = res["depth2"]["sigs_per_s_median"] / res["depth1"]["sigs_per_s_median"]
     print(f"pipeline A/B: {AB_LANES} lanes ({AB_LANES // CHUNK} chunks) x {AB_ITERS} batches x "
-          f"{AB_ATTEMPTS} attempts in turns; masks equal to expected on both legs; depth 2 / depth 1 "
+          f"{AB_ATTEMPTS} attempts in turns, {legs[2].staging} staging; masks equal to expected on both legs; "
+          f"depth 2 / depth 1 "
           f"median sigs/s {speedup:.3f}; depth 2 launched nothing on the default stream", flush=True)
     return res
 
@@ -1007,31 +1180,37 @@ def _host_hash_votes(seeds, pks):
     return M, K, S, expected
 
 
-def phase_committee_path(seed: int, device: str = "cuda") -> dict:
-    import numpy as np
-    import torch
-
-    from hotstuff_tpu_torch.crypto import pysigner
-    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
-    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
-    from hotstuff_tpu_torch.ops import _build
-    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
-
+def committee_votes(seed: int) -> tuple:
+    """Phase 5's corpus (`_committee_corpus`), its expected mask held
+    against the host verifier on every distinct triple: the signed votes and
+    each corrupted lane, the identity-key forgeries included. Made before
+    phase 3b, which stages these votes."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
-        seeds, pks, M, K, S, expected, lanes, identity_lanes = _committee_corpus(seed, pool)
-        # The host verifier on every distinct triple: the signed votes and
-        # each corrupted lane, the identity-key forgeries included.
-        n_signed = SIGNED_QCS * QUORUM
-        check = list(range(n_signed)) + [int(i) for i in lanes]
+        corpus = seeds, pks, M, K, S, expected, lanes, identity_lanes = _committee_corpus(seed, pool)
+        check = list(range(SIGNED_QCS * QUORUM)) + [int(i) for i in lanes]
         host = pool.map(_verify_one, [(K[i], M[i], S[i]) for i in check], chunksize=64)
         if [bool(v) for v in host] != [bool(expected[i]) for i in check]:
             fail("committee expected mask disagrees with the host verifier")
     print(f"committee corpus: {COMMITTEE} validators, {N_QC} QCs x {QUORUM} votes = {len(M)} votes, "
           f"{len(lanes)} corrupted lanes ({len(identity_lanes)} identity-key forgeries the device accepts), "
           f"host cross-check in {time.perf_counter() - t0:.1f} s", flush=True)
+    return corpus
 
+
+def phase_committee_path(corpus: tuple, device: str = "cuda") -> dict:
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.crypto import native_staging, pysigner
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+
+    seeds, pks, M, K, S, expected, lanes, identity_lanes = corpus
+    n_signed = SIGNED_QCS * QUORUM
     table_keys = pks + _committee_special_keys()
     backend = TorchBackend(device=device, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
     t0 = time.perf_counter()
@@ -1040,9 +1219,10 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
     print(f"register_committee({len(table_keys)} keys, warmup=True): {time.perf_counter() - t0:.2f} s", flush=True)
     vpks, vsgs = [PublicKey(k) for k in K], [Signature(s) for s in S]
     _build.reset_launches()
+    native_staging.reset_calls()
     mask = backend.verify_batch_mask(M, vpks, vsgs, committee=True)
-    launches = _build.launches()
-    print(f"committee path launches: {launches}", flush=True)
+    launches, staged = _build.launches(), native_staging.calls()
+    print(f"committee path launches: {launches}; native staging calls: {staged}", flush=True)
     if mask != expected.tolist():
         bad = np.flatnonzero(np.array(mask) != expected)
         fail(f"committee mask differs from expected on {len(bad)} lanes, e.g. {bad[:8].tolist()}")
@@ -1051,6 +1231,8 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
         launches[k] != 0 for k in ("ladder", "decompress_table", "h_digits")
     ):
         fail(f"committee path launched the wrong kernels: {launches}")
+    if staged != {k: (chunks if k == "stage_committee_dh" else 0) for k in staged}:
+        fail(f"the committee path did not stage each chunk natively: {staged}")
     st = backend.stats
     if st["committee_batches"] != 1 or st["committee_sigs"] != len(M) or st["host_sigs"] != 0:
         fail(f"committee batch not counted as one device committee batch: {st}")
@@ -1062,10 +1244,13 @@ def phase_committee_path(seed: int, device: str = "cuda") -> dict:
     # Host-hash committee format: no K2 of either kind.
     HM, HK, HS, hexpected = _host_hash_votes(seeds, pks)
     _build.reset_launches()
+    native_staging.reset_calls()
     hmask = backend.verify_batch_mask(HM, [PublicKey(k) for k in HK], [Signature(s) for s in HS], committee=True)
     hl = _build.launches()
     if hmask != hexpected or hl["h_digits"] or hl["h_digits_idx"] or not hl["committee_ladder"] or hl["ladder"]:
         fail(f"host-hash committee batch: mask or kernels wrong ({hl})")
+    if native_staging.calls()["stage_committee_hh"] != 1:
+        fail(f"the host-hash committee batch was not staged natively: {native_staging.calls()}")
     # A tagged batch with an unregistered key takes the generic kernels.
     outsider_seed = hashlib.sha256(b"outsider").digest()
     outsider = pysigner.keypair_from_seed(outsider_seed)[0]
@@ -1229,18 +1414,20 @@ def mesh_launch_errors(launches: dict, single: dict, kernels, shards: int) -> li
 def qc_wire(qcs, quorum: int, n_dp: int):
     """Phase 5's signed QCs (QC q = votes [q quorum, (q + 1) quorum)) as a
     QC-major (Q, 128, B) device-hash wire batch for `sharded_qc_counts`,
+    staged by the native plane (the verifier's default staging),
     each QC padded to B, a multiple of n_dp, with copies of its first vote
     whose s < L bit is off. Returns (packed, s_ok, expected masks (Q, B),
     expected counts (Q,))."""
     import numpy as np
 
-    from hotstuff_tpu_torch.ops import ed25519 as ed
+    from hotstuff_tpu_torch.crypto import native_staging
 
     M, K, S, expected = qcs
     n_q = len(M) // quorum
     width = -(-quorum // n_dp) * n_dp
-    staged = ed.prepare_batch_packed_dh(M[: n_q * quorum], K[: n_q * quorum], S[: n_q * quorum])
-    packed = staged["packed"].reshape(128, n_q, quorum).transpose(1, 0, 2)
+    n = n_q * quorum
+    staged = native_staging.stage_packed_dh(M[:n], K[:n], S[:n], np.empty((1, 128, n), np.uint8), n, 1)
+    packed = staged["packed"][0].reshape(128, n_q, quorum).transpose(1, 0, 2)
     s_ok = staged["s_ok"].reshape(n_q, quorum)
     want = np.asarray(expected[: n_q * quorum], bool).reshape(n_q, quorum)
     pad = width - quorum
@@ -1330,7 +1517,8 @@ def _mesh_run(label: str, mesh, single, batch, votes, table_keys, main_launches,
         backend.close()
     med = {leg: {p: statistics.median(r) for p, r in paths.items()} for leg, paths in rates.items()}
     return dict(
-        devices=[str(d) for d in mesh.devices], replicas=len(replicas), launches=launches, committee_launches=claunches,
+        devices=[str(d) for d in mesh.devices], staging=v.staging, replicas=len(replicas), launches=launches,
+        committee_launches=claunches,
         sigs_per_s={leg: {p: [round(x, 1) for x in r] for p, r in paths.items()} for leg, paths in rates.items()},
         median={leg: {p: round(x, 1) for p, x in paths.items()} for leg, paths in med.items()},
         ratio={p: round(med["mesh"][p] / med["single"][p], 3) for p in ("generic", "committee")},
@@ -1341,8 +1529,9 @@ def _mesh_run(label: str, mesh, single, batch, votes, table_keys, main_launches,
 def _shard_kernel_ms(v, batch, votes, table_keys, width: int, kernels: dict, committee_kernels: dict) -> dict:
     """Each kernel's device ms at one shard's width (`breakdown`'s layer
     timers on the first `width` lanes of each batch), their sums per path,
-    and the bound of each sum: the per-kernel bounds of phases 2 and 5
-    scaled from LANES to `width` lanes, summed."""
+    the bound of each sum (the per-kernel bounds of phases 2 and 5 scaled
+    from LANES to `width` lanes, summed), and the plain versions' ms at that
+    width (`_shard_plain_ms`) with their sum."""
     from hotstuff_tpu_torch import breakdown
 
     M, K, S, _ = batch
@@ -1350,14 +1539,54 @@ def _shard_kernel_ms(v, batch, votes, table_keys, width: int, kernels: dict, com
     table = v.set_committee(table_keys)
     gl = breakdown._generic_layers(v, M, K, S, width)
     cl = breakdown._committee_layers(v, table, CM, [table.index[k] for k in CK], CS, width)
+    plain = _shard_plain_ms(v, batch, votes, table_keys, width)
     rows = {**kernels, **committee_kernels}
     out = {}
     for path, layers, names in (("generic", gl, GENERIC_KERNELS), ("committee", cl, COMMITTEE_KERNELS)):
         ms = {k: layers[f"{k}_ms"] for k in names}
         bounds = [_bound_ms(rows[k]["bytes"] * width / LANES, rows[k]["ops"] * width / LANES) for k in names]
         out[path] = dict(ms={k: round(x, 4) for k, x in ms.items()}, sum_ms=round(sum(ms.values()), 4),
-                         bound_ms=round(sum(b for b, _ in bounds), 5))
+                         bound_ms=round(sum(b for b, _ in bounds), 5),
+                         plain_ms={k: round(x, 1) for k, x in plain[path].items()},
+                         plain_sum_ms=round(sum(plain[path].values()), 1))
     return out
+
+
+def _shard_plain_ms(v, batch, votes, table_keys, width: int) -> dict:
+    """Each path's plain versions, one call each (CUDA events, `_plain_ms`),
+    on the first `width` lanes of phase 3's batch and phase 5's votes,
+    staged as the verifier stages them, on its device: path -> kernel -> ms."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops import committee as cm
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+    from hotstuff_tpu_torch.ops import ladder, sha512
+
+    M, K, S, _ = batch
+    CM, CK, CS, _ = votes
+    ct = v.set_committee(table_keys)
+    idx_list = [ct.index[k] for k in CK[:width]]
+    out = np.empty((1, 128, width), np.uint8)
+    v.stage_wire("generic", True, (M[:width], K[:width], S[:width]), out)
+    a, r, s, m = ed.split_packed128(torch.from_numpy(out[0]).to(v.device))
+    sd = sha512.nibble_rows(s)
+    g = {}
+    g["h_digits"], hd = _plain_ms(lambda: sha512.h_digits_plain(r, a, m))
+    g["decompress_table"], (table, valid) = _plain_ms(lambda: ed.decompress_table_plain(a))
+    g["ladder"], point = _plain_ms(lambda: ladder.ladder_plain(sd, hd, table))
+    g["compress_eq"], _ = _plain_ms(lambda: ed.compress_eq_plain(point, r, valid))
+    out = np.empty((1, 96, width), np.uint8)
+    v.stage_wire("committee", True, (CM[:width], idx_list, CS[:width]), out)
+    r, s, m = cm.split_packed96(torch.from_numpy(out[0]).to(v.device))
+    idx = torch.tensor(idx_list, dtype=torch.int32, device=v.device)
+    sd = sha512.nibble_rows(s)
+    c = {}
+    c["h_digits_idx"], hd = _plain_ms(lambda: sha512.h_digits_gather_plain(r, ct.keys_u8, idx, m))
+    c["committee_ladder"], (point, lane_valid) = _plain_ms(
+        lambda: cm.committee_ladder_plain(sd, hd, ct.entries, ct.valid, idx))
+    c["compress_eq"], _ = _plain_ms(lambda: ed.compress_eq_plain(point, r, lane_valid))
+    return {"generic": g, "committee": c}
 
 
 def phase_mesh(batch, committee_path: dict, main_launches: dict, kernels: dict, committee_kernels: dict,
@@ -1403,8 +1632,9 @@ def phase_mesh(batch, committee_path: dict, main_launches: dict, kernels: dict, 
                   f"{res['committee_launches']} (= {mesh.size} x single-device); 0 host lanes; committee batches "
                   f"decompressed nothing and built no table; no staging buffer allocated after warm-up; nothing on "
                   f"the default stream; pipeline {res['pipeline']}", flush=True)
-            print(f"mesh timing {label} ({card}): {MESH_ATTEMPTS} attempts x {MESH_ITERS} batches in turns with "
-                  f"one device: sigs/s {json.dumps(res['sigs_per_s'])}, medians {json.dumps(res['median'])}, "
+            print(f"mesh timing {label} ({card}, {res['staging']} staging): {MESH_ATTEMPTS} attempts x "
+                  f"{MESH_ITERS} batches in turns with one device: sigs/s {json.dumps(res['sigs_per_s'])}, "
+                  f"medians {json.dumps(res['median'])}, "
                   f"mesh / single {json.dumps(res['ratio'])}; busy share {json.dumps(res['busy_share'])}; "
                   f"per-shard kernels at {CHUNK // mesh.size} lanes {json.dumps(res['shard_kernels'])}", flush=True)
 
@@ -2169,8 +2399,10 @@ def main() -> int:
     kernels = phase_compare(args.seed)
     kernels.update(phase_reduce_compare())
     main_path = phase_main_path(args.seed)
+    votes = committee_votes(args.seed)
+    phase_staging(main_path["batch"], votes[2:6])
     phase_pipeline_ab(main_path["batch"])
-    committee_path = phase_committee_path(args.seed)
+    committee_path = phase_committee_path(votes)
     committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])
     mesh = phase_mesh(main_path["batch"], committee_path, main_path["launches"], kernels, committee_kernels, card)
 

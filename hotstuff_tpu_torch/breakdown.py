@@ -1,15 +1,17 @@
 """Where a verification batch spends its time on the card.
 
     python -m hotstuff_tpu_torch.breakdown [--batch 16384] [--chunk 4096] [--iters 5] [--committee]
-                                           [--depth N] [--trace PATH]
+                                           [--depth N] [--staging native|numpy] [--trace PATH]
 
 Times `TorchBackend`'s verifier end to end on one batch of seeded random
 wire bytes (the cost does not depend on validity: no step has
 data-dependent control flow) through its dispatch pipeline at `--depth`
-(default: `HOTSTUFF_PIPELINE_DEPTH`, else 2), with the device timeline's
+(default: `HOTSTUFF_PIPELINE_DEPTH`, else 2) with the verifier's host
+staging `--staging` (default native), with the device timeline's
 occupancy and overlap headroom over those batches (`ops/timeline.py`).
 Then each layer of one chunk in the order the verifier runs them: host
-staging into a pooled (page-locked) buffer, upload, the wire unpack,
+staging into a pooled (page-locked) shard-major buffer, by the verifier's
+own `stage_wire`, upload, the wire unpack,
 kernels K2, K3, K1, K4, and the mask readback. With `--committee` the batch
 is a committee batch (64 validators, `bench.py --committee-cache`'s size,
 random validator indices) through `verify_batch_mask_committee`, and the
@@ -39,7 +41,7 @@ from . import resolve_device
 from .ops import committee as cm
 from .ops import ed25519 as ed
 from .ops import ladder, sha512, timeline
-from .ops.verifier import Ed25519TorchVerifier
+from .ops.verifier import STAGINGS, Ed25519TorchVerifier, pad_shards
 
 # Device-side events of a torch.profiler Chrome trace.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -97,6 +99,8 @@ def main() -> int:
                     help="a committee batch over 64 validators (K2g, K5, K4)")
     ap.add_argument("--depth", type=int, default=None,
                     help="dispatch pipeline depth (default HOTSTUFF_PIPELINE_DEPTH, else 2; 1 = inline)")
+    ap.add_argument("--staging", choices=STAGINGS, default="native",
+                    help="the verifier's host staging (the native plane, or the plain numpy staging)")
     ap.add_argument("--trace", default=str(TRACE_DIR / "breakdown_trace.json"),
                     help="where the profiled batch's Chrome trace is written")
     args = ap.parse_args()
@@ -107,7 +111,7 @@ def main() -> int:
     keys = [bytes(r[:32]) for r in wire]
     sigs = [bytes(r[32:96]) for r in wire]
     v = Ed25519TorchVerifier(device=dev, max_bucket=max(args.chunk, 8192), chunk=args.chunk,
-                             pipeline_depth=args.depth)
+                             pipeline_depth=args.depth, staging=args.staging)
     if args.committee:
         table = v.set_committee(keys[:64])
         indices = rng.integers(0, 64, args.batch).tolist()
@@ -136,7 +140,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "path": "committee" if args.committee else "generic",
         "batch": args.batch, "chunk": n, "chunks": -(-args.batch // n),
-        "pipeline_depth": v.pipeline.depth,
+        "pipeline_depth": v.pipeline.depth, "staging": v.staging,
         "e2e_ms": e2e, "e2e_ms_median": statistics.median(e2e),
         "sigs_per_s": args.batch / statistics.median(e2e) * 1e3,
         "occupancy": tl["occupancy"], "overlap_headroom": tl["overlap_headroom"],
@@ -226,23 +230,33 @@ def _readback_ms(mask: torch.Tensor) -> float:
     return _host_ms(lambda: host.copy_(mask, non_blocking=True))
 
 
-def _pooled(v, arr, previous):
-    """`arr` padded into one of the verifier's pooled staging buffers, as
-    the chunk loop stages it; the previous call's buffer goes back first."""
-    if previous is not None:
-        v.pipeline.pool.give(previous)
-    return v.pipeline.pool.pad(arr, v._bucket(arr.shape[-1]))
+def _stage(v, path: str, args: tuple, n: int, rows: int, staged: dict) -> None:
+    """Stage `args` (n lanes, device hash) into the verifier's pooled
+    shard-major buffers as its chunk loop does (`stage_wire`, and the
+    committee index vector by `pad_shards`), one shard here; the previous
+    call's buffers go back to the pool first (`_give_back` returns the
+    last ones). Leaves the (rows, W) wire array and the (W,) indices in
+    `staged`."""
+    pool, width = v.pipeline.pool, v._bucket(n)
+    _give_back(v, staged)
+    out = pool.take((1, rows, width), np.uint8)
+    st = v.stage_wire(path, True, args, out)
+    staged["bufs"] = [out]
+    staged["packed"] = out[0]
+    if "idx" in st:
+        staged["bufs"].append(pad_shards(pool, st["idx"], width, 1))
+        staged["idx"] = staged["bufs"][-1][0]
+
+
+def _give_back(v, staged: dict) -> None:
+    for buf in staged.pop("bufs", ()):
+        v.pipeline.pool.give(buf)
 
 
 def _generic_layers(v, msgs, keys, sigs, n) -> dict:
     dev = v.device
     staged = {}
-
-    def stage():
-        st = ed.prepare_batch_packed_dh(msgs[:n], keys[:n], sigs[:n])
-        staged["packed"] = _pooled(v, st["packed"], staged.get("packed"))
-
-    stage_ms = _host_ms(stage)
+    stage_ms = _host_ms(lambda: _stage(v, "generic", (msgs[:n], keys[:n], sigs[:n]), n, 128, staged))
     host = torch.from_numpy(staged["packed"])
     upload_ms = events_ms(lambda: host.to(dev, non_blocking=True))
     packed = host.to(dev)
@@ -253,6 +267,7 @@ def _generic_layers(v, msgs, keys, sigs, n) -> dict:
     table, valid = ed.decompress_table(a)
     point = ladder.ladder(sd, hd, table)
     mask = ed.compress_eq(point, r, valid)
+    _give_back(v, staged)  # the chunk loop's pool keeps its count of buffers
     return {
         "stage_ms": stage_ms,
         "upload_ms": upload_ms,
@@ -268,13 +283,7 @@ def _generic_layers(v, msgs, keys, sigs, n) -> dict:
 def _committee_layers(v, table, msgs, indices, sigs, n) -> dict:
     dev = v.device
     staged = {}
-
-    def stage():
-        st = ed.prepare_batch_committee_dh(msgs[:n], indices[:n], sigs[:n])
-        staged["packed"] = _pooled(v, st["packed"], staged.get("packed"))
-        staged["idx"] = _pooled(v, st["idx"], staged.get("idx"))
-
-    stage_ms = _host_ms(stage)
+    stage_ms = _host_ms(lambda: _stage(v, "committee", (msgs[:n], indices[:n], sigs[:n]), n, 96, staged))
     host_p, host_i = torch.from_numpy(staged["packed"]), torch.from_numpy(staged["idx"])
     upload_ms = events_ms(lambda: (host_p.to(dev, non_blocking=True), host_i.to(dev, non_blocking=True)))
     packed, idx = host_p.to(dev), host_i.to(dev)
@@ -284,6 +293,7 @@ def _committee_layers(v, table, msgs, indices, sigs, n) -> dict:
     hd = sha512.h_digits_gather(r, table.keys_u8, idx, m)
     point, lane_valid = cm.committee_ladder(sd, hd, table, idx)
     mask = ed.compress_eq(point, r, lane_valid)
+    _give_back(v, staged)
     return {
         "stage_ms": stage_ms,
         "upload_ms": upload_ms,

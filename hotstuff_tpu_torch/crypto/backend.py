@@ -4,7 +4,8 @@ A copy of `hotstuff_tpu/crypto/backend.py:19-83` for the port. The
 reference hard-wires ed25519_dalek's `verify_batch`
 (crypto/src/lib.rs:194-220); here every batch verification dispatches
 through an interchangeable backend — the host (`HostBackend`, exact
-Python integers with the card's verdicts), the card
+Python integers with the card's verdicts; `CpuBackend`, OpenSSL through
+the `cryptography` package, the reference's host path), the card
 (`torch_backend.TorchBackend`) or a sidecar (`remote.RemoteBackend`),
 made by `make_backend`.
 """
@@ -68,6 +69,38 @@ class HostBackend(CryptoBackend):
         ]
 
 
+class CpuBackend(CryptoBackend):
+    """Host verification through OpenSSL (the `cryptography` package), the
+    reference's `CpuBackend` (`hotstuff_tpu/crypto/backend.py:48-67`): the
+    same verdict for every triple as `HostBackend`, and far faster. The
+    package is imported here only, so the port imports without it; making
+    one where it is missing raises ImportError."""
+
+    name = "cpu"
+
+    def __init__(self) -> None:
+        from cryptography.exceptions import InvalidSignature
+        from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PublicKey
+
+        self._invalid = (InvalidSignature, ValueError)
+        self._from_public_bytes = Ed25519PublicKey.from_public_bytes
+
+    def verify_batch_mask(
+        self,
+        messages: Sequence[bytes],
+        keys: Sequence[PublicKey],
+        signatures: Sequence[Signature],
+    ) -> list[bool]:
+        out = []
+        for msg, pk, sig in zip(messages, keys, signatures, strict=True):
+            try:
+                self._from_public_bytes(pk.data).verify(sig.data, msg)
+                out.append(True)
+            except self._invalid:
+                out.append(False)
+        return out
+
+
 _lock = threading.Lock()
 _backend: CryptoBackend = HostBackend()
 
@@ -85,12 +118,14 @@ def set_backend(backend: CryptoBackend) -> CryptoBackend:
 
 
 def make_backend(kind: str, **kwargs) -> CryptoBackend:
-    """The backend of `kind` (`host` | `torch` | `remote`), made with
+    """The backend of `kind` (`host` | `cpu` | `torch` | `remote`), made with
     `kwargs`, as the reference's factory (`hotstuff_tpu/crypto/backend.py:
     86-98`); e.g. `make_backend("torch", sharded=True)` splits batches over
     every visible GPU."""
     if kind == "host":
         return HostBackend(**kwargs)
+    if kind == "cpu":
+        return CpuBackend(**kwargs)
     if kind == "torch":
         from .torch_backend import TorchBackend
 

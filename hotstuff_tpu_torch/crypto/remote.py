@@ -3,7 +3,8 @@
 A copy of `hotstuff_tpu/crypto/remote.py` around `TorchBackend`. A sidecar
 process holds the backend and serves batch verification over a local TCP
 socket; nodes install a `RemoteBackend` that ships batches at or above its
-crossover to the sidecar and verifies smaller ones on their own CPU.
+crossover to the sidecar and verifies smaller ones on their own CPU
+(OpenSSL where the `cryptography` package imports, as the reference does).
 Requests from every connection funnel through one
 `BatchVerificationService`, so batches coalesce across the committee
 before they reach the card.
@@ -45,7 +46,7 @@ import struct
 import threading
 from typing import Sequence
 
-from .backend import CryptoBackend, HostBackend, make_backend
+from .backend import CpuBackend, CryptoBackend, HostBackend, make_backend
 from .batch_service import BatchVerificationService
 from .primitives import PublicKey, Signature
 
@@ -117,13 +118,35 @@ def _parse_request(body: memoryview) -> tuple[list[bytes], list[tuple[PublicKey,
     return msgs, pairs
 
 
+HOST_ROUTES = ("openssl", "exact")
+
+
+def _host_backend(host: str | None) -> CryptoBackend:
+    """The host verifier of a `RemoteBackend`: `"openssl"` is `CpuBackend`
+    (raises ImportError where `cryptography` is missing), `"exact"` is
+    `HostBackend`, and None takes OpenSSL where it imports, else exact."""
+    if host is None:
+        try:
+            return CpuBackend()
+        except ImportError:
+            return HostBackend()
+    if host == "openssl":
+        return CpuBackend()
+    if host == "exact":
+        return HostBackend()
+    raise ValueError(f"host must be one of {HOST_ROUTES} or None, got {host!r}")
+
+
 class RemoteBackend(CryptoBackend):
     """CryptoBackend that ships batches to the sidecar.
 
-    Batches below `crossover` verify on the local host (`HostBackend`).
-    If the sidecar cannot be reached after a retry on a fresh connection,
-    the batch verifies on the host too, with a warning: a sidecar outage
-    must not halt the protocol. `stats` counts both."""
+    Batches below `crossover` verify on the local host. If the sidecar
+    cannot be reached after a retry on a fresh connection, the batch
+    verifies on the host too, with a warning: a sidecar outage must not
+    halt the protocol. `stats` counts both. The host verifier is chosen once
+    (`host`, see `_host_backend`): OpenSSL, the reference's host path, where
+    `cryptography` imports; `host_route` says which ("openssl" or "exact").
+    Both give the card's verdicts."""
 
     name = "remote"
 
@@ -131,10 +154,13 @@ class RemoteBackend(CryptoBackend):
     # `urgent_below` sends them to the critical lane.
     URGENT_BELOW = 256
 
-    def __init__(self, addr: tuple[str, int], crossover: int = 64):
+    def __init__(self, addr: tuple[str, int], crossover: int = 64, host: str | None = None):
         self.addr = addr
         self.crossover = crossover
-        self._host = HostBackend()
+        self._host = _host_backend(host)
+        self.host_route = "openssl" if isinstance(self._host, CpuBackend) else "exact"
+        log.info("remote backend %s:%s: batches under %d and sidecar outages verify on the host (%s)",
+                 addr[0], addr[1], crossover, self.host_route)
         self._pool: list[socket.socket] = []
         self._pool_lock = threading.Lock()
         self._pool_sem = threading.BoundedSemaphore(CLIENT_POOL_SIZE)

@@ -25,7 +25,9 @@ committee path and on the generic path alike, so one crossover serves both
 
 The verifier's dispatch pipeline runs at `HOTSTUFF_PIPELINE_DEPTH` chunks in
 flight (default 2; 1 runs every chunk inline on the caller's thread);
-`close()` drains its worker threads.
+`close()` drains its worker threads. `staging` picks the verifier's host
+staging (`Ed25519TorchVerifier`): the native plane by default, numpy only
+when asked for.
 
 `sharded=True` splits every batch over every visible GPU, and `mesh=` over
 the devices of a `parallel.DeviceMesh` (`tpu_backend.py:74-86`): the
@@ -33,10 +35,12 @@ verifier is then `ShardedEd25519TorchVerifier`, buckets are multiples of its
 `mesh_alignment`, and a registered committee has a table replica per device.
 Deliberate departure: the reference's mesh-aware committee crossover floor
 (`tpu_backend.py:110-124`, `max(crossover // 4, mesh_alignment // 8)`) is
-not carried over. Its host path is OpenSSL; the port's is the exact-integer
-verifier, far slower than the card even on a quorum padded to a mesh
-bucket, and the floor would send every QC of a 4-device mesh to it. Routing
-never changes a verdict, only where it is computed.
+not carried over. Its host path is OpenSSL; this backend's is the
+exact-integer verifier, far slower than the card even on a quorum padded
+to a mesh bucket, and the floor would send every QC of a 4-device mesh to
+it. The port has OpenSSL's route too now (`backend.CpuBackend`, which
+`remote.RemoteBackend` takes below its crossover), so the floor can be
+revisited. Routing never changes a verdict, only where it is computed.
 """
 
 from __future__ import annotations
@@ -72,8 +76,9 @@ class TorchBackend(CryptoBackend):
         device: str | torch.device | None = None,
         sharded: bool = False,
         mesh: DeviceMesh | None = None,
+        staging: str = "native",
     ):
-        kw = dict(min_bucket=min_bucket, max_bucket=max_bucket, chunk=chunk)
+        kw = dict(min_bucket=min_bucket, max_bucket=max_bucket, chunk=chunk, staging=staging)
         if sharded or mesh is not None:
             if device is not None:
                 raise ValueError("a sharded backend takes its devices from its mesh, not device=")

@@ -14,7 +14,17 @@ int32 index vector, verified by K2g, K5 and K4 (`committee.verify_committee96
 (_dh)`). Padding lanes carry index 0; their mask bits are dropped.
 
 When every message is a 32-byte digest (the protocol's hot path) h is
-computed on the device (K2 / K2g); otherwise the host hashes (`hashlib`).
+computed on the device (K2 / K2g); otherwise the host hashes it while it
+stages the chunk.
+
+Staging (`staging=`) is the port's native plane by default, on the card
+and on the CPU alike (`crypto/native_staging.py`, C++ through `ctypes`,
+which releases the interpreter lock): one call per chunk writes the wire
+rows straight into the chunk's pooled shard-major buffer and gives the
+s < L mask. `staging="numpy"` runs the plain numpy staging of
+`ops/ed25519.py` (`prepare_batch_*`) and copies its rows into that buffer;
+nothing else reaches it. A native plane that does not build or load
+raises when the verifier is made.
 On the card a device-hash failure propagates: a kernel that fails to build
 or launch is a fault, and its work never moves to the host. On the CPU,
 where both hash forms run on the host, the verifier keeps the reference's
@@ -50,8 +60,8 @@ On the card:
 A CUDA stream or pinned-memory failure raises; there is no pageable or
 default-stream fallback.
 
-Staging buffers are shard-major: a chunk's (rows, W) wire array is padded
-into a pooled (shards, rows, W / shards) buffer, so each shard uploads one
+Staging buffers are shard-major: a chunk's (rows, W) wire array is laid
+out in a pooled (shards, rows, W / shards) buffer, so each shard uploads one
 contiguous block, and shard s writes lanes [s W / shards, (s + 1) W /
 shards) of the chunk's pooled mask buffer.
 
@@ -72,6 +82,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..crypto import native_staging
 from ..utils import metrics
 from . import committee as cm
 from . import ed25519 as ed
@@ -95,6 +106,15 @@ _M_TABLE_BUILDS = metrics.counter("verifier.table_builds")
 _M_COMMITTEE_BATCHES = metrics.counter("verifier.committee_batches")
 _M_COMMITTEE_SIGS = metrics.counter("verifier.committee_sigs")
 
+STAGINGS = ("native", "numpy")
+# (path, device hash) -> (native entry, the numpy staging it stands for)
+_STAGING = {
+    ("generic", True): (native_staging.stage_packed_dh, ed.prepare_batch_packed_dh),
+    ("generic", False): (native_staging.stage_packed_hh, ed.prepare_batch_packed),
+    ("committee", True): (native_staging.stage_committee_dh, ed.prepare_batch_committee_dh),
+    ("committee", False): (native_staging.stage_committee_hh, ed.prepare_batch_committee),
+}
+
 
 class Ed25519TorchVerifier:
     def __init__(
@@ -104,8 +124,14 @@ class Ed25519TorchVerifier:
         max_bucket: int = 8192,
         chunk: int | None = None,
         pipeline_depth: int | None = None,
+        staging: str = "native",
     ):
         self.device = resolve_device(device)
+        if staging not in STAGINGS:
+            raise ValueError(f"staging must be one of {STAGINGS}, got {staging!r}")
+        self.staging = staging
+        if staging == "native":
+            native_staging.load()
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
         self.chunk = min(chunk or 4096, max_bucket)
@@ -177,19 +203,20 @@ class Ed25519TorchVerifier:
         indices = list(indices)
 
         def run(device_hash: bool) -> np.ndarray:
-            def stage(lo: int, hi: int) -> dict:
+            def stage(lo: int, hi: int, out: np.ndarray) -> dict:
                 if device_hash:
-                    return ed.prepare_batch_committee_dh(messages[lo:hi], indices[lo:hi], signatures[lo:hi])
-                return ed.prepare_batch_committee(
-                    messages[lo:hi], [ct.keys[i] for i in indices[lo:hi]], indices[lo:hi], signatures[lo:hi]
-                )
+                    args = (messages[lo:hi], indices[lo:hi], signatures[lo:hi])
+                else:
+                    keys = [ct.keys[i] for i in indices[lo:hi]]
+                    args = (messages[lo:hi], keys, indices[lo:hi], signatures[lo:hi])
+                return self.stage_wire("committee", device_hash, args, out)
 
             def dispatch(bufs, mask_buf, streams, tlkey):
                 # `ct` stays pinned in this closure, which the chunk's task
                 # holds until its readback.
                 return self._upload_dispatch_committee(ct, device_hash, bufs, mask_buf, streams, tlkey)
 
-            return self._run_chunks(n, stage, ("packed", "idx"), dispatch)
+            return self._run_chunks(n, 96, stage, dispatch)
 
         return self._with_latch(messages, run)
 
@@ -206,18 +233,17 @@ class Ed25519TorchVerifier:
             return np.empty(0, bool)
 
         def run(device_hash: bool) -> np.ndarray:
-            prepare = ed.prepare_batch_packed_dh if device_hash else ed.prepare_batch_packed
             verify = ladder.verify_packed128_dh if device_hash else ladder.verify_packed128
 
-            def stage(lo: int, hi: int) -> dict:
+            def stage(lo: int, hi: int, out: np.ndarray) -> dict:
                 _M_TABLE_BUILDS.inc()
                 _M_DECOMPRESSIONS.inc(hi - lo)
-                return prepare(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
+                return self.stage_wire("generic", device_hash, (messages[lo:hi], keys[lo:hi], signatures[lo:hi]), out)
 
             def dispatch(bufs, mask_buf, streams, tlkey):
                 return self._upload_dispatch(lambda dev, packed: verify(packed), bufs, mask_buf, streams, tlkey)
 
-            return self._run_chunks(n, stage, ("packed",), dispatch)
+            return self._run_chunks(n, 128, stage, dispatch)
 
         return self._with_latch(messages, run)
 
@@ -248,14 +274,32 @@ class Ed25519TorchVerifier:
             b *= 2
         return min(b, self.max_bucket)
 
-    def _run_chunks(self, n: int, stage, wire: tuple[str, ...], dispatch) -> np.ndarray:
+    def stage_wire(self, path: str, device_hash: bool, args: tuple, out: np.ndarray) -> dict:
+        """Stage one chunk into `out`, a pooled shard-major (shards, rows,
+        W / shards) uint8 buffer, with this verifier's staging. `args` are
+        the numpy staging function's arguments (`ops/ed25519.py`
+        `prepare_batch_packed(_dh)` on the generic path,
+        `prepare_batch_committee(_dh)` on the committee path). The native
+        entry writes into `out`; the numpy function stages on its own and
+        `fill_shards` copies its rows in. Returns the staged dict with
+        `packed` = `out`, `s_ok` and, on the committee path, `idx`."""
+        native, plain = _STAGING[(path, device_hash)]
+        shards, _, w = out.shape
+        if self.staging == "native":
+            return native(*args, out, shards * w, shards)
+        staged = plain(*args)
+        fill_shards(out, staged["packed"])
+        return dict(staged, packed=out)
+
+    def _run_chunks(self, n: int, rows: int, stage, dispatch) -> np.ndarray:
         """Verify lanes [0, n) chunk by chunk through the pipeline.
-        `stage(lo, hi)` gives the chunk's staged host arrays; the `wire` ones
-        are padded into pooled shard-major buffers of the chunk's bucket
-        width, and `dispatch(bufs, mask_buf, streams, tlkey)` uploads them,
-        launches the kernels and queues the (W,) mask's copy into `mask_buf`,
-        returning the events to wait on (none on the CPU). The readback ANDs
-        the mask with the host s < L mask."""
+        `stage(lo, hi, out)` stages the chunk's `rows` wire rows into `out`,
+        a pooled shard-major buffer of the chunk's bucket width, and returns
+        the staged dict (`stage_wire`); a committee chunk's `idx` is padded
+        into a pooled buffer of its own. `dispatch(bufs, mask_buf, streams,
+        tlkey)` uploads the buffers, launches the kernels and queues the (W,)
+        mask's copy into `mask_buf`, returning the events to wait on (none on
+        the CPU). The readback ANDs the mask with the host s < L mask."""
         pool = self.pipeline.pool
         tl_on = timeline.enabled()
         tl_batch = timeline.TIMELINE.next_batch() if tl_on else 0
@@ -268,13 +312,17 @@ class Ed25519TorchVerifier:
 
             def stage_chunk():
                 _M_CHUNKS.inc()
-                with metrics.span(_M_STAGE):
-                    staged = stage(lo, hi)
                 width = self._bucket(hi - lo)
                 _M_PAD_LANES.inc(width - (hi - lo))
-                bufs = [pad_shards(pool, staged[k], width, shards) for k in wire]
+                packed = pool.take((shards, rows, width // shards), np.uint8)
+                release.append(packed)
+                with metrics.span(_M_STAGE):
+                    staged = stage(lo, hi, packed)
+                bufs = [packed]
+                if "idx" in staged:
+                    bufs.append(pad_shards(pool, staged["idx"], width, shards))
+                    release.append(bufs[-1])
                 mask_buf = pool.take((width,), np.bool_)
-                release.extend(bufs)
                 release.append(mask_buf)
                 return bufs, mask_buf, staged["s_ok"]
 
@@ -346,12 +394,18 @@ def pad_shards(pool, arr: np.ndarray, width: int, shards: int) -> np.ndarray:
     `shards` equal blocks, in a pooled shard-major (shards, ..., width /
     shards) buffer: block s holds lanes [s w, (s + 1) w). Always copies,
     as `StagingBufferPool.pad`."""
-    w = width // shards
-    out = pool.take((shards, *arr.shape[:-1], w), arr.dtype)
+    out = pool.take((shards, *arr.shape[:-1], width // shards), arr.dtype)
+    fill_shards(out, arr)
+    return out
+
+
+def fill_shards(out: np.ndarray, arr: np.ndarray) -> None:
+    """Write `arr` (..., n) into the shard-major (shards, ..., w) buffer
+    `out`: block s takes lanes [s w, (s + 1) w), lanes past n are zeroed."""
+    shards, w = out.shape[0], out.shape[-1]
     n = arr.shape[-1]
     for s in range(shards):
         lo = s * w
         k = max(0, min(w, n - lo))
         out[s, ..., :k] = arr[..., lo : lo + k]
         out[s, ..., k:] = 0
-    return out

@@ -232,3 +232,115 @@ def test_host_backend_matches_reference_on_special_keys(msg_len):
     card = TorchBackend(device="cpu", crossover=1, min_bucket=32).verify_batch_mask(msgs, pks, sgs)
     host = TorchBackend(device="cpu", crossover=64).verify_batch_mask(msgs, pks, sgs)
     assert card == host == ours
+
+
+def test_verifier_native_and_numpy_staging_match_reference_verifier():
+    """`Ed25519TorchVerifier(device="cpu")` with the native staging plane and
+    with the numpy staging, on the w4/128 corpus of
+    `test_verifier_pipeline_matches_reference_verifier`: both masks equal
+    the JAX package's verifier (the reference mask computed there)."""
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+    from tests.common_torch_verifier import PIPE_KW, reference_mask
+
+    msgs, keys, sigs = _signed(16, 32, seed=90)
+    classes = _adversarial(msgs, keys, sigs)
+    msgs, keys, sigs = msgs * 8, keys * 8, sigs * 8
+    want = reference_mask("generic", tuple(msgs), tuple(keys), tuple(sigs), None)
+    masks = {}
+    for staging in ("native", "numpy"):
+        v = Ed25519TorchVerifier(device="cpu", pipeline_depth=1, staging=staging, **PIPE_KW)
+        masks[staging] = tuple(v.verify_batch_mask(msgs, keys, sigs).tolist())
+    assert masks["native"] == masks["numpy"] == want
+    assert list(want) == [i % 16 not in classes for i in range(128)]
+
+
+def _port_cpu_backend():
+    """The port's copy of the reference's host verifier (OpenSSL)."""
+    pytest.importorskip("cryptography")
+    from hotstuff_tpu_torch.crypto.backend import CpuBackend
+
+    return CpuBackend()
+
+
+@pytest.mark.parametrize("msg_len", [32, 33])
+def test_port_cpu_backend_matches_reference_cpu_backend(msg_len):
+    """The port's `CpuBackend` against the reference's on every adversarial
+    class, the four identity-key forgeries and `chip_smoke.py`'s special
+    keys: the same verdicts, which are also `HostBackend`'s."""
+    import chip_smoke
+
+    msgs, keys, sigs = _signed(12, msg_len, seed=9)
+    _adversarial(msgs, keys, sigs)
+    rng = random.Random(msg_len)
+    identity = [(1 | 1 << 255).to_bytes(32, "little"), (P + 1).to_bytes(32, "little"),
+                (P + 1 | 1 << 255).to_bytes(32, "little"), (1).to_bytes(32, "little")]
+    special = chip_smoke._special_keys()
+    real_msgs, _, real_sigs = _signed(len(special), msg_len, seed=40 + msg_len)
+    for k in identity:
+        msgs.append(bytes(msg_len))
+        keys.append(k)
+        sigs.append(_forged_identity(12345))
+    for k, m, sig in zip(special, real_msgs, real_sigs):
+        msgs += [m, m]
+        keys += [k, k]
+        sigs += [_forged_identity(rng.randrange(L)), sig]
+    pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
+    ours = _port_cpu_backend().verify_batch_mask(msgs, pks, sgs)
+    host, ref = _host_and_reference(msgs, keys, sigs)
+    assert ours == ref == host
+    assert ours[:12] == [False] * 10 + [True, True] and ours[12:16] == [True] * 4
+    from hotstuff_tpu_torch.crypto.backend import CpuBackend, make_backend
+
+    assert isinstance(make_backend("cpu"), CpuBackend) and make_backend("cpu").name == "cpu"
+
+
+def _closed_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_remote_backend_verifies_through_openssl_when_the_sidecar_is_down(caplog):
+    """A `RemoteBackend` whose sidecar is unreachable verifies its batches on
+    the host through OpenSSL (`host_route == "openssl"`, said in its log
+    line), below its crossover and in the outage alike, with the card's
+    verdicts."""
+    import logging
+
+    from hotstuff_tpu_torch.crypto import remote
+    from hotstuff_tpu_torch.crypto.backend import CpuBackend
+
+    _port_cpu_backend()
+    msgs, keys, sigs = _signed(6, 32, seed=12)
+    sigs[2] = sigs[2][:32] + (int.from_bytes(sigs[2][32:], "little") + L).to_bytes(32, "little")
+    pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
+    want = [True, True, False, True, True, True]
+    with caplog.at_level(logging.INFO, logger="hotstuff.crypto"):
+        client = remote.RemoteBackend(("127.0.0.1", _closed_port()), crossover=4)
+    assert client.host_route == "openssl" and isinstance(client._host, CpuBackend)
+    assert "verify on the host (openssl)" in caplog.text
+    calls = []
+    verify = client._host.verify_batch_mask
+    client._host.verify_batch_mask = lambda *a: calls.append(len(a[0])) or verify(*a)
+    assert client.verify_batch_mask(msgs[:3], pks[:3], sgs[:3]) == want[:3]  # under the crossover
+    assert client.verify_batch_mask(msgs, pks, sgs) == want  # the outage path
+    assert calls == [3, 6] and client.stats["cpu_sigs"] == 9 and client.stats["remote_sigs"] == 0
+    assert remote.RemoteBackend(("127.0.0.1", 1), host="exact").host_route == "exact"
+    with pytest.raises(ValueError, match="host must be one of"):
+        remote.RemoteBackend(("127.0.0.1", 1), host="dalek")
+
+
+def test_remote_backend_without_cryptography(monkeypatch):
+    """Where `cryptography` does not import, `host=None` takes the exact
+    verifier and `host="openssl"` raises."""
+    import sys
+
+    from hotstuff_tpu_torch.crypto import remote
+
+    for mod in ("cryptography", "cryptography.exceptions", "cryptography.hazmat.primitives.asymmetric.ed25519"):
+        monkeypatch.setitem(sys.modules, mod, None)
+    assert remote.RemoteBackend(("127.0.0.1", 1)).host_route == "exact"
+    with pytest.raises(ImportError):
+        remote.RemoteBackend(("127.0.0.1", 1), host="openssl")

@@ -306,3 +306,72 @@ def test_mesh_phase_qc_wire_pads_each_qc_to_the_dp_axis():
     assert s_ok[:, 3].tolist() == [False, False] and want[:, 3].tolist() == [False, False]
     assert counts.tolist() == [2, 3]
 
+
+
+def _staging_corpus(n_batch: int, n_votes: int):
+    """Random wire bytes shaped as phase 3's batch and phase 5's votes (the
+    staging does not look at validity)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+
+    def rows(n, w):
+        return [bytes(r) for r in rng.integers(0, 256, (n, w), np.uint8)]
+
+    keys = rows(7, 32)
+    batch = (rows(n_batch, 32), rows(n_batch, 32), rows(n_batch, 64), np.ones(n_batch, bool))
+    votes = (rows(n_votes, 32), [keys[i % 7] for i in range(n_votes)], rows(n_votes, 64), np.ones(n_votes, bool))
+    return batch, votes
+
+
+def test_staging_cases_cover_the_phase(monkeypatch):
+    """Phase 3b's cases: every form at shards 1, 2 and 4 on its whole
+    batch, in a reused buffer at a width above n, the host-hash forms over
+    messages of 0..300 bytes, and every form with s = L - 1, L, 2^256 - 1."""
+    batch, votes = _staging_corpus(400, 401)
+    forms = chip_smoke.staging_forms(batch, votes)
+    assert sorted(forms) == sorted(chip_smoke.STAGING_PATHS)
+    cases = chip_smoke.staging_cases(forms, 320)
+    for name in forms:
+        mine = [c for c in cases if c[1] == name]
+        assert {c[4] for c in mine if "n=" in c[0] and not c[5]} == {1, 2, 4}
+        assert [c[3] > len(c[2][0]) for c in mine if c[5]] == [True, True]
+        edge = [c for c in mine if "s in" in c[0]][0]
+        s = [int.from_bytes(sig[32:], "little") for sig in edge[2][-1][:9:3]]
+        assert s == list(chip_smoke.EDGE_S)
+        lengths = {len(m) for c in mine if "messages" in c[0] for m in c[2][0]}
+        assert lengths == (set(range(chip_smoke.MSG_LENGTHS)) if name.endswith("_hh") else set())
+
+
+def test_staging_diff_finds_what_differs():
+    """`staging_diff` is empty on the native plane, and names a pad lane
+    left dirty and a wrong s < L bit."""
+    import numpy as np
+
+    batch, votes = _staging_corpus(20, 20)
+    native, plain, args, rows = chip_smoke.staging_forms(batch, votes)["packed_dh"]
+    assert chip_smoke.staging_diff(native, plain, args, rows, 32, 2) == []
+
+    def dirty_pads(*a):
+        out = a[-3]
+        got = native(*a)
+        out[1, :, -1] = 7
+        return dict(got, s_ok=~got["s_ok"])
+
+    bad = chip_smoke.staging_diff(dirty_pads, plain, args, rows, 32, 2)
+    assert len(bad) == 2 and "wire bytes differ at (shard, row, lane) [[1, 0, 15]" in bad[0] and "s_ok" in bad[1]
+    out = np.zeros((2, rows, 16), np.uint8)
+    assert chip_smoke.staging_diff(native, plain, args, rows, 32, 2, out) == [] and out.any()
+
+
+def test_phase_staging_on_cpu(monkeypatch, capsys):
+    """Phase 3b end to end at a 64-lane chunk on the CPU: every case equal,
+    then stage ms of both stagings per form."""
+    monkeypatch.setattr(chip_smoke, "CHUNK", 64)
+    batch, votes = _staging_corpus(150, 129)
+    res = chip_smoke.phase_staging(batch, votes, "cpu")
+    assert sorted(res) == sorted(chip_smoke.STAGING_PATHS)
+    for r in res.values():
+        assert r["native"]["median_ms"] > 0 and r["numpy"]["median_ms"] > 0 and r["numpy_over_native"] > 0
+    out = capsys.readouterr().out
+    assert "native == numpy byte for byte" in out and "staging ms per 64-lane chunk" in out

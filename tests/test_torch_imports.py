@@ -1,6 +1,7 @@
 """Package rules of the PyTorch/CUDA port: it imports neither jax nor any
-module of hotstuff_tpu, it never carries on silently on the CPU, and a
-kernel wrapper given a non-CPU tensor launches its kernel or raises."""
+module of hotstuff_tpu, it reads nothing of the reference's native plane
+(`native/`), it never carries on silently on the CPU, and a kernel wrapper
+given a non-CPU tensor launches its kernel or raises."""
 
 import json
 import os
@@ -47,7 +48,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.node.config", "hotstuff_tpu_torch.utils.metrics",
                 "hotstuff_tpu_torch.utils.actors", "hotstuff_tpu_torch.utils.logging",
                 "hotstuff_tpu_torch.ops.pipeline", "hotstuff_tpu_torch.ops.timeline",
-                "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh"):
+                "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh",
+                "hotstuff_tpu_torch.crypto.native_staging"):
         assert mod in res["modules"]
 
 
@@ -103,3 +105,54 @@ def test_sources_and_kernels_listed():
     csrc = sorted(p.name for p in _build.CSRC.iterdir())
     assert csrc == sorted(["field.cuh", "quad.cuh", "split_field.cuh"] + [f"{n}.cu" for n in _build.NAMES])
     assert len(_build.source_hash()) == 16
+
+
+_NATIVE_PROBE = """
+import json, sys
+from pathlib import Path
+events = []
+
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes)):
+        events.append(["open", str(args[0])])
+    elif event == "subprocess.Popen":
+        events.append(["compile", [str(a) for a in args[1]]])
+    elif event == "ctypes.dlopen":
+        events.append(["load", str(args[0])])
+
+sys.addaudithook(hook)
+from hotstuff_tpu_torch.crypto import native_staging as ns
+from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+Ed25519TorchVerifier(device="cpu")
+default = str(ns.library_path())
+ns.BUILD, ns._lib = Path(sys.argv[1]), None
+ns.load()  # a fresh build of the same source, seen by the hook
+print(json.dumps({"events": events, "default": default}))
+"""
+
+
+def test_native_plane_is_the_ports_own(tmp_path):
+    """The port's staging library is built from sources under
+    hotstuff_tpu_torch/ only, loaded from hotstuff_tpu_torch/native/build/,
+    and no file of the reference's native/ is opened (audit hooks on open,
+    the compiler's command and dlopen, in a fresh process)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE_PROBE, str(tmp_path)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    port, reference = REPO / "hotstuff_tpu_torch", REPO / "native"
+    loads = [Path(p) for kind, p in res["events"] if kind == "load" and p != "None"]
+    assert Path(res["default"]).is_relative_to(port / "native" / "build")
+    staging = [p for p in loads if p.name == "libstaging.so"]
+    assert staging[0] == Path(res["default"]) and staging[1].is_relative_to(tmp_path) and len(staging) == 2
+    assert not [p for p in loads if p.resolve().is_relative_to(reference)]
+    compiles = [cmd for kind, cmd in res["events"] if kind == "compile"]
+    assert len(compiles) == 1
+    sources = [Path(a) for a in compiles[0] if a.endswith((".cpp", ".cc", ".h", ".hpp"))]
+    assert sources == [port / "native" / "staging.cpp"]
+    assert not any(a.startswith("-I") for a in compiles[0])
+    assert "#include \"" not in sources[0].read_text()  # system headers only
+    opened = [Path(p) for kind, p in res["events"] if kind == "open"]
+    assert not [p for p in opened if p.resolve().is_relative_to(reference)]
