@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
-     ptxas reports spill bytes for either ladder kernel, K3, K4 or K2 / K2g;
+     ptxas reports spill bytes for either ladder kernel, K3, K4 or K2 / K2g
+     (K6's ptxas line is printed, not gated);
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at 4,096 lanes, exactly (integer outputs, tolerance 0); K3
      `decompress_table` (raw limbs and valid, on random and special keys),
@@ -125,7 +126,27 @@ caught:
      boots on the card beside them and answers one QC. Every node must
      commit, digests must agree per round, no node may log a synthetic
      verification failure or a fallback to its CPU, and the card must
-     verify lanes with the generic kernels only.
+     verify lanes with the generic kernels only. The BLS kernels must have
+     launched 0 times in phases 3-7;
+  8. BLS12-381 G1 aggregation (`hotstuff_tpu_torch/ops/bls.py`): K6's field
+     product alone (`hs_bls_mont_mul`) against Python ints and the plain
+     `mont_mul` on every pair of 64 residues (0, 1, p - 1, p, 2p - 1, random
+     below 2p); 256 keys from the port's `ExactBlsScheme`; a
+     `CommitteeTable` at 4, 16, 64, 128 and 256 validators, each with a
+     duplicate key, a key beside its negation and an undecodable key (and,
+     above 34, both pairs in one partial's lanes); 1,024 bitmap rows each
+     (random quorums of floor(2N/3) + 1, then empty, all, one member and
+     the special pairs) through `aggregate_masks`, then `verify_aggregate`
+     at 64 and 256 validators with a signature under the summed secret
+     (right message, wrong message, the invalid lane, the empty bitmap),
+     with the launch counts read around them: K6 once per aggregation,
+     nothing else. Every sum must equal the exact `add_affine` fold (in a
+     spawn pool), every verdict the expected one, and K6 its plain version
+     limb for limb at every size with B = 1,024 and B = 1; then K6's ms at
+     256 validators (B = 1,024 and 1), the plain version's, the bound,
+     `aggregate_masks`' wall split into the kernel and the host's affine
+     conversion, the table builds and `verify_aggregate`'s split into
+     aggregation and pairing. Fails on any difference, never on speed.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
 Exits non-zero without a result when no CUDA device is available or the
@@ -174,6 +195,13 @@ H_DIGITS_OPS_PER_LANE = 2 * (64 * 13 + 80 * 24) + 2 * 32 * 20
 # limb products (one IMAD.WIDE each) and 13 + 9 + 9 + 9 carry steps, each
 # counted as one operation, the least issue work.
 REDUCE_OPS_PER_LANE = (50 + 25 + 5) + (13 + 9 + 9 + 9)
+# K6 (csrc/g1_aggregate.cu): a Montgomery product on 12 x 32-bit limbs is
+# 12 x 12 products of a x b, 12 x 12 of m x p and 12 digit factors, 300
+# IMAD.WIDE; each member of a row beyond its first costs one mixed add,
+# 7M + 4S = 11 products. Counted from the mask, whatever the kernel issues,
+# so a redesign is read against the same work.
+BLS_OPS_PER_PRODUCT = 12 * 12 + 12 * 12 + 12
+BLS_OPS_PER_MEMBER = 11 * BLS_OPS_PER_PRODUCT
 
 RFC8032_VECTORS = [  # (public key, message, signature), RFC 8032 section 7.1
     ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
@@ -2365,6 +2393,290 @@ def phase_committee_run(backend, qcs, run_dir: Path) -> dict:
     return result
 
 
+# --- phase 8: BLS aggregation ------------------------------------------------
+
+BLS_SIZES = (4, 16, 64, 128, 256)  # bench.py --agg-sizes' 4, 16, 64; the agg_certs chaos cells' 128; bls.py's 256
+BLS_ROWS = 1024  # certificate bitmaps a call
+BLS_VERIFY_SIZES = (64, 256)
+BLS_FIELD_VALUES = 64  # residues of the field check: the edges and random ones, every pair (4,096)
+BLS_POOL = 8  # processes of the key and exact-fold pool
+BLS_WALL_REPS = 5  # aggregate_masks' wall and its stages, in turns
+
+
+def _bls_fold(args: tuple[list, list[list[int]]]) -> list:
+    """The exact integer fold `_FP_OPS.add_affine` over each row's members
+    (a spawned worker: a picklable top-level function)."""
+    from hotstuff_tpu_torch.crypto import aggsig
+
+    points, rows = args
+    out = []
+    for members in rows:
+        acc = None
+        for i in members:
+            acc = aggsig._FP_OPS.add_affine(acc, points[i])
+        out.append(acc)
+    return out
+
+
+def _bls_keypair(seed: bytes) -> tuple[bytes, int]:
+    from hotstuff_tpu_torch.crypto import aggsig
+
+    return aggsig.ExactBlsScheme().keypair_from_seed(seed)
+
+
+def bls_bad_key() -> bytes:
+    """A compressed 48-byte G1 encoding whose x has no point: the smallest
+    x with x^3 + 4 a non-square mod p."""
+    from hotstuff_tpu_torch.crypto import aggsig
+
+    p = aggsig.P
+    x = next(x for x in range(1, 64) if pow(x**3 + aggsig.B_G1, (p - 1) // 2, p) != 1)
+    return bytes([0x80]) + x.to_bytes(47, "big")
+
+
+def bls_table_keys(pairs: list, n: int) -> tuple[list[bytes], list, dict[str, tuple[int, ...]]]:
+    """n committee keys from `pairs` ((key, secret) pairs), each lane's
+    secret beside it (None: no point), and the special lanes: a duplicate
+    key, a key beside its negation and one undecodable key in the last
+    three lanes; above 34 keys also a duplicate and an inverse pair in one
+    partial's lanes (0 and 32, 1 and 33, which K6's threads 0 and 1 fold
+    in turn; at BLS_SIZES the end lanes' pairs meet only in the tree)."""
+    from hotstuff_tpu_torch.crypto import aggsig
+    from hotstuff_tpu_torch.ops import bls
+
+    def neg(k: bytes) -> bytes:
+        return aggsig.compress_g1(aggsig._g1_neg(aggsig.decompress_g1(k)))
+
+    keys, sks = [pk for pk, _ in pairs[:n]], [sk for _, sk in pairs[:n]]
+    dup, inv = min(2, n - 4), min(3, n - 4)
+    keys[n - 3], sks[n - 3] = keys[dup], sks[dup]
+    keys[n - 2], sks[n - 2] = neg(keys[inv]), -sks[inv] % aggsig.R_ORDER
+    keys[n - 1], sks[n - 1] = bls_bad_key(), None
+    lanes = {"dup": (dup, n - 3), "inverse": (inv, n - 2), "invalid": (n - 1,)}
+    t = bls.THREADS
+    if n > t + 2:
+        keys[t], sks[t] = keys[0], sks[0]
+        keys[t + 1], sks[t + 1] = neg(keys[1]), -sks[1] % aggsig.R_ORDER
+        lanes.update(dup_one_partial=(0, t), inverse_one_partial=(1, t + 1))
+    return keys, sks, lanes
+
+
+def bls_rows(seed: int, n: int, lanes: dict, rows: int):
+    """(rows, n) bool bitmap rows and the edge rows' labels: empty, all, a
+    single member, one row per special-lane entry, then random quorums of
+    floor(2n / 3) + 1 members (2f + 1 where n = 3f + 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, n])
+    labels = ["empty", "all", "single", *lanes]
+    masks = np.zeros((rows, n), bool)
+    masks[1] = True
+    masks[2, int(rng.integers(n))] = True
+    for r, name in enumerate(lanes, 3):
+        masks[r, list(lanes[name])] = True
+    for r in range(len(labels), rows):
+        masks[r, rng.choice(n, 2 * n // 3 + 1, replace=False)] = True
+    return masks, labels
+
+
+def bls_bound(masks, present) -> tuple[int, int]:
+    """K6's least work for these rows: (bytes, INT32 operations). Bytes: the
+    mask, the table and the output, each once; operations: one mixed add
+    per member beyond a row's first, counted from the mask."""
+    import numpy as np
+
+    rows, n = masks.shape
+    members = (np.asarray(masks, bool) & np.asarray(present, bool)[None]).sum(1)
+    ops = int(np.maximum(members - 1, 0).sum()) * BLS_OPS_PER_MEMBER
+    return rows * n + n * (2 * 12 * 4 + 1) + rows * 3 * 12 * 4, ops
+
+
+def phase_bls_field(seed: int, device: str = "cuda") -> dict:
+    """K6's Montgomery product alone (`hs_bls_mont_mul`) against Python ints
+    and the plain `mont_mul` on every pair of BLS_FIELD_VALUES residues: 0,
+    1, p - 1, p, 2p - 1 and random ones below 2p."""
+    import random
+
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import queued_ms
+    from hotstuff_tpu_torch.ops import bls
+
+    p = bls.P
+    rng = random.Random(seed)
+    vals = [0, 1, p - 1, p, 2 * p - 1]
+    vals += [rng.randrange(2 * p) for _ in range(BLS_FIELD_VALUES - len(vals))]
+    a_int = [x for x in vals for _ in vals]
+    b_int = [y for _ in vals for y in vals]
+    dev = torch.device(device)
+    a = bls.to_i32(bls.limbs_of_int(a_int)).to(dev)
+    b = bls.to_i32(bls.limbs_of_int(b_int)).to(dev)
+    got = bls.mont_mul_device(a, b)
+    plain_ms, want = _plain_ms(lambda: bls.to_i32(bls.mont_mul(bls.from_i32(a), bls.from_i32(b))))
+    if not torch.equal(got, want):
+        fail("hs_bls_mont_mul differs from the plain mont_mul")
+    if bls.int_of_limbs(got.cpu()) != [x * y * bls.R_INV % p for x, y in zip(a_int, b_int)]:
+        fail("hs_bls_mont_mul differs from Python ints")
+    n = len(a_int)
+    res = dict(ms=queued_ms(lambda: bls.mont_mul_device(a, b), 20), plain_ms=plain_ms, max_abs_err=_max_abs(got, want),
+               bytes=n * 3 * 12 * 4, ops=n * BLS_OPS_PER_PRODUCT)
+    res["bound_ms"], res["bound_by"] = _bound_ms(res["bytes"], res["ops"])
+    print(f"bls_mont_mul: kernel equals the plain mont_mul and Python ints on {n} pairs (0, 1, p - 1, p, 2p - 1 "
+          f"and random residues below 2p); {res['ms']:.4f} ms per {n}-pair call", flush=True)
+    return res
+
+
+def phase_bls(seed: int, device: str = "cuda") -> dict:
+    """Phase 8 (see the module docstring): tables at BLS_SIZES, BLS_ROWS rows
+    each through `CommitteeTable.aggregate_masks` with the launch counts
+    read around them and `verify_aggregate` at BLS_VERIFY_SIZES; every sum
+    against the exact integer fold, K6 against its plain version limb for
+    limb, then the times."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import queued_ms
+    from hotstuff_tpu_torch.crypto import aggsig
+    from hotstuff_tpu_torch.ops import _build, bls
+
+    field = phase_bls_field(seed, device)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(BLS_POOL, os.cpu_count() or 1)) as pool:
+        t0 = time.perf_counter()
+        seeds = [hashlib.sha256(b"bls validator %d" % i).digest() for i in range(max(BLS_SIZES))]
+        pairs = pool.map(_bls_keypair, seeds)
+        print(f"BLS keys: {len(pairs)} ExactBlsScheme keypairs in {time.perf_counter() - t0:.1f} s", flush=True)
+        corpus, folds = {}, {}
+        for n in BLS_SIZES:
+            keys, sks, lanes = bls_table_keys(pairs, n)
+            masks, labels = bls_rows(seed, n, lanes, BLS_ROWS)
+            points = [None if sk is None else aggsig.decompress_g1(k) for k, sk in zip(keys, sks)]
+            corpus[n] = (keys, sks, lanes, masks, labels, points)
+            rows = [np.flatnonzero(r).tolist() for r in masks]
+            step = -(-len(rows) // BLS_POOL)
+            folds[n] = pool.map_async(_bls_fold, [(points, rows[i:i + step]) for i in range(0, len(rows), step)])
+
+        tables, build_s = {}, {}
+        for n in BLS_SIZES:
+            t0 = time.perf_counter()
+            tables[n] = bls.CommitteeTable(corpus[n][0], device=device)
+            build_s[n] = time.perf_counter() - t0
+            if tables[n].points != corpus[n][5] or tables[n].invalid.tolist() != [i == n - 1 for i in range(n)]:
+                fail(f"BLS table at N = {n}: points or invalid lanes differ from the keys' own")
+        print(f"BLS table build (decompress on the host, upload): "
+              f"{', '.join(f'N={n} {s:.4f} s' for n, s in build_s.items())}", flush=True)
+
+        # The path, counted: one aggregate_masks call per size, then the
+        # verify_aggregate cases, each aggregating once unless refused.
+        verify = {}
+        for n in BLS_VERIFY_SIZES:
+            keys, sks, lanes, *_ = corpus[n]
+            bitmap = sum(1 << i for i in range(n) if sks[i] is not None)
+            sig = aggsig.ExactBlsScheme().sign(sum(s for s in sks if s is not None) % aggsig.R_ORDER, b"agg-qc %d" % n)
+            verify[n] = [(bitmap, b"agg-qc %d" % n, sig, True), (bitmap, b"another digest", sig, False),
+                         (bitmap | 1 << lanes["invalid"][0], b"agg-qc %d" % n, sig, False), (0, b"agg-qc %d" % n, sig, False)]
+        _build.reset_launches()
+        sums, agg_s, verdicts, verify_s = {}, {}, {}, {}
+        for n in BLS_SIZES:
+            t0 = time.perf_counter()
+            sums[n] = tables[n].aggregate_masks(corpus[n][3])
+            agg_s[n] = time.perf_counter() - t0
+        for n in BLS_VERIFY_SIZES:
+            verdicts[n], verify_s[n] = [], []
+            for bitmap, msg, sig, _ in verify[n]:
+                t0 = time.perf_counter()
+                verdicts[n].append(tables[n].verify_aggregate(bitmap, msg, sig))
+                verify_s[n].append(time.perf_counter() - t0)
+        launches = _build.launches()
+        print(f"BLS path launches: {launches}", flush=True)
+        want_launches = len(BLS_SIZES) + 3 * len(BLS_VERIFY_SIZES)  # the invalid-lane bitmap is refused first
+        if device == "cuda" and launches != {k: (want_launches if k == "g1_aggregate" else 0) for k in launches}:
+            fail(f"the BLS path did not launch K6 once per aggregation, and nothing else: {launches}")
+        for n in BLS_VERIFY_SIZES:
+            if verdicts[n] != [v for *_, v in verify[n]]:
+                fail(f"verify_aggregate at N = {n}: verdicts {verdicts[n]}, expected {[v for *_, v in verify[n]]}")
+        for n in BLS_SIZES:
+            exact = [pt for part in folds[n].get() for pt in part]
+            if sums[n] != exact:
+                bad = [i for i, (a, b) in enumerate(zip(sums[n], exact)) if a != b]
+                fail(f"BLS sums at N = {n} differ from the exact fold on {len(bad)} rows, e.g. {bad[:8]}")
+            named = dict(zip(corpus[n][4], sums[n]))
+            if any(named[k] is not None for k in ("empty", "inverse", "invalid", "inverse_one_partial") if k in named):
+                fail(f"BLS edge rows at N = {n}: {named}")
+    print(f"BLS aggregation: every affine sum equals the exact add_affine fold at N = {list(BLS_SIZES)} "
+          f"({BLS_ROWS} rows each: random quorums, empty, all, single, duplicate and inverse pairs, invalid lane); "
+          f"verify_aggregate verdicts {verdicts} as expected", flush=True)
+
+    # K6 against its plain version on the same tensors, limb for limb.
+    err = 0
+    for n in BLS_SIZES:
+        t = tables[n]
+        rows = torch.from_numpy(corpus[n][3]).to(t.device)
+        got = bls.g1_aggregate(t.tx, t.ty, t.present, rows)
+        one = bls.g1_aggregate(t.tx, t.ty, t.present, rows[-1:].contiguous())
+        if n == BLS_SIZES[-1]:
+            plain_ms, want = _plain_ms(lambda: bls.g1_aggregate_plain(t.tx, t.ty, t.present, rows))
+        else:
+            want = bls.g1_aggregate_plain(t.tx, t.ty, t.present, rows)
+        if not torch.equal(got, want) or not torch.equal(one, want[:, :, -1:]):
+            fail(f"K6 g1_aggregate differs from its plain version at N = {n}")
+        err = max(err, _max_abs(got, want))
+    t = tables[BLS_SIZES[-1]]
+    masks = corpus[BLS_SIZES[-1]][3]
+    rows = torch.from_numpy(masks).to(t.device)
+    ms = queued_ms(lambda: bls.g1_aggregate(t.tx, t.ty, t.present, rows), 20)
+    last = rows[-1:].contiguous()
+    ms_b1 = queued_ms(lambda: bls.g1_aggregate(t.tx, t.ty, t.present, last), 20)
+    # aggregate_masks' wall, then its stages run by hand in the same order
+    # (upload and kernel to a synchronize, readback, the affine conversion),
+    # in turns; medians of BLS_WALL_REPS.
+    walls, stages = [], []
+    for _ in range(BLS_WALL_REPS):
+        t0 = time.perf_counter()
+        t.aggregate_masks(masks)
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        jac = bls.g1_aggregate(t.tx, t.ty, t.present, torch.from_numpy(masks).to(t.device))
+        if t.device.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = jac.cpu()
+        t2 = time.perf_counter()
+        bls.affine_points(host)
+        stages.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    wall = statistics.median(walls) * 1e3
+    device_leg, readback, conv = (statistics.median(x) * 1e3 for x in zip(*stages))
+    bytes_moved, ops = bls_bound(masks, t.present.cpu().numpy())
+    res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bytes=bytes_moved, ops=ops)
+    res["bound_ms"], res["bound_by"] = _bound_ms(bytes_moved, ops)
+    res["extra"] = dict(ms_b1=ms_b1, aggregate_masks_wall_ms=wall, upload_and_kernel_ms=device_leg,
+                        readback_ms=readback, host_conversion_ms=conv, table_build_s=build_s)
+    n = BLS_SIZES[-1]
+    print(f"K6: limbs identical to the plain version at N = {list(BLS_SIZES)} with B = {BLS_ROWS} and B = 1; "
+          f"{ms:.4f} ms at N = {n}, B = {BLS_ROWS}; {ms_b1:.4f} ms at B = 1; plain {plain_ms:.1f} ms; "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, {ops} operations, {bytes_moved} bytes)", flush=True)
+    print(f"aggregate_masks at N = {n}, B = {BLS_ROWS}: {wall:.2f} ms wall (median of {BLS_WALL_REPS}; first call "
+          f"{agg_s[n] * 1e3:.2f} ms); its stages by hand: mask upload and K6 to a synchronize {device_leg:.3f} ms "
+          f"(K6 alone {ms:.4f} ms on the device), readback {readback:.3f} ms, the host's affine conversion "
+          f"{conv:.2f} ms", flush=True)
+    for n in BLS_VERIFY_SIZES:
+        bitmap = verify[n][0][0]
+        t0 = time.perf_counter()
+        tables[n].aggregate_bitmaps([bitmap])
+        agg = time.perf_counter() - t0
+        total = verify_s[n][0]
+        print(f"verify_aggregate at N = {n} (right message): {total:.3f} s wall: aggregation {agg * 1e3:.2f} ms, "
+              f"pairing and the rest {total - agg:.3f} s; refused invalid-lane bitmap {verify_s[n][2] * 1e3:.3f} ms",
+              flush=True)
+    return dict(kernels={"g1_aggregate": res, "bls_mont_mul": field}, launches=launches)
+
+
+def bls_off_path_errors(launch_sets: dict) -> list[str]:
+    """Where a phase of the ed25519 paths launched a BLS kernel."""
+    return [f"{label}: {k} launched {d[k]} times" for label, d in launch_sets.items()
+            for k in ("g1_aggregate", "bls_mont_mul") if d.get(k)]
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
@@ -2373,6 +2685,8 @@ REPLACES = {
     "committee_ladder": "hotstuff_tpu/ops/ed25519.py:412",
     "h_digits_idx": "hotstuff_tpu/ops/ed25519.py:480",
     "reduce_mod_l": "hotstuff_tpu/ops/sha512.py:421",
+    "g1_aggregate": "hotstuff_tpu/ops/bls.py:297",
+    "bls_mont_mul": "hotstuff_tpu/ops/bls.py:180",
 }
 
 
@@ -2411,8 +2725,17 @@ def main() -> int:
 
     sidecar_backend = TorchBackend(device="cuda", crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
     sidecar = phase_sidecar(args.seed, sidecar_backend, committee_path, main_path["sigs_per_s"], card)
-    phase_committee_run(sidecar_backend, committee_path["qcs"], REPO / ".chip_smoke" / "committee")
+    committee_run = phase_committee_run(sidecar_backend, committee_path["qcs"], REPO / ".chip_smoke" / "committee")
     print(f"sidecar pipeline: {_pipeline_line(sidecar_backend._verifier)}", flush=True)
+    off_path = bls_off_path_errors({
+        "main path": main_path["launches"], "committee path": committee_path["launches"],
+        "sidecar": sidecar["launches"], "committee run": committee_run["launches"],
+        **{f"mesh {label} {leg}": m[leg] for label, m in mesh["meshes"].items()
+           for leg in ("launches", "committee_launches")},
+    })
+    if off_path:
+        fail(f"BLS kernels launched in phases 3-7: {off_path}")
+    bls_path = phase_bls(args.seed)
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -2428,6 +2751,19 @@ def main() -> int:
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,
             ))
+    # The BLS kernels run on no ed25519 path: their launches are phase 8's.
+    for name, res in bls_path["kernels"].items():
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
+            replaces=REPLACES[name], launches=bls_path["launches"][name],
+            sidecar_launches=sidecar["launches"][name],
+            mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
+                           for label, m in mesh["meshes"].items()},
+            matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
+            ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+            bound_by=res["bound_by"], library_ms=None, **res.get("extra", {}),
+        ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

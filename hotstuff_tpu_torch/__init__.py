@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the hotstuff_tpu accelerator path.
 
 The JAX package (`hotstuff_tpu`) runs batched ed25519 verification on a TPU;
-this package runs the same verification on an NVIDIA Hopper card with CUDA
-kernels written by hand (`ops/csrc/`), each held against a plain PyTorch
-version of the same arithmetic. It imports neither jax nor any module of
+this package runs the same verification, and the BLS12-381 key sums of
+aggregate certificates, on an NVIDIA Hopper card with CUDA kernels written
+by hand (`ops/csrc/`), each held against a plain PyTorch version of the
+same arithmetic. It imports neither jax nor any module of
 `hotstuff_tpu`: what it needs from there it keeps as its own trimmed copy.
 
 Entry points run on the card unless the caller asks for the CPU

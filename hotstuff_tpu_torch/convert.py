@@ -7,6 +7,15 @@ integer limbs of radix 2^25.5 (`ops/field.py`). Conversions go through the
 exact value of each column and reduce mod p, so any representative on
 either side converts to the same element. Tests use these to feed the
 same intermediates to both packages. numpy and torch only.
+
+BLS12-381 (`ops/bls.py`): the JAX package keeps an Fp residue as (32, B)
+uint32 digits of 12 bits, the port as (12, B) limbs of 32 bits (int32 bit
+patterns in tables and kernel outputs). Both are Montgomery residues with
+R = 2^384, so a residue is the same integer on both sides and converts by
+repacking its bits, unreduced: the reference's [0, 2p) values arrive as
+they are, and the plain field functions take them. The port's key table is
+(12, N) int32 limbs of mont(x) and mont(y) beside an (N,) bool `present`,
+the reference's layout with wider limbs.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops import bls
 from .ops import field as f
 
 
@@ -69,3 +79,49 @@ def committee_table_from_jax(ct) -> tuple[torch.Tensor, torch.Tensor, torch.Tens
 def digits_from_jax(digits: np.ndarray) -> torch.Tensor:
     """(64, B) f32 4-bit digits -> (64, B) uint8."""
     return torch.from_numpy(np.asarray(digits).astype(np.uint8))
+
+
+def _bls_repack(limbs: np.ndarray, bits_in: int, bits_out: int, n_out: int) -> list[list[int]]:
+    """(n_in, B) digits of `bits_in` -> B columns of n_out digits of
+    `bits_out`, the same integers."""
+    arr = np.asarray(limbs).astype(np.uint64)
+    out = []
+    for b in range(arr.shape[1]):
+        v = sum(int(arr[i, b]) << (bits_in * i) for i in range(arr.shape[0]))
+        assert v < 1 << (bits_out * n_out), "residue does not fit 384 bits"
+        out.append([(v >> (bits_out * i)) & ((1 << bits_out) - 1) for i in range(n_out)])
+    return out
+
+
+def bls_fe_from_jax(limbs: np.ndarray) -> torch.Tensor:
+    """(32, B) uint32 12-bit digits -> (12, B) int64 limbs of 32 bits, the
+    same integers (the plain field functions' operands)."""
+    return torch.tensor(_bls_repack(limbs, 12, 32, bls.NLIMB), dtype=torch.int64).reshape(-1, bls.NLIMB).T.contiguous()
+
+
+def bls_fe_to_jax(limbs: torch.Tensor) -> np.ndarray:
+    """(12, B) limbs (int64 values or int32 bit patterns) -> (32, B) uint32
+    12-bit digits, the same integers."""
+    vals = bls.from_i32(limbs).numpy()
+    return np.asarray(_bls_repack(vals, 32, 12, 32), np.uint32).T.reshape(32, -1)
+
+
+def bls_table_from_jax(tx, ty, present) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX `CommitteeTable`'s (32, N) `tx`, `ty` digits and (N,)
+    `present` -> the port's (12, N) int32 `tx`, `ty` and (N,) bool
+    `present`, as `ops/bls.py:CommitteeTable` holds them."""
+    return (bls.to_i32(bls_fe_from_jax(tx)), bls.to_i32(bls_fe_from_jax(ty)),
+            torch.from_numpy(np.asarray(present, bool).copy()))
+
+
+def bls_point_from_jax(pt) -> torch.Tensor:
+    """Jacobian (X, Y, Z), each (32, B) 12-bit digits (or one (3, 32, B)
+    array) -> (3, 12, B) int64 limbs, the plain point functions'
+    operands."""
+    return torch.stack([bls_fe_from_jax(c) for c in pt])
+
+
+def bls_point_to_jax(pt: torch.Tensor) -> np.ndarray:
+    """(3, 12, B) limbs (int64 values or int32 bit patterns) -> (3, 32, B)
+    uint32 12-bit digits."""
+    return np.stack([bls_fe_to_jax(c) for c in pt])

@@ -13,7 +13,8 @@ launches on the given stream, and returns `cudaGetLastError()`;
 `Kernel.launch` raises when that is not 0. There is no fallback: a kernel
 that does not build or launch is an error. A source may export more than
 one entry point (`h_digits.cu`: `hs_h_digits`, `hs_h_digits_idx` and the
-test entry `hs_reduce_mod_l`); each entry point is a `Kernel` with its own
+test entry `hs_reduce_mod_l`; `g1_aggregate.cu`: `hs_g1_aggregate` and the
+test entry `hs_bls_mont_mul`); each entry point is a `Kernel` with its own
 launch count.
 """
 
@@ -33,9 +34,9 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
-NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder")
+NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder", "g1_aggregate")
 # Entry points beyond `hs_<source name>`: kernel name -> its source.
-EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits"}
+EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits", "bls_mont_mul": "g1_aggregate"}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

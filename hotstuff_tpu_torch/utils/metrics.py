@@ -1,10 +1,13 @@
-"""In-process metrics registry for the port's verifier, batch service and
-scheduler.
+"""In-process metrics registry for the port's verifier, batch service,
+scheduler and BLS committee table.
 
 A trimmed copy of `hotstuff_tpu/utils/metrics.py`: only what
-`crypto/batch_service.py`, `crypto/scheduler.py` and the verifier's chunk
-loop (`ops/verifier.py`, `ops/pipeline.py`, `ops/timeline.py`) record into,
-and the `dump` / `reset` that read and clear it.
+`crypto/batch_service.py`, `crypto/scheduler.py`, the verifier's chunk
+loop (`ops/verifier.py`, `ops/pipeline.py`, `ops/timeline.py`) and the
+BLS committee table (`ops/bls.py`: `bls.table_builds`, `bls.aggregations`,
+`bls.points_aggregated`; the reference's `bls.host_fallbacks` has no
+counterpart, since the port has no host fallback) record into, and the
+`dump` / `reset` that read and clear it.
 
   * `counter(name)` / `gauge(name)` / `histogram(name)` — get-or-create
     metrics in a process-global registry. Counters are monotonic;
@@ -16,7 +19,7 @@ and the `dump` / `reset` that read and clear it.
     (the scheduler's `LaneStats`, the timeline's idle gaps).
 
 Metric names are the reference's (`scheduler.*`, `verifier.*`,
-`pipeline.*`, `timeline.*`), so a dump of either package reads the
+`pipeline.*`, `timeline.*`, `bls.*`), so a dump of either package reads the
 same. Every metric guards its state with its own lock: the service's
 dispatch threads, the pipeline's workers and the event loop record
 concurrently.

@@ -375,3 +375,74 @@ def test_phase_staging_on_cpu(monkeypatch, capsys):
         assert r["native"]["median_ms"] > 0 and r["numpy"]["median_ms"] > 0 and r["numpy_over_native"] > 0
     out = capsys.readouterr().out
     assert "native == numpy byte for byte" in out and "staging ms per 64-lane chunk" in out
+
+
+def _bls_pairs(n: int):
+    from hotstuff_tpu_torch.crypto import aggsig
+
+    scheme = aggsig.ExactBlsScheme()
+    return [scheme.keypair_from_seed(b"bls %d" % i) for i in range(n)]
+
+
+def test_bls_corpus_and_bound_count():
+    """Phase 8's tables and rows: the special lanes hold what they claim
+    (each key is its secret times the generator), the rows are the edge
+    rows then quorums of floor(2n/3) + 1, and the bound counts one mixed add
+    per member beyond a row's first, the undecodable lane left out."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto import aggsig
+    from hotstuff_tpu_torch.ops import bls
+
+    for n in (4, 40):
+        keys, sks, lanes = chip_smoke.bls_table_keys(_bls_pairs(n), n)
+        assert len(keys) == len(sks) == n and sks[-1] is None
+        with pytest.raises(ValueError):
+            aggsig.decompress_g1(keys[-1])
+        for k, sk in zip(keys[:-1], sks[:-1]):
+            assert k == aggsig.compress_g1(aggsig._FP_OPS.mul_affine(aggsig.G1_GEN, sk))
+        a, b = lanes["dup"]
+        assert keys[a] == keys[b] and b == n - 3
+        a, b = lanes["inverse"]
+        assert aggsig.decompress_g1(keys[b]) == aggsig._g1_neg(aggsig.decompress_g1(keys[a]))
+        assert ("dup_one_partial" in lanes) == (n > bls.THREADS + 2)
+        masks, labels = chip_smoke.bls_rows(0, n, lanes, 12)
+        assert labels[:3] == ["empty", "all", "single"] and masks.shape == (12, n)
+        assert masks[0].sum() == 0 and masks[1].all() and masks[2].sum() == 1
+        for r, name in enumerate(labels[3:], 3):
+            assert np.flatnonzero(masks[r]).tolist() == sorted(lanes[name])
+        assert all(masks[r].sum() == 2 * n // 3 + 1 for r in range(len(labels), 12))
+        present = np.array([sk is not None for sk in sks])
+        moved, ops = chip_smoke.bls_bound(masks, present)
+        members = [int((row & present).sum()) for row in masks]
+        assert ops == sum(max(m - 1, 0) for m in members) * 11 * 300
+        assert moved == 12 * n + n * 97 + 12 * 144
+
+
+def test_bls_off_path_errors():
+    ok = {"main path": {"g1_aggregate": 0, "bls_mont_mul": 0, "ladder": 4}}
+    assert chip_smoke.bls_off_path_errors(ok) == []
+    bad = {"sidecar": {"g1_aggregate": 2, "bls_mont_mul": 0}}
+    assert chip_smoke.bls_off_path_errors(bad) == ["sidecar: g1_aggregate launched 2 times"]
+
+
+def test_phase_bls_on_cpu(small_smoke, monkeypatch, capsys):
+    """Phase 8 at 4 and 16 validators, 8 rows, `verify_aggregate` at 16:
+    the corpus, the exact fold in the spawn pool, the verdicts and the
+    comparisons (both sides plain here) and the result rows."""
+    monkeypatch.setattr(chip_smoke, "BLS_SIZES", (4, 16))
+    monkeypatch.setattr(chip_smoke, "BLS_ROWS", 8)
+    monkeypatch.setattr(chip_smoke, "BLS_VERIFY_SIZES", (16,))
+    monkeypatch.setattr(chip_smoke, "BLS_POOL", 2)
+    res = small_smoke.phase_bls(0, "cpu")
+    assert set(res["kernels"]) == {"g1_aggregate", "bls_mont_mul"}
+    for name, row in res["kernels"].items():
+        assert ROW_KEYS <= set(row), name
+        assert row["max_abs_err"] == 0 and row["bound_ms"] > 0, name
+    assert res["kernels"]["g1_aggregate"]["bound_by"] == "operations"
+    assert set(res["kernels"]["g1_aggregate"]["extra"]["table_build_s"]) == {4, 16}
+    out = capsys.readouterr().out
+    assert "every affine sum equals the exact add_affine fold at N = [4, 16]" in out
+    assert "verify_aggregate verdicts {16: [True, False, False, False]} as expected" in out
+    assert "limbs identical to the plain version at N = [4, 16] with B = 8 and B = 1" in out
+    assert "bls_mont_mul: kernel equals the plain mont_mul and Python ints on 4096 pairs" in out

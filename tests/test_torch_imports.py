@@ -15,7 +15,7 @@ import torch
 import hotstuff_tpu_torch
 from hotstuff_tpu_torch import resolve_device
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
-from hotstuff_tpu_torch.ops import _build, committee, ladder, sha512
+from hotstuff_tpu_torch.ops import _build, bls, committee, ladder, sha512
 from hotstuff_tpu_torch.ops import ed25519 as ted
 
 REPO = Path(__file__).resolve().parents[1]
@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.utils.actors", "hotstuff_tpu_torch.utils.logging",
                 "hotstuff_tpu_torch.ops.pipeline", "hotstuff_tpu_torch.ops.timeline",
                 "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh",
-                "hotstuff_tpu_torch.crypto.native_staging"):
+                "hotstuff_tpu_torch.crypto.native_staging", "hotstuff_tpu_torch.ops.bls",
+                "hotstuff_tpu_torch.crypto.aggsig"):
         assert mod in res["modules"]
 
 
@@ -81,6 +82,24 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
     table = ted.CommitteeTable([bytes(32)] * 3)  # tables on the CPU, digits elsewhere
     with pytest.raises(ValueError, match="expected a tensor on"):
         committee.committee_ladder(meta(64, 8), meta(64, 8), table, meta(8, dtype=torch.int32))
+    assert _build.launches() == {name: 0 for name in _build.KERNELS}
+
+
+def test_bls_table_has_no_host_fallback(monkeypatch):
+    """Without a card, a `CommitteeTable` that asks for one (the default)
+    raises, where the reference's degrades to its exact-integer host fold;
+    a table given `device="cpu"` runs the plain version. A mask off the CPU
+    goes to kernel K6's checks, never to the plain version or a fold."""
+    keys = [bls.aggsig.ExactBlsScheme().keypair_from_seed(b"\x01" * 32)[0]] * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bls.CommitteeTable(keys)
+    assert bls.CommitteeTable(keys, device="cpu").aggregate_bitmaps([0b11])[0] is not None
+    meta = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        bls.g1_aggregate(meta(12, 2), meta(12, 2), meta(2, dtype=torch.bool), meta(4, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        bls.mont_mul_device(meta(12, 4), meta(12, 4))
     assert _build.launches() == {name: 0 for name in _build.KERNELS}
 
 
