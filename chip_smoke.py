@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
-     ptxas reports spill bytes for either ladder kernel, K3, K4 or K2 / K2g
-     (K6's ptxas line is printed, not gated);
+     ptxas reports spill bytes for either ladder kernel, K3, K4, K2 / K2g
+     or K7 (K6's ptxas line is printed, not gated);
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at 4,096 lanes, exactly (integer outputs, tolerance 0); K3
      `decompress_table` (raw limbs and valid, on random and special keys),
@@ -147,6 +147,29 @@ caught:
      `aggregate_masks`' wall split into the kernel and the host's affine
      conversion, the table builds and `verify_aggregate`'s split into
      aggregation and pairing. Fails on any difference, never on speed.
+  9. the f32-argument path (`packed=False`): K7 `bit_ladder` against its
+     plain version on the same CUDA tensors (random bits, K3's table of
+     random keys) at widths 7, 1,000, 4,096 and 8,192 (max_bucket, the
+     width of the f32 path's pieces), exactly (raw limbs, tolerance 0),
+     timed at 128, 4,096 and 8,192 lanes with its ptxas line (registers,
+     stack, spills), its bound from this run's bits and its share; then
+     phase 3's 16,384-lane batch through
+     `Ed25519TorchVerifier(device="cuda", kernel=k, packed=False)` for k in
+     bits, w4 and pallas (max_bucket 8,192: two pieces): each mask must
+     equal phase 3's expected mask, each counted run must launch exactly
+     K3, K7 (bits) or K1 (w4, pallas) and K4 once per piece, and a traced
+     batch of each must put nothing on the default stream (a trace that
+     holds fewer of those launches than the run made is retried, and its
+     busy share is dropped if none holds them all); each leg's
+     sigs/s is printed beside phase 3's packed rate. Signatures with s +
+     2^253 must give the raw masks the reference's give (bits True, w4
+     False). Last, `sharded_verify` on the 1-GPU mesh and on virtual meshes
+     of 2 and 4 shards on `cuda:0` (bits and w4, one 8,192-lane piece) must
+     give the single-device mask with `n_valid` its sum before s < L, and
+     `ShardedEd25519TorchVerifier(packed=False, kernel="bits")` on each
+     mesh the expected mask, with K3, K7 and K4 launched pieces x shards
+     times each (the K7 row's `mesh_launches`). Phases 2-8 must launch K7
+     0 times.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
 Exits non-zero without a result when no CUDA device is available or the
@@ -652,7 +675,8 @@ def _host_hash_batch(pool):
 
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
-NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits")  # ptxas: 0 spill bytes
+NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits",
+            "bit_ladder")  # ptxas: 0 spill bytes
 
 
 def phase_main_path(seed: int) -> dict:
@@ -2677,6 +2701,263 @@ def bls_off_path_errors(launch_sets: dict) -> list[str]:
             for k in ("g1_aggregate", "bls_mont_mul") if d.get(k)]
 
 
+# --- phase 9: the f32-argument path and kernel K7 ----------------------------
+
+F32_WIDTHS = (7, 1000)  # K7 against its plain version at these widths beside LANES and MAX_BUCKET
+F32_KERNELS = ("bits", "w4", "pallas")
+F32_MESH_KERNELS = ("bits", "w4")
+F32_ITERS = 3  # timed batches per flavour
+F32_TRACE_TRIES = 3  # traced batches per flavour until one trace holds every launch
+F32_HIGH_S = 8  # valid signatures given s + 2^253
+F32_LEG_KERNELS = {
+    "bits": ("decompress_table", "bit_ladder", "compress_eq"),
+    "w4": ("decompress_table", "ladder", "compress_eq"),
+    "pallas": ("decompress_table", "ladder", "compress_eq"),
+}
+# K7's limb products (csrc/bit_ladder.cu), one IMAD.WIDE each: a doubling
+# is 4 squares (55 products) and 4 products (100); a mixed add 7 products.
+# Every lane doubles 253 times; the function adds B or -A only where a bit
+# is set, so the bound counts this run's set bits (a warp issues an add
+# whenever any of its lanes has the bit set: about every step).
+BIT_DBL_PRODUCTS = 4 * 55 + 4 * 100
+BIT_MADD_PRODUCTS = 7 * 100
+
+
+def bit_ladder_bound(s_bits, h_bits) -> tuple[int, int]:
+    """(bytes, operations) K7's function needs on these bits: both bit rows,
+    -A's three precomp coordinates (entry 1 of the table), B's and the
+    (4, 10) point written; the doublings of every lane and a mixed add per
+    set bit."""
+    from hotstuff_tpu_torch.ops import field
+
+    lanes, nl = s_bits.shape[1], field.NL
+    set_bits = int(s_bits.sum()) + int(h_bits.sum())
+    ops = lanes * s_bits.shape[0] * BIT_DBL_PRODUCTS + set_bits * BIT_MADD_PRODUCTS
+    return lanes * (2 * s_bits.shape[0] + 3 * nl * 4 + 4 * nl * 4) + 3 * nl * 4, ops
+
+
+def ptxas_numbers(text: str) -> dict:
+    """Registers, stack frame bytes and spill bytes of a ptxas -v report."""
+    from hotstuff_tpu_torch.ops import _build
+
+    regs = re.findall(r"Used (\d+) registers", text)
+    stack = re.findall(r"(\d+) bytes stack frame", text)
+    return dict(registers=max(map(int, regs), default=None), stack=max(map(int, stack), default=None),
+                spills=_build.spill_bytes(text))
+
+
+def traced_launches(tr: dict, names) -> dict:
+    """Launches of each named hand-written kernel in a read trace
+    (`breakdown.read_device_trace`'s `kernel_counts`), by the CUDA symbol
+    `<name>_kernel(` of each, in or out of a namespace."""
+    pats = {n: re.compile(rf"(?:^|::|\s){n}_kernel\(") for n in names}
+    return {n: sum(c for k, c in tr["kernel_counts"].items() if p.search(k)) for n, p in pats.items()}
+
+
+def high_s_batch(batch, n: int):
+    """The first n valid signatures of the batch with s + 2^253 (bits 0..252
+    still s)."""
+    import numpy as np
+
+    M, K, S, expected = batch
+    idx = np.flatnonzero(expected)[:n]
+    high = [S[i][:32] + (int.from_bytes(S[i][32:], "little") + 2**253).to_bytes(32, "little") for i in idx]
+    return [M[i] for i in idx], [K[i] for i in idx], high
+
+
+def phase_bit_ladder(seed: int, device: str = "cuda") -> dict:
+    """Phase 9's first step: K7 against its plain version on random bits and
+    K3's table of random keys, exactly, at the widths of F32_WIDTHS, at
+    LANES and at MAX_BUCKET (the f32 path's pieces run K7 at MAX_BUCKET
+    lanes), then its times, bound and ptxas. The row's numbers are those at
+    LANES; `extra` holds those at 128 lanes and at MAX_BUCKET."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import queued_ms
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.ops import bit_ladder as bl
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 9)
+    width = max(LANES, MAX_BUCKET)
+    keys = torch.from_numpy(rng.integers(0, 256, (32, width), np.uint8)).to(dev)
+    table, _ = ed.decompress_table(keys)
+    sb = torch.from_numpy(rng.integers(0, 2, (ed.SCALAR_BITS, width), np.uint8)).to(dev)
+    hb = torch.from_numpy(rng.integers(0, 2, (ed.SCALAR_BITS, width), np.uint8)).to(dev)
+    full = bl.bit_ladder(sb, hb, table)
+    widths = sorted({w for w in F32_WIDTHS if w < width} | {LANES, MAX_BUCKET})
+    at = {}  # width -> (args, plain ms, max |diff|)
+    for w in widths:
+        args = (_cut(sb, w), _cut(hb, w), _cut(table, w))
+        got = bl.bit_ladder(*args)
+        plain_ms, want = _plain_ms(lambda: bl.bit_ladder_plain(*args))
+        err = _max_abs(got, want)
+        if err != 0 or not torch.equal(got, _cut(full, w)):
+            fail(f"K7 bit_ladder differs from its plain version at width {w} (max |diff| {err})")
+        at[w] = (args, plain_ms, err)
+    w_small = min(128, LANES)
+    small = (_cut(sb, w_small), _cut(hb, w_small), _cut(table, w_small))
+    ms_small = queued_ms(lambda: bl.bit_ladder(*small), 20)
+    timed = {}
+    for w in (LANES, MAX_BUCKET):
+        args, plain_ms, err = at[w]
+        bytes_moved, ops = bit_ladder_bound(*args[:2])
+        bound_ms, bound_by = _bound_ms(bytes_moved, ops)
+        ms = queued_ms(lambda: bl.bit_ladder(*args), 5)
+        timed[w] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bytes=bytes_moved, ops=ops,
+                        bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms if ms else 0.0)
+    res, wide = dict(timed[LANES]), timed[MAX_BUCKET]
+    ptxas = ptxas_numbers(_build.ptxas_report().get("bit_ladder", ""))
+    print(f"K7: raw limbs identical to the plain version at widths {widths}; {ms_small:.4f} ms at {w_small} "
+          f"lanes, {res['ms']:.4f} ms at {LANES}, {wide['ms']:.4f} ms at {MAX_BUCKET}; plain "
+          f"{res['plain_ms']:.1f} ms at {LANES}, {wide['plain_ms']:.1f} ms at {MAX_BUCKET}; bound at {LANES} "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {res['ops']} products, {res['bytes']} bytes), "
+          f"{100 * res['share']:.1f}% of it; at {MAX_BUCKET} {wide['bound_ms']:.4f} ms, "
+          f"{100 * wide['share']:.1f}%; ptxas {ptxas}", flush=True)
+    res["extra"] = dict(ms_128=ms_small, share=res.pop("share"), **{f"{k}_{MAX_BUCKET}": wide[k] for k in (
+        "ms", "plain_ms", "bound_ms", "share")}, **ptxas)
+    return res
+
+
+def phase_f32(seed: int, batch, device: str = "cuda") -> dict:
+    """Phase 9 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import device_trace
+    from hotstuff_tpu_torch.ops import _build, ladder
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+    from hotstuff_tpu_torch.parallel import ShardedEd25519TorchVerifier, sharded_verify
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    res = phase_bit_ladder(seed, device)
+
+    # The f32 path on phase 3's batch, each flavour: the counted run, timed
+    # batches, one traced batch.
+    M, K, S, expected = batch
+    rates, leg_launches, traced = {}, {}, {}
+    for k in F32_KERNELS:
+        v = Ed25519TorchVerifier(device=device, kernel=k, packed=False, max_bucket=MAX_BUCKET, chunk=CHUNK)
+        try:
+            _build.reset_launches()
+            mask = v.verify_batch_mask(M, K, S)
+            launches = _build.launches()
+            pieces = -(-len(M) // v.max_bucket)
+            want = {name: pieces if name in F32_LEG_KERNELS[k] else 0 for name in launches}
+            if device == "cuda" and launches != want:
+                fail(f"f32 path {k}: launches {launches}, expected {want}")
+            if mask.tolist() != np.asarray(expected).tolist():
+                bad = np.flatnonzero(mask != np.asarray(expected))
+                fail(f"f32 path {k}: mask differs from expected on {len(bad)} lanes, e.g. {bad[:8].tolist()}")
+            times = []
+            for _ in range(F32_ITERS):
+                t0 = time.perf_counter()
+                again = v.verify_batch_mask(M, K, S)
+                times.append(time.perf_counter() - t0)
+                if not np.array_equal(again, mask):
+                    fail(f"f32 path {k}: mask changed between batches")
+            # The profiler may lose a piece's events: a trace whose
+            # kernels fall short of the counted launches is read only for
+            # its streams; its busy share is not kept.
+            for attempt in range(1, F32_TRACE_TRIES + 1 if device == "cuda" else 0):
+                out = []
+                tr = device_trace(lambda: out.append(v.verify_batch_mask(M, K, S)),
+                                  REPO / ".chip_smoke" / f"trace_f32_{k}.json")
+                if not np.array_equal(out[0], mask) or tr["on_default_stream"]:
+                    fail(f"f32 path {k}: traced batch changed its mask or put work on the default stream ({tr})")
+                seen = traced_launches(tr, F32_LEG_KERNELS[k])
+                traced[k] = dict(launches_seen=seen, tries=attempt, **{key: tr[key] for key in (
+                    "busy_share", "device_ms", "device_ms_sum", "wall_ms", "kernels", "streams")},
+                    device_ms_by_name={n[:48]: ms for n, ms in tr["device_ms_by_name"].items()})
+                if seen == {name: pieces for name in F32_LEG_KERNELS[k]}:
+                    break
+            else:
+                if device == "cuda":
+                    traced[k] = dict(incomplete=True, launches_seen=traced[k]["launches_seen"],
+                                     streams=traced[k]["streams"])
+        finally:
+            v.close()
+        rates[k] = len(M) * F32_ITERS / sum(times)
+        leg_launches[k] = launches
+        print(f"f32 path {k}: {len(M)} signatures in {pieces} pieces, mask == expected, launches "
+              f"{ {n: c for n, c in launches.items() if c} }; {rates[k]:.1f} sigs/s (host clock, "
+              f"{F32_ITERS} batches; per batch {[round(t * 1e3, 3) for t in times]} ms); "
+              f"traced {traced.get(k)}", flush=True)
+
+    # s + 2^253: bits 0..252 are s, so the bit ladder's raw mask is True
+    # and the digit ladder's False, as the reference's; s < L fails both.
+    hm, hk, hs = high_s_batch(batch, F32_HIGH_S)
+    staged = ed.prepare_batch(hm, hk, hs, want_bits=True)
+    raw = {k: ladder.verify_args(*(torch.from_numpy(a).to(dev) for a in ed.kernel_args(staged, len(hm), k)),
+                                 kernel=k).cpu().tolist() for k in ("bits", "w4")}
+    if raw != {"bits": [True] * len(hm), "w4": [False] * len(hm)} or staged["s_ok"].any():
+        fail(f"s + 2^253 lanes: raw masks {raw}, s_ok {staged['s_ok'].tolist()}")
+
+    # Where one piece's time goes, per flavour, host clock: staging
+    # (`prepare_batch` and `kernel_args`), upload, then K3, the ladder and
+    # K4 with the mask read back.
+    piece = min(len(M), MAX_BUCKET)
+    split = {}
+    for k in F32_MESH_KERNELS:
+        t0 = time.perf_counter()
+        args = ed.kernel_args(ed.prepare_batch(M[:piece], K[:piece], S[:piece], want_bits=k == "bits"), piece, k)
+        t1 = time.perf_counter()
+        args = [torch.from_numpy(a).to(dev) for a in args]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ladder.verify_args(*args, kernel=k).cpu()
+        split[k] = dict(stage_ms=(t1 - t0) * 1e3, upload_ms=(t2 - t1) * 1e3,
+                        kernels_and_readback_ms=(time.perf_counter() - t2) * 1e3)
+    print(f"f32 piece of {piece} lanes, host clock: {split}", flush=True)
+
+    # sharded_verify on the meshes against the single-device mask.
+    staged = ed.prepare_batch(M[:piece], K[:piece], S[:piece], want_bits=True)
+    mesh_res = {}
+    for k in F32_MESH_KERNELS:
+        args = [torch.from_numpy(a).to(dev) for a in ed.kernel_args(staged, piece, k)]
+        single = ladder.verify_args(*args, kernel=k)
+        for label, mesh in meshes(device).items():
+            mask, n_valid = sharded_verify(mesh, *args, kernel=k)
+            if not torch.equal(mask.cpu(), single.cpu()) or int(n_valid) != int(single.sum()):
+                fail(f"sharded_verify {k} on mesh {label}: mask or n_valid ({int(n_valid)}) differs from the "
+                     f"single-device mask (sum {int(single.sum())})")
+            mesh_res[f"{k} {label}"] = int(n_valid)
+    mesh_launches = {}
+    for label, mesh in meshes(device).items():
+        v = ShardedEd25519TorchVerifier(mesh=mesh, kernel="bits", packed=False, max_bucket=MAX_BUCKET, chunk=CHUNK)
+        try:
+            _build.reset_launches()
+            mask = v.verify_batch_mask(M, K, S)
+            launches = _build.launches()
+            pieces = -(-len(M) // v.max_bucket)
+        finally:
+            v.close()
+        want = {name: pieces * mesh.size if name in F32_LEG_KERNELS["bits"] else 0 for name in launches}
+        if device == "cuda" and launches != want:
+            fail(f"mesh {label} f32 bits: launches {launches}, expected {want}")
+        if mask.tolist() != np.asarray(expected).tolist():
+            fail(f"mesh {label} f32 bits: mask differs from expected")
+        mesh_launches[label] = launches["bit_ladder"]
+    print(f"f32 mesh: sharded_verify n_valid {mesh_res} equal to the single-device mask's sums over "
+          f"{piece} lanes; ShardedEd25519TorchVerifier(packed=False, kernel='bits') on meshes "
+          f"{list(meshes(device))}: masks == expected; s + 2^253 raw masks {raw}; "
+          f"phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    res["extra"].update(f32_sigs_per_s=rates, traced=traced, f32_piece_split=split)
+    return dict(kernel=res, launches=leg_launches["bits"], rates=rates, leg_launches=leg_launches,
+                mesh_launches=mesh_launches)
+
+
+def k7_off_path_errors(launch_sets: dict) -> list[str]:
+    """Where a phase before phase 9 launched K7."""
+    return [f"{label}: bit_ladder launched {d['bit_ladder']} times"
+            for label, d in launch_sets.items() if d.get("bit_ladder")]
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
@@ -2687,6 +2968,7 @@ REPLACES = {
     "reduce_mod_l": "hotstuff_tpu/ops/sha512.py:421",
     "g1_aggregate": "hotstuff_tpu/ops/bls.py:297",
     "bls_mont_mul": "hotstuff_tpu/ops/bls.py:180",
+    "bit_ladder": "hotstuff_tpu/ops/ed25519.py:599",
 }
 
 
@@ -2736,6 +3018,17 @@ def main() -> int:
     if off_path:
         fail(f"BLS kernels launched in phases 3-7: {off_path}")
     bls_path = phase_bls(args.seed)
+    k7_off = k7_off_path_errors({
+        "main path": main_path["launches"], "committee path": committee_path["launches"],
+        "sidecar": sidecar["launches"], "committee run": committee_run["launches"], "BLS": bls_path["launches"],
+        "since the BLS phase's reset": {"bit_ladder": _build.KERNELS["bit_ladder"].launches},
+        **{f"mesh {label} {leg}": m[leg] for label, m in mesh["meshes"].items()
+           for leg in ("launches", "committee_launches")},
+    })
+    if k7_off:
+        fail(f"K7 launched in phases 2-8: {k7_off}")
+    f32 = phase_f32(args.seed, main_path["batch"])
+    print(f"f32 path sigs/s {f32['rates']} beside phase 3's packed path {main_path['sigs_per_s']:.1f}", flush=True)
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -2764,6 +3057,16 @@ def main() -> int:
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res.get("extra", {}),
         ))
+    res = f32["kernel"]
+    rows.append(dict(
+        name="bit_ladder", route="cuda", source="hotstuff_tpu_torch/ops/csrc/bit_ladder.cu",
+        replaces=REPLACES["bit_ladder"], launches=f32["launches"]["bit_ladder"],
+        sidecar_launches=sidecar["launches"]["bit_ladder"],
+        mesh_launches=f32["mesh_launches"],  # phase 9's ShardedEd25519TorchVerifier(packed=False) runs
+        matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
+        ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+        bound_by=res["bound_by"], library_ms=None, **res["extra"],
+    ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

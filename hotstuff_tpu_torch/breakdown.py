@@ -183,7 +183,8 @@ def read_device_trace(trace: dict, wall_s: float) -> dict:
     """The device's kernels and copies in a Chrome trace: the union of their
     intervals (`device_ms`) over `wall_s` (`busy_share`), their summed
     durations (`device_ms_sum`, larger than the union where streams
-    overlap), the count of events per stream id, and the events on the
+    overlap), the count of events per stream id and of kernels per name
+    (`kernel_counts`), and the events on the
     default stream, whose id is the spin kernels' (`device_trace`'s
     markers, left out of every other number). Raises when no marker is
     there."""
@@ -205,9 +206,12 @@ def read_device_trace(trace: dict, wall_s: float) -> dict:
             end = t1
     streams: dict[str, int] = {}
     by_name: dict[str, float] = {}
+    counts: dict[str, int] = {}
     for e in work:
         streams[str(stream(e))] = streams.get(str(stream(e)), 0) + 1
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0)) / 1e3
+        if e["cat"] == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
     on_default = sorted({e["name"] for e in work if stream(e) == default})
     return {
         "wall_ms": wall_s * 1e3,
@@ -220,6 +224,7 @@ def read_device_trace(trace: dict, wall_s: float) -> dict:
         "on_default_stream": sum(stream(e) == default for e in work),
         "on_default_names": on_default[:8],
         "device_ms_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
+        "kernel_counts": counts,
     }
 
 

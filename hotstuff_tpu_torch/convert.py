@@ -8,6 +8,10 @@ exact value of each column and reduce mod p, so any representative on
 either side converts to the same element. Tests use these to feed the
 same intermediates to both packages. numpy and torch only.
 
+The f32-argument form (`kernel_args_from_jax`): the reference keeps the
+verifier's separate arguments as float32 arrays of byte, digit and bit
+values; the port keeps the same values as uint8.
+
 BLS12-381 (`ops/bls.py`): the JAX package keeps an Fp residue as (32, B)
 uint32 digits of 12 bits, the port as (12, B) limbs of 32 bits (int32 bit
 patterns in tables and kernel outputs). Both are Montgomery residues with
@@ -79,6 +83,22 @@ def committee_table_from_jax(ct) -> tuple[torch.Tensor, torch.Tensor, torch.Tens
 def digits_from_jax(digits: np.ndarray) -> torch.Tensor:
     """(64, B) f32 4-bit digits -> (64, B) uint8."""
     return torch.from_numpy(np.asarray(digits).astype(np.uint8))
+
+
+def kernel_args_from_jax(args, kernel: str = "w4") -> tuple[torch.Tensor, ...]:
+    """The reference's f32 `kernel_args` tuple (a_y (32, W), a_sign (W,),
+    r_enc (32, W), s and h as (64, W) digits or, for `kernel="bits"`,
+    (253, W) bits; float32 arrays of exact small integers) -> the port's
+    uint8 tensors of `ladder.verify_args`, the same values."""
+    rows = 253 if kernel == "bits" else 64
+    out = []
+    for a, want in zip(args, (32, None, 32, rows, rows)):
+        arr = np.asarray(a)
+        u8 = arr.astype(np.uint8)
+        if not np.array_equal(u8, arr) or (want is not None and arr.shape[0] != want):
+            raise ValueError(f"not a {kernel} kernel argument of exact bytes: shape {arr.shape}")
+        out.append(torch.from_numpy(u8))
+    return tuple(out)
 
 
 def _bls_repack(limbs: np.ndarray, bits_in: int, bits_out: int, n_out: int) -> list[list[int]]:

@@ -34,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
-NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder", "g1_aggregate")
+NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder", "g1_aggregate", "bit_ladder")
 # Entry points beyond `hs_<source name>`: kernel name -> its source.
 EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits", "bls_mont_mul": "g1_aggregate"}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

@@ -21,6 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..crypto import native_staging
 from . import _build
 from . import field as f
 from .sha512 import h_digits, nibble_rows
@@ -452,6 +453,85 @@ def prepare_batch_packed_dh(
     m = np.frombuffer(b"".join(messages), np.uint8).reshape(len(messages), 32)
     packed = np.ascontiguousarray(np.vstack([a.T, r.T, s.T, m.T]))
     return dict(packed=packed, s_ok=_s_canonical_mask(s))
+
+
+# The f32-argument form (`packed=False`): the reference's `prepare_batch`
+# arrays (hotstuff_tpu/ops/ed25519.py:644-689), as uint8 with the same
+# values instead of float32. It is derived from the host-hash wire rows.
+
+SCALAR_BITS = 253
+
+
+def _digits(b: np.ndarray) -> np.ndarray:
+    """(32, B) u8 -> (64, B) u8 4-bit digits, row d of significance 16^d
+    (the reference's `_nibbles`, :810-817)."""
+    return np.stack((b & 0x0F, b >> 4), axis=1).reshape(2 * b.shape[0], b.shape[1])
+
+
+_BIT_SHIFTS = np.arange(8, dtype=np.uint8)[:, None]
+
+
+def _bits(b: np.ndarray) -> np.ndarray:
+    """(32, B) u8 -> (253, B) u8 bits, row i = bit i (the reference's
+    `unpackbits(..., bitorder="little")[:253]`, :685-686); shifts, which
+    take a fraction of `np.unpackbits`' time along the byte axis."""
+    return ((b[:, None, :] >> _BIT_SHIFTS) & 1).reshape(8 * b.shape[0], b.shape[1])[:SCALAR_BITS]
+
+
+def f32_form(packed: np.ndarray, s_ok: np.ndarray, want_bits: bool = False) -> dict:
+    """(128, B) host-hash wire rows (A, R, S, h) and the s < L mask -> the
+    f32-form arrays: a_y (32, B) key bytes with row 31 & 0x7F, a_sign (B,),
+    r_enc (32, B), s_digits and h_digits (64, B), s_ok (B,) bool and, with
+    `want_bits`, s_bits and h_bits (253, B), row i = bit i. All uint8."""
+    a, r, s, h = packed[0:32], packed[32:64], packed[64:96], packed[96:128]
+    a_y = a.copy()
+    a_y[31] &= 0x7F
+    staged = dict(a_y=a_y, a_sign=a[31] >> 7, r_enc=r.copy(), s_digits=_digits(s), h_digits=_digits(h),
+                  s_ok=np.asarray(s_ok, bool))
+    if want_bits:
+        staged["s_bits"], staged["h_bits"] = _bits(s), _bits(h)
+    return staged
+
+
+def prepare_batch(
+    messages: Sequence[bytes],
+    keys: Sequence[bytes],
+    signatures: Sequence[bytes],
+    want_bits: bool = False,
+    staging: str = "native",
+) -> dict:
+    """f32-form staging of a batch (the reference's `prepare_batch`): the
+    host-hash wire rows from the native plane's `stage_packed_hh`, one call
+    (`staging="native"`), or from `prepare_batch_packed` (`"numpy"`), then
+    `f32_form`. The reference's native `stage_batch` is not carried over."""
+    n = len(messages)
+    if staging == "native":
+        out = np.empty((1, 128, n), np.uint8)
+        staged = native_staging.stage_packed_hh(messages, keys, signatures, out, n, 1)
+        packed = out[0]
+    elif staging == "numpy":
+        staged = prepare_batch_packed(messages, keys, signatures)
+        packed = staged["packed"]
+    else:
+        raise ValueError(f"staging must be native or numpy, got {staging!r}")
+    return f32_form(packed, staged["s_ok"], want_bits)
+
+
+def _pad(arr: np.ndarray, width: int) -> np.ndarray:
+    """`arr` zero-padded on its last axis to `width` lanes (the reference's
+    `_pad`)."""
+    pad = width - arr.shape[-1]
+    if pad == 0:
+        return arr
+    return np.pad(arr, [(0, 0)] * (arr.ndim - 1) + [(0, pad)])
+
+
+def kernel_args(staged: dict, width: int, kernel: str = "w4") -> tuple:
+    """Padded arguments of `ladder.verify_args` for the kernel flavour
+    (:1300-1310): (a_y, a_sign, r_enc, s, h), s and h as bits for "bits",
+    as digits for "w4" and "pallas"."""
+    scalars = ("s_bits", "h_bits") if kernel == "bits" else ("s_digits", "h_digits")
+    return tuple(_pad(staged[k], width) for k in ("a_y", "a_sign", "r_enc", *scalars))
 
 
 # Committee wire format: (96, B) uint8 rows 0-31 = R, 32-63 = S, 64-95 = h

@@ -20,6 +20,11 @@ import torch
 from . import _build
 from . import ed25519 as ed
 from . import field as f
+from .bit_ladder import bit_ladder
+
+# The f32-argument path's ladder flavours: K1 on 4-bit digits stands in for
+# both the reference's jnp w4 ladder and its Pallas ladder; K7 on bits.
+KERNEL_FLAVOURS = ("w4", "pallas", "bits")
 
 
 def ladder_plain(s_digits: torch.Tensor, h_digits_: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -67,6 +72,25 @@ def verify_unpacked(a_bytes, r_bytes, s_digits, h_digits_) -> torch.Tensor:
     table, valid = ed.decompress_table(a_bytes)
     point = ladder(s_digits, h_digits_, table)
     return ed.compress_eq(point, r_bytes, valid)
+
+
+def verify_args(a_y, a_sign, r_enc, s, h, kernel: str = "w4") -> torch.Tensor:
+    """The f32-argument verification (`_verify_jit_args`,
+    hotstuff_tpu/ops/ed25519.py:1313-1321; `_kernel_fn`,
+    hotstuff_tpu/parallel/mesh.py:88-93) on the port's uint8 arguments
+    (`ed.kernel_args`): (32, B) key y bytes with row 31 & 0x7F, (B,) sign of
+    x, (32, B) R bytes, and s and h as (64, B) 4-bit digits (`kernel="w4"`
+    or `"pallas"`) or (253, B) bits (`kernel="bits"`). The key bytes are
+    rebuilt with the sign in bit 255, then K3 decompresses them and builds
+    the -A table, K1 (digits) or K7 (bits) runs the ladder and K4 compares
+    the encoding with R. Returns the (B,) bool device mask, before the host
+    s < L check."""
+    if kernel not in KERNEL_FLAVOURS:
+        raise ValueError(f"kernel must be one of {KERNEL_FLAVOURS}, got {kernel!r}")
+    a_bytes = torch.cat((a_y[:31], (a_y[31] | a_sign.to(torch.uint8) << 7)[None]))
+    table, valid = ed.decompress_table(a_bytes)
+    point = (bit_ladder if kernel == "bits" else ladder)(s, h, table)
+    return ed.compress_eq(point, r_enc, valid)
 
 
 def verify_packed128(packed: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,23 @@ out in a pooled (shards, rows, W / shards) buffer, so each shard uploads one
 contiguous block, and shard s writes lanes [s W / shards, (s + 1) W /
 shards) of the chunk's pooled mask buffer.
 
+Kernel flavours (`kernel=`, as the reference's `:882-900`): "w4" (the
+default), "pallas" and "bits". The packed paths above run K1 for every
+flavour: the port's K1 stands in for both the jnp w4 ladder and the Pallas
+ladder, and the reference's `_packed_fn` (`:1125-1130`) gives the packed w4
+kernel to every flavour but "pallas", so `kernel="bits", packed=True` runs
+K1 too. "pallas" keeps the reference's buckets: multiples of its 256-lane
+Pallas block. `packed` defaults to `kernel != "bits"`.
+
+`packed=False` is the f32-argument path (`:1154-1163`, `_run_chunk`
+`:1273-1297`): the batch is split at `max_bucket` (not `chunk`) and each
+piece runs serially on the caller's thread, outside the pipeline: staged
+by `ed.prepare_batch` (the wire rows of `stage_packed_hh`, or of the numpy
+staging, as separate uint8 arrays), padded to its bucket, uploaded and
+verified by `ladder.verify_args` on the verifier's own streams (K3, then
+K1 on digits or K7 `bit_ladder` on bits, then K4), read back and ANDed with
+s < L. There is no device hash on this path.
+
 The mesh verifier (`parallel/mesh.py`) splits each chunk over the devices
 of a mesh through the hooks here (`shard_devices`, `_build_committee_table`);
 the reference's deferred readback (`_defer_readback`, the multi-process
@@ -107,6 +124,10 @@ _M_COMMITTEE_BATCHES = metrics.counter("verifier.committee_batches")
 _M_COMMITTEE_SIGS = metrics.counter("verifier.committee_sigs")
 
 STAGINGS = ("native", "numpy")
+# Lanes of one program of the reference's Pallas grid
+# (hotstuff_tpu/ops/pallas_ladder.py:36): `kernel="pallas"` keeps its
+# buckets multiples of it, though K1 has no such block.
+PALLAS_BLOCK = 256
 # (path, device hash) -> (native entry, the numpy staging it stands for)
 _STAGING = {
     ("generic", True): (native_staging.stage_packed_dh, ed.prepare_batch_packed_dh),
@@ -125,13 +146,22 @@ class Ed25519TorchVerifier:
         chunk: int | None = None,
         pipeline_depth: int | None = None,
         staging: str = "native",
+        kernel: str = "w4",
+        packed: bool | None = None,
     ):
         self.device = resolve_device(device)
         if staging not in STAGINGS:
             raise ValueError(f"staging must be one of {STAGINGS}, got {staging!r}")
+        if kernel not in ladder.KERNEL_FLAVOURS:
+            raise ValueError(f"kernel must be one of {ladder.KERNEL_FLAVOURS}, got {kernel!r}")
         self.staging = staging
         if staging == "native":
             native_staging.load()
+        self.kernel = kernel
+        self.packed = packed if packed is not None else kernel != "bits"
+        if kernel == "pallas":  # the reference's buckets tile its Pallas grid (:892-897)
+            min_bucket = -(-max(min_bucket, PALLAS_BLOCK) // PALLAS_BLOCK) * PALLAS_BLOCK
+            max_bucket = max(PALLAS_BLOCK, max_bucket // PALLAS_BLOCK * PALLAS_BLOCK)
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
         self.chunk = min(chunk or 4096, max_bucket)
@@ -231,6 +261,12 @@ class Ed25519TorchVerifier:
         n = len(messages)
         if n == 0:
             return np.empty(0, bool)
+        if not self.packed:
+            out = np.empty(n, bool)
+            for lo in range(0, n, self.max_bucket):
+                hi = min(lo + self.max_bucket, n)
+                out[lo:hi] = self._run_chunk(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
+            return out
 
         def run(device_hash: bool) -> np.ndarray:
             verify = ladder.verify_packed128_dh if device_hash else ladder.verify_packed128
@@ -246,6 +282,51 @@ class Ed25519TorchVerifier:
             return self._run_chunks(n, 128, stage, dispatch)
 
         return self._with_latch(messages, run)
+
+    # -- the f32-argument path (packed=False) ---------------------------------
+
+    def _run_chunk(self, messages, keys, signatures) -> np.ndarray:
+        """One piece of at most `max_bucket` lanes on the f32-argument path
+        (the reference's `_run_chunk`, :1273-1297), serially on the caller's
+        thread: stage (`ed.prepare_batch`, bits for `kernel="bits"`), pad to
+        the bucket, upload and verify (`_verify_args`) on the verifier's
+        own streams, read the mask back, AND it with s < L. Counts one
+        chunk, one table build and n decompressions, and records the
+        timeline's stage, dispatch and readback spans (no upload span: the
+        upload is part of the dispatch, as in the reference)."""
+        n = len(messages)
+        _M_CHUNKS.inc()
+        _M_TABLE_BUILDS.inc()
+        _M_DECOMPRESSIONS.inc(n)
+        tlkey = (timeline.TIMELINE.next_batch(), 0, n) if timeline.enabled() else None
+        with metrics.span(_M_STAGE), timeline.span_for("stage", tlkey):
+            staged = ed.prepare_batch(messages, keys, signatures, want_bits=self.kernel == "bits",
+                                      staging=self.staging)
+        width = self._bucket(n)
+        _M_PAD_LANES.inc(width - n)
+        with self._own_streams():
+            with timeline.span_for("dispatch", tlkey):
+                mask = self._verify_args(ed.kernel_args(staged, width, self.kernel))
+            with metrics.span(_M_READBACK), timeline.span_for("readback", tlkey):
+                host = mask.cpu().numpy()
+        return host[:n] & staged["s_ok"]
+
+    def _verify_args(self, args: tuple) -> torch.Tensor:
+        """Upload the padded f32-form arrays to this verifier's device and
+        run `ladder.verify_args`; the (W,) device mask (the mesh verifier
+        splits the lanes over its mesh, `parallel/mesh.py`)."""
+        tensors = [torch.from_numpy(a).to(self.device) for a in args]
+        return ladder.verify_args(*tensors, kernel=self.kernel)
+
+    def _own_streams(self) -> contextlib.ExitStack:
+        """Make one of this verifier's own streams current on each distinct
+        shard device: the f32 path's uploads, kernels and copies never run
+        on a default stream. Nothing on the CPU."""
+        stack = contextlib.ExitStack()
+        if self._streams:
+            for pair in dict(zip(self.shard_devices, self._streams)).values():
+                stack.enter_context(torch.cuda.stream(pair[0]))
+        return stack
 
     # -- the chunk loop both paths share ------------------------------------
 

@@ -1,7 +1,8 @@
 """Device-mesh parallelism for the port's crypto plane: batches split over a
 mesh of devices, committee tables replicated per device, per-QC quorum
-counts (`hotstuff_tpu/parallel/__init__.py`, without `init_multihost` and
-`sharded_verify_fn`, which are not ported)."""
+counts, the f32-argument form (`sharded_verify`)
+(`hotstuff_tpu/parallel/__init__.py`, without `init_multihost`, which is not
+ported)."""
 
 from .mesh import (
     DeviceMesh,
@@ -12,6 +13,7 @@ from .mesh import (
     sharded_committee,
     sharded_packed,
     sharded_qc_counts,
+    sharded_verify,
 )
 
 __all__ = [
@@ -23,4 +25,5 @@ __all__ = [
     "sharded_committee",
     "sharded_packed",
     "sharded_qc_counts",
+    "sharded_verify",
 ]

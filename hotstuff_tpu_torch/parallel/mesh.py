@@ -12,7 +12,11 @@ the shards and reduce the counts (`psum`); here each step is done by hand:
     committee table; the blocks' masks are joined in lane order;
   * per-QC counts are each device's sum of its mask, and the sum over the
     "dp" axis is a sum of those partials on the first device of the QC's
-    row of the mesh.
+    row of the mesh;
+  * the f32-argument form (`sharded_verify`, the reference's
+    `sharded_verify_fn`) splits each of the five argument arrays on lanes
+    the same way, runs `ladder.verify_args` per device (K3, K1 or K7, K4)
+    and sums the devices' counts of their masks (the reference's `psum`).
 
 A mesh is an ordered tuple of `torch.device`s. Devices may repeat: a
 *virtual* mesh of n shards on one device (`default_mesh(n, device=...)`)
@@ -24,8 +28,7 @@ what several cards gain, since its shards share one device.
 
 Deliberate departure: asking for more GPUs than are visible raises, where
 the reference takes `jax.devices()[:n]` and runs on fewer. Not ported:
-`init_multihost` and the multi-process readback, and `sharded_verify_fn`'s
-f32 (`packed=False`) path, which goes with the bit-ladder kernel.
+`init_multihost` and the multi-process readback.
 """
 
 from __future__ import annotations
@@ -40,11 +43,11 @@ from .. import resolve_device
 from ..ops import committee as cm
 from ..ops import ed25519 as ed
 from ..ops import ladder
-from ..ops.verifier import Ed25519TorchVerifier
+from ..ops.verifier import PALLAS_BLOCK, Ed25519TorchVerifier
 
 # Lanes per shard of a bucket. The port's kernels take any width; 128 is
-# the reference's w4 lane (its Pallas path rounds to a 256-lane BLOCK, which
-# the port's kernels do not have).
+# the reference's w4 lane. `kernel="pallas"` keeps the reference's 256-lane
+# Pallas BLOCK (`ops/verifier.py` PALLAS_BLOCK), which K1 does not need.
 LANE = 128
 
 
@@ -157,6 +160,32 @@ def sharded_committee(
     return torch.cat([m.to(mesh.devices[0]) for m in masks])
 
 
+def sharded_verify(
+    mesh: DeviceMesh, a_y, a_sign, r_enc, s, h, kernel: str = "w4"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32-argument form over a mesh (`sharded_verify_fn`,
+    `hotstuff_tpu/parallel/mesh.py:96-119`): the port's uint8 arguments of
+    `ladder.verify_args` ((32, W) a_y, (W,) a_sign, (32, W) r_enc, s and h
+    as digits or bits), each split on lanes into one equal block per device
+    of the mesh, in device order; each block is verified on its device by
+    `ladder.verify_args`. Returns the (W,) bool mask, joined in lane order,
+    and the () int32 `n_valid`, the sum of the devices' counts of their
+    masks (the reference's `psum`), both on the mesh's first device. The
+    host s < L mask is the caller's, as in the reference: `n_valid` counts
+    the device mask before it."""
+    args = [torch.as_tensor(t) for t in (a_y, a_sign, r_enc, s, h)]
+    w = _lane_blocks(mesh, args[0].shape[-1])
+    masks, counts = [], []
+    for sh, dev in enumerate(mesh.devices):
+        block = [t[..., sh * w : (sh + 1) * w].to(dev).contiguous() for t in args]
+        mask = ladder.verify_args(*block, kernel=kernel)
+        masks.append(mask)
+        counts.append(mask.sum(dtype=torch.int32))
+    first = mesh.devices[0]
+    n_valid = torch.stack([c.to(first) for c in counts]).sum(dtype=torch.int32)
+    return torch.cat([m.to(first) for m in masks]), n_valid
+
+
 def sharded_qc_counts(
     mesh: DeviceMesh, packed: torch.Tensor | np.ndarray, s_ok: torch.Tensor | np.ndarray, device_hash: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -210,9 +239,13 @@ class ShardedEd25519TorchVerifier(Ed25519TorchVerifier):
 
     Buckets stay multiples of `mesh_alignment` = 128 lanes x the mesh's
     size, so every shard gets whole 128-lane blocks (the reference's w4
-    lane; the port's kernels have no 256-lane Pallas BLOCK): `min_bucket`
-    rounds up to that grid, `max_bucket` rounds down (3 devices: 8,192 ->
-    7,680), and `chunk` is clamped to `max_bucket`.
+    lane; 256 with `kernel="pallas"`, the reference's Pallas BLOCK):
+    `min_bucket` rounds up to that grid, `max_bucket` rounds down (3
+    devices: 8,192 -> 7,680), and `chunk` is clamped to `max_bucket`.
+
+    `packed=False` runs the base class's f32-argument chunk loop, with each
+    piece's arrays split over the mesh by `sharded_verify` (the
+    reference's `_run_chunk`, :376-384).
 
     Registration (`set_committee`) decompresses the keys once on the host
     and makes one copy of the table per distinct device of the mesh; no
@@ -225,7 +258,7 @@ class ShardedEd25519TorchVerifier(Ed25519TorchVerifier):
             raise TypeError("a sharded verifier takes its devices from its mesh, not device=")
         self.mesh = mesh or default_mesh()
         super().__init__(device=self.mesh.devices[0], **kw)
-        align = LANE * self.mesh.size
+        align = (PALLAS_BLOCK if self.kernel == "pallas" else LANE) * self.mesh.size
         self.mesh_alignment = align
         self.min_bucket = -(-max(self.min_bucket, align) // align) * align
         self.max_bucket = max(align, self.max_bucket // align * align)
@@ -237,3 +270,6 @@ class ShardedEd25519TorchVerifier(Ed25519TorchVerifier):
 
     def _build_committee_table(self, keys: list[bytes]) -> ed.CommitteeTable:
         return replicate(ed.CommitteeTable(keys, self.device), self.mesh.distinct)
+
+    def _verify_args(self, args: tuple) -> torch.Tensor:
+        return sharded_verify(self.mesh, *args, kernel=self.kernel)[0]

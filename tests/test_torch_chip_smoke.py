@@ -264,6 +264,21 @@ def test_read_device_trace_unions_intervals_and_finds_the_default_stream():
         breakdown.read_device_trace({"traceEvents": trace["traceEvents"][1:]}, 50e-6)
 
 
+def test_trace_kernel_counts_and_traced_launches():
+    """`read_device_trace` counts kernels per name; `traced_launches` finds
+    each hand-written kernel by its CUDA symbol, in or out of a namespace,
+    without taking K7's `bit_ladder_kernel` for K1's `ladder_kernel`."""
+    ev = lambda name, stream: {"ph": "X", "cat": "kernel", "name": name, "ts": 0.0, "dur": 1.0,
+                               "args": {"stream": stream}}
+    names = ["ladder_kernel(unsigned char const*, int*)", "(anonymous namespace)::bit_ladder_kernel(int)",
+             "(anonymous namespace)::bit_ladder_kernel(int)", "decompress_table_kernel(int)"]
+    trace = {"traceEvents": [ev("spin_kernel(long)", 7)] + [ev(n, 13) for n in names]}
+    res = breakdown.read_device_trace(trace, 1e-3)
+    assert res["kernel_counts"] == {names[0]: 1, names[1]: 2, names[3]: 1}
+    assert chip_smoke.traced_launches(res, ("bit_ladder", "ladder", "decompress_table", "compress_eq")) == {
+        "bit_ladder": 2, "ladder": 1, "decompress_table": 1, "compress_eq": 0}
+
+
 # -- phase 5b: the sharded verifier on a mesh ----------------------------------
 
 
@@ -446,3 +461,54 @@ def test_phase_bls_on_cpu(small_smoke, monkeypatch, capsys):
     assert "verify_aggregate verdicts {16: [True, False, False, False]} as expected" in out
     assert "limbs identical to the plain version at N = [4, 16] with B = 8 and B = 1" in out
     assert "bls_mont_mul: kernel equals the plain mont_mul and Python ints on 4096 pairs" in out
+
+
+def test_phase_f32_on_cpu(small_smoke, monkeypatch, capsys):
+    """Phase 9 at 128 lanes: K7 against its plain version (both plain here)
+    at widths 7, MAX_BUCKET and 128, the three flavours of `packed=False` on a
+    12-signature batch with every corruption class, the s + 2^253 raw
+    masks, and `sharded_verify` and the sharded verifier on the CPU meshes
+    of 1, 2 and 4 shards; the result row and the bound."""
+    import numpy as np
+
+    monkeypatch.setattr(chip_smoke, "LANES", 128)
+    monkeypatch.setattr(chip_smoke, "MAX_BUCKET", 16)
+    monkeypatch.setattr(chip_smoke, "F32_ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "F32_HIGH_S", 2)
+    monkeypatch.setattr(chip_smoke, "F32_MESH_KERNELS", ("bits",))
+    seeds = [hashlib.sha256(b"f32 %d" % i).digest() for i in range(12)]
+    M = [hashlib.sha256(s).digest() for s in seeds]
+    K, S = [], []
+    for seed, m in zip(seeds, M):
+        pk = pysigner.keypair_from_seed(seed)[0]
+        K.append(pk)
+        S.append(pysigner.sign(seed, m, public_key=pk))
+    expected = small_smoke._corrupt_lanes(M, K, S, np.arange(6))
+    res = small_smoke.phase_f32(0, (M, K, S, expected), "cpu")
+    row = res["kernel"]
+    assert ROW_KEYS <= set(row) and row["max_abs_err"] == 0
+    assert row["bound_by"] == "operations" and row["bound_ms"] > 0
+    assert set(res["rates"]) == {"bits", "w4", "pallas"}
+    out = capsys.readouterr().out
+    assert "K7: raw limbs identical to the plain version at widths [7, 16, 128]" in out
+    assert set(res["mesh_launches"]) == {"1 CPU", "virtual 2", "virtual 4"}
+    for k in ("bits", "w4", "pallas"):
+        assert f"f32 path {k}: 12 signatures in 1 pieces, mask == expected" in out
+    assert "ShardedEd25519TorchVerifier(packed=False, kernel='bits') on meshes ['1 CPU', 'virtual 2', " \
+           "'virtual 4']: masks == expected" in out
+
+
+def test_bit_ladder_bound_counts_set_bits():
+    import torch
+
+    s = torch.zeros((253, 4), dtype=torch.uint8)
+    h = torch.zeros((253, 4), dtype=torch.uint8)
+    s[0, 0] = h[5, 1] = h[6, 1] = 1
+    bytes_moved, ops = chip_smoke.bit_ladder_bound(s, h)
+    assert ops == 4 * 253 * (4 * 55 + 4 * 100) + 3 * 7 * 100
+    assert bytes_moved == 4 * (2 * 253 + 120 + 160) + 120
+    assert chip_smoke.k7_off_path_errors({"a": {"bit_ladder": 0}, "b": {"bit_ladder": 2}}) == [
+        "b: bit_ladder launched 2 times"]
+    report = ("ptxas info    : Used 96 registers, used 0 barriers, 360 bytes cmem[0]\n"
+              "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
+    assert chip_smoke.ptxas_numbers(report) == dict(registers=96, stack=8, spills=8)

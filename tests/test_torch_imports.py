@@ -15,7 +15,7 @@ import torch
 import hotstuff_tpu_torch
 from hotstuff_tpu_torch import resolve_device
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
-from hotstuff_tpu_torch.ops import _build, bls, committee, ladder, sha512
+from hotstuff_tpu_torch.ops import _build, bit_ladder, bls, committee, ladder, sha512
 from hotstuff_tpu_torch.ops import ed25519 as ted
 
 REPO = Path(__file__).resolve().parents[1]
@@ -50,7 +50,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.ops.pipeline", "hotstuff_tpu_torch.ops.timeline",
                 "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh",
                 "hotstuff_tpu_torch.crypto.native_staging", "hotstuff_tpu_torch.ops.bls",
-                "hotstuff_tpu_torch.crypto.aggsig"):
+                "hotstuff_tpu_torch.crypto.aggsig", "hotstuff_tpu_torch.ops.bit_ladder"):
         assert mod in res["modules"]
 
 
@@ -101,6 +101,52 @@ def test_bls_table_has_no_host_fallback(monkeypatch):
     with pytest.raises(ValueError, match="expected a tensor on"):
         bls.mont_mul_device(meta(12, 4), meta(12, 4))
     assert _build.launches() == {name: 0 for name in _build.KERNELS}
+
+
+def test_bits_verifier_on_the_card_without_one_raises(monkeypatch):
+    """`kernel="bits"` (the f32-argument path) asked for the card on a host
+    without one raises, single-device and on a mesh; it never runs on the
+    CPU unless asked to."""
+    from hotstuff_tpu_torch.ops.verifier import Ed25519TorchVerifier
+    from hotstuff_tpu_torch.parallel import ShardedEd25519TorchVerifier
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: Ed25519TorchVerifier(kernel="bits"),
+                 lambda: Ed25519TorchVerifier(device="cuda", kernel="bits", packed=False),
+                 lambda: ShardedEd25519TorchVerifier(kernel="bits", packed=False)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    v = Ed25519TorchVerifier(device="cpu", kernel="bits")
+    assert v.device == torch.device("cpu") and not v.packed
+    v.close()
+
+
+def test_bit_ladder_off_the_cpu_launches_k7_never_the_plain_version(monkeypatch):
+    """A non-CPU tensor goes to K7's checks and launch (both stubbed here:
+    there is no card), never to `bit_ladder_plain`; `verify_args(...,
+    "bits")` reaches K7, not K1; the plain version refuses nothing."""
+    def plain(*a):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    launched = []
+    monkeypatch.setattr(bit_ladder, "bit_ladder_plain", plain)
+    monkeypatch.setattr(_build, "check", lambda t, shape, dtype, dev: launched.append(("check", tuple(shape))))
+    monkeypatch.setattr(_build.KERNELS["bit_ladder"], "launch",
+                        lambda *a: launched.append(("launch", tuple(a[-2].shape), a[-1])))
+    meta = lambda *shape, dtype=torch.uint8: torch.empty(shape, dtype=dtype, device="meta")
+    out = bit_ladder.bit_ladder(meta(253, 8), meta(253, 8), meta(4, 16, 10, 8, dtype=torch.int32))
+    assert out.device.type == "meta" and out.shape == (4, 10, 8) and out.dtype == torch.int32
+    assert launched == [("check", (253, 8)), ("check", (253, 8)), ("check", (4, 16, 10, 8)),
+                        ("launch", (4, 10, 8), 8)]
+    calls = []
+    monkeypatch.setattr(ladder, "bit_ladder", lambda *a: calls.append("K7") or meta(4, 10, 8, dtype=torch.int32))
+    monkeypatch.setattr(ladder, "ladder", lambda *a: calls.append("K1") or meta(4, 10, 8, dtype=torch.int32))
+    monkeypatch.setattr(ted, "decompress_table", lambda a: (calls.append("K3") or meta(4, 16, 10, 8, dtype=torch.int32),
+                                                            meta(8, dtype=torch.bool)))
+    monkeypatch.setattr(ted, "compress_eq", lambda *a: calls.append("K4") or meta(8, dtype=torch.bool))
+    ladder.verify_args(meta(32, 8), meta(8), meta(32, 8), meta(253, 8), meta(253, 8), kernel="bits")
+    ladder.verify_args(meta(32, 8), meta(8), meta(32, 8), meta(64, 8), meta(64, 8), kernel="pallas")
+    assert calls == ["K3", "K7", "K4", "K3", "K1", "K4"]
 
 
 def test_check_rejects_bad_tensors():
