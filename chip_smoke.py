@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
-     ptxas reports spill bytes for either ladder kernel, K3, K4, K2 / K2g
-     or K7 (K6's ptxas line is printed, not gated);
+     ptxas reports spill bytes for either ladder kernel, K3, K4, K2 / K2g,
+     K7 or K8 (the ptxas lines of K6 and of the tuning tool's
+     `hs_field_sqr_n` and `hs_alu_chain` are printed, not gated);
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at 4,096 lanes, exactly (integer outputs, tolerance 0); K3
      `decompress_table` (raw limbs and valid, on random and special keys),
@@ -170,6 +171,23 @@ caught:
      mesh the expected mask, with K3, K7 and K4 launched pieces x shards
      times each (the K7 row's `mesh_launches`). Phases 2-8 must launch K7
      0 times.
+ 10. device tuning: kernel K8 (`hotstuff_tpu_torch/ops/field12.py`, the
+     radix-2^12 field; `hs_field12` for sqr_n, `hs_field12_mul`,
+     `hs_field12_sub`, `hs_field12_canonical`) against its plain version on
+     the same CUDA tensors at every width of WIDTHS and at 4,096 lanes,
+     exactly (uint32 limbs, tolerance 0): mul on normalized operands and on
+     one lazy add, sub on lazy-add inputs, canonical on 264-bit encodings
+     (p, p + 1, 2p - 1, 2p, 2^264 - 1, 500p + 7, random) and on products,
+     sqr_n with n = 1 and 64; canonical also against v mod p. The tool's
+     kernels likewise: `hs_field_sqr_n` (64 squarings on the production
+     field) against `field.sqr_n`, `hs_alu_chain` (all three chains, 3 and
+     64 steps) against its plain chains. Then each one's device ms, its
+     plain version's, the bound and the share, K8's sqr_n(., 64) at 128
+     and 4,096 lanes, and ptxas. Last, `python3 -m
+     hotstuff_tpu_torch.tune_device --all` as a user runs it, in its own
+     process with a time limit: it must exit 0, print every leg's rows and
+     launch its kernels (its last line counts them; these are the K8 rows'
+     `launches`). Phases 2-9 must launch K8 and the tool's kernels 0 times.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
 Exits non-zero without a result when no CUDA device is available or the
@@ -676,7 +694,7 @@ def _host_hash_batch(pool):
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
 NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits",
-            "bit_ladder")  # ptxas: 0 spill bytes
+            "bit_ladder", "field12")  # ptxas: 0 spill bytes
 
 
 def phase_main_path(seed: int) -> dict:
@@ -2695,10 +2713,14 @@ def phase_bls(seed: int, device: str = "cuda") -> dict:
     return dict(kernels={"g1_aggregate": res, "bls_mont_mul": field}, launches=launches)
 
 
+def off_path_errors(launch_sets: dict, names) -> list[str]:
+    """Where a launch set counts a launch of one of the named kernels."""
+    return [f"{label}: {k} launched {d[k]} times" for label, d in launch_sets.items() for k in names if d.get(k)]
+
+
 def bls_off_path_errors(launch_sets: dict) -> list[str]:
     """Where a phase of the ed25519 paths launched a BLS kernel."""
-    return [f"{label}: {k} launched {d[k]} times" for label, d in launch_sets.items()
-            for k in ("g1_aggregate", "bls_mont_mul") if d.get(k)]
+    return off_path_errors(launch_sets, ("g1_aggregate", "bls_mont_mul"))
 
 
 # --- phase 9: the f32-argument path and kernel K7 ----------------------------
@@ -2954,8 +2976,281 @@ def phase_f32(seed: int, batch, device: str = "cuda") -> dict:
 
 def k7_off_path_errors(launch_sets: dict) -> list[str]:
     """Where a phase before phase 9 launched K7."""
-    return [f"{label}: bit_ladder launched {d['bit_ladder']} times"
-            for label, d in launch_sets.items() if d.get("bit_ladder")]
+    return off_path_errors(launch_sets, ("bit_ladder",))
+
+
+# --- phase 10: device tuning: the radix-2^12 field (K8) and the tool --------
+
+TUNING_KERNELS = ("field12", "field12_mul", "field12_sub", "field12_canonical", "field_sqr_n", "alu_chain")
+FIELD12_CHAIN = 64  # the --field leg's squarings a call
+ALU_SHAPE = (64, 4096)  # the --vpu leg's elements (tools/tune_device.py:39)
+# The widths the tool's --chunks leg launches K2, K3, K1 and K4 at (its
+# chunk sizes) beyond phase 2's LANES, widest first.
+TUNE_WIDTHS = (16384, 8192, 2048)
+TUNE_TIMEOUT_S = 300
+TUNE_ARGS = ("--all",)
+TUNE_CPU_ARGS = ("--cpu", "--lanes", "16", "--reps", "1", "--chain", "4")  # the rehearsal's: one chunk row
+# Rows `python3 -m hotstuff_tpu_torch.tune_device --all` must print, by
+# prefix; the chunk leg prints one row a (chunk, bucket) pair.
+TUNE_ROWS = ("# devices:", "vpu f32 mul+add", "vpu i32 mul+add", "vpu u32 xor/shift/add",
+             "field int32 radix-2^25.5", "field u32 radix-2^12", "field check: both rows equal",
+             "phase decompress ", "phase decompress+table", "phase ladder", "phase compress",
+             "phase sha512+modL (dh)", "phase full verify", "dh-compare host-hash", "dh-compare device-hash",
+             "# launches:")
+# Kernels the tool must launch on the card: its own two, K8's chain and
+# canonical (the --field check), and the verify kernels of its other legs.
+TUNE_PATH_KERNELS = ("alu_chain", "field_sqr_n", "field12", "field12_canonical",
+                     "ladder", "h_digits", "decompress_table", "compress_eq")
+
+
+def entry_ptxas(text: str, name: str) -> str:
+    """The part of a source's `ptxas_report` line about the entry function
+    `<name>_kernel` (its mangled name holds the length, then the name)."""
+    pat = re.compile(rf"\d{name}_kernel")
+    return " | ".join(part for part in text.split("Compiling entry function") if pat.search(part))
+
+
+def _u32_err(a, b) -> int:
+    """Largest |difference| of two tensors of uint32 bits."""
+    from hotstuff_tpu_torch.ops.field import from_i32
+
+    return (from_i32(a) - from_i32(b)).abs().max().item()
+
+
+def field12_inputs(seed: int, device: str):
+    """Phase 10's K8 operands at LANES: x with the edge values 0, 1, p - 1,
+    2^255 - 20 first, y, their normalized products (limb 0 up to ~14k), and
+    264-bit encodings for canonical (p, p + 1, 2p - 1, 2p, 2^264 - 1,
+    500p + 7 first, as tests/test_field12.py:80-97). Returns (tensors, the
+    encodings' ints)."""
+    import random
+
+    from hotstuff_tpu_torch.ops import field12 as f12
+
+    rng = random.Random(seed + 10)
+    edge = [0, 1, f12.P - 1, (1 << 255) - 20][:LANES]
+    xs = edge + [rng.randrange(f12.P) for _ in range(LANES - len(edge))]
+    ys = [rng.randrange(f12.P) for _ in range(LANES)]
+    top = [f12.P, f12.P + 1, 2 * f12.P - 1, 2 * f12.P, (1 << 264) - 1, 500 * f12.P + 7][:LANES]
+    cs = top + [rng.randrange(1 << 264) for _ in range(LANES - len(top))]
+    x, y, c = (f12.tensor_of_ints(v, device) for v in (xs, ys, cs))
+    m1, m2 = f12.mul_plain(x, y), f12.sqr_plain(y)
+    return dict(x=x, y=y, c=c, m1=m1, m2=m2, lazy=f12.add(m1, m2), xy=f12.add(x, y)), cs
+
+
+def field12_cases(t: dict) -> list:
+    """(kernel, label, kernel call, plain call, operands) of phase 10's K8
+    comparisons: mul on normalized operands and on one lazy add, sub on the
+    lazy-add inputs the reference allows, canonical on the 264-bit domain
+    and on real products, sqr_n with n = 1 and 64."""
+    from hotstuff_tpu_torch.ops import field12 as f12
+
+    sq = lambda n: (lambda a: f12.sqr_n(a, n), lambda a: f12.sqr_n_plain(a, n))
+    return [
+        ("field12_mul", "mul", f12.mul, f12.mul_plain, ("x", "y")),
+        ("field12_mul", "mul lazy", f12.mul, f12.mul_plain, ("lazy", "m2")),
+        ("field12_sub", "sub lazy", f12.sub, f12.sub_plain, ("lazy", "m2")),
+        ("field12_sub", "sub", f12.sub, f12.sub_plain, ("xy", "y")),
+        ("field12_canonical", "canonical 264-bit", f12.canonical, f12.canonical_plain, ("c",)),
+        ("field12_canonical", "canonical of products", f12.canonical, f12.canonical_plain, ("m1",)),
+        ("field12", "sqr_n 1", *sq(1), ("x",)),
+        ("field12", f"sqr_n {FIELD12_CHAIN}", *sq(FIELD12_CHAIN), ("x",)),
+        ("field12", f"sqr_n {FIELD12_CHAIN} of products", *sq(FIELD12_CHAIN), ("m1",)),
+    ]
+
+
+def _row(ms: float, plain_ms: float, err: int, bytes_moved: float, ops: float, **extra) -> dict:
+    bound_ms, bound_by = _bound_ms(bytes_moved, ops)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bytes=bytes_moved, ops=ops, bound_ms=bound_ms,
+                bound_by=bound_by, extra=dict(share=bound_ms / ms if ms else 0.0, **extra))
+
+
+def phase_field12(seed: int, device: str = "cuda") -> dict:
+    """Phase 10's comparisons and times: K8 against its plain version at every
+    width of WIDTHS and at LANES, exactly (uint32 limbs, tolerance 0), and
+    canonical against v mod p; `hs_field_sqr_n` against `field.sqr_n` and
+    `hs_alu_chain` against its plain chains, exactly; then each kernel's
+    device ms, its plain version's, the bound and the share (K8's
+    `sqr_n(., 64)` at 128 lanes beside LANES), and ptxas. Returns the
+    kernels' rows, with the launches the comparisons made."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.breakdown import queued_ms
+    from hotstuff_tpu_torch.ops import _build, field
+    from hotstuff_tpu_torch.ops import field12 as f12
+    from hotstuff_tpu_torch.tune_device import alu_chain, alu_chain_plain
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    _build.reset_launches()
+    t, cs = field12_inputs(seed, device)
+    errs = {}
+    for name, label, kernel, plain, keys in field12_cases(t):
+        for w in _widths():
+            args = [_cut(t[k], w) for k in keys]
+            err = _u32_err(kernel(*args), plain(*args))
+            if err != 0:
+                fail(f"K8 {name} ({label}) differs from its plain version at width {w} (max |diff| {err})")
+            errs[name] = max(errs.get(name, 0), err)
+    canon = f12.canonical(t["c"])
+    if f12.int_of_limbs(canon) != [v % f12.P for v in cs]:
+        fail("K8 canonical differs from v mod p on the 264-bit domain")
+
+    vals = f12.int_of_limbs(t["x"])
+    x25 = field.limbs_of_int(vals).to(torch.int32).to(dev)
+    for w in _widths():
+        got, want = field.sqr_chain(_cut(x25, w), FIELD12_CHAIN), field.sqr_n(_cut(x25, w).long(), FIELD12_CHAIN)
+        errs["field_sqr_n"] = _max_abs(got, want)
+        if errs["field_sqr_n"] != 0:
+            fail(f"hs_field_sqr_n differs from field.sqr_n at width {w} (max |diff| {errs['field_sqr_n']})")
+    # The --vpu leg's inputs (1.0001 and 3 everywhere), then random ones.
+    rng = np.random.default_rng(seed + 10)
+    shape = (ALU_SHAPE[0], min(ALU_SHAPE[1], LANES))
+    ints = torch.from_numpy(rng.integers(-2**31, 2**31, shape).astype(np.int32))
+    alu_in = {0: [torch.full(shape, 1.0001), torch.from_numpy(rng.random(shape, np.float32))],
+              1: [torch.full(shape, 3, dtype=torch.int32), ints], 2: [torch.full(shape, 3, dtype=torch.int32), ints]}
+    alu_in = {op: [a.to(dev) for a in inputs] for op, inputs in alu_in.items()}
+    errs["alu_chain"] = 0.0
+    for op, inputs in alu_in.items():
+        for a in inputs:
+            for n in (3, FIELD12_CHAIN):
+                got, want = alu_chain(a, op, n), alu_chain_plain(a, op, n)
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    fail(f"hs_alu_chain op {op} ({n} steps) differs from its plain version")
+                errs["alu_chain"] = max(errs["alu_chain"], (got.double() - want.double()).abs().max().item())
+    compare_launches = {k: _build.KERNELS[k].launches for k in TUNING_KERNELS}
+    print(f"K8: uint32 limbs identical to the plain version at widths {_widths()} for "
+          f"{[label for _, label, *_ in field12_cases(t)]}; canonical equal to v mod p on the 264-bit domain; "
+          f"hs_field_sqr_n equal to field.sqr_n ({FIELD12_CHAIN} squarings) at the same widths; hs_alu_chain "
+          f"equal to its plain chains (3 ops, {shape}, 3 and {FIELD12_CHAIN} steps)", flush=True)
+
+    # Times: device ms with launches queued; the plain versions once; bounds.
+    nb = f12.NLIMB * 4  # bytes of one lane's element
+    x, y, w_small = t["x"], t["y"], min(128, LANES)
+    x_small = _cut(x, w_small)
+    rows = {}
+    f12.PRODUCTS.n = 0
+    plain_ms, _ = _plain_ms(lambda: f12.sqr_n_plain(x, FIELD12_CHAIN))
+    ms_small = queued_ms(lambda: f12.sqr_n(x_small, FIELD12_CHAIN), 20)
+    rows["field12"] = _row(queued_ms(lambda: f12.sqr_n(x, FIELD12_CHAIN), 20), plain_ms, errs["field12"],
+                           2 * nb * LANES, f12.PRODUCTS.n * LANES, ms_128=ms_small, chain=FIELD12_CHAIN,
+                           bound_ms_128=_bound_ms(2 * nb * w_small, f12.PRODUCTS.n * w_small)[0])
+    f12.PRODUCTS.n = 0
+    plain_ms, _ = _plain_ms(lambda: f12.mul_plain(x, y))
+    rows["field12_mul"] = _row(queued_ms(lambda: f12.mul(x, y), 20), plain_ms, errs["field12_mul"],
+                               3 * nb * LANES, f12.PRODUCTS.n * LANES)
+    plain_ms, _ = _plain_ms(lambda: f12.sub_plain(t["lazy"], t["m2"]))
+    # sub and canonical do no limb products; bytes bind them at every width.
+    rows["field12_sub"] = _row(queued_ms(lambda: f12.sub(t["lazy"], t["m2"]), 20), plain_ms, errs["field12_sub"],
+                               3 * nb * LANES, 0)
+    plain_ms, _ = _plain_ms(lambda: f12.canonical_plain(t["c"]))
+    rows["field12_canonical"] = _row(queued_ms(lambda: f12.canonical(t["c"]), 20), plain_ms,
+                                     errs["field12_canonical"], 2 * nb * LANES, 0)
+    field.PRODUCTS.n = 0
+    plain_ms, _ = _plain_ms(lambda: field.sqr_n(x25.long(), FIELD12_CHAIN))
+    rows["field_sqr_n"] = _row(queued_ms(lambda: field.sqr_chain(x25, FIELD12_CHAIN), 20), plain_ms, errs["field_sqr_n"],
+                               2 * field.NL * 4 * LANES, field.PRODUCTS.n * LANES, chain=FIELD12_CHAIN)
+    a = alu_in[1][0]
+    plain_ms, _ = _plain_ms(lambda: alu_chain_plain(a, 1, FIELD12_CHAIN))
+    op_ms = {op: queued_ms(lambda: alu_chain(alu_in[op][0], op, FIELD12_CHAIN), 20) for op in alu_in}
+    # Op 1's step, x * x + 1 in uint32, is one IMAD: one INT32 operation.
+    rows["alu_chain"] = _row(op_ms[1], plain_ms, errs["alu_chain"], 2 * 4 * a.numel(), FIELD12_CHAIN * a.numel(),
+                             op="1 (i32 mul+add)", ms_by_op=op_ms, elements=a.numel(), chain=FIELD12_CHAIN)
+    report = _build.ptxas_report()
+    for name in TUNING_KERNELS:
+        rows[name]["extra"].update(ptxas_numbers(entry_ptxas(report.get(_build.KERNELS[name].source, ""), name)),
+                                   compare_launches=compare_launches[name])
+    for name, res in rows.items():
+        print(f"{name}: {res['ms']:.6f} ms at {LANES if name != 'alu_chain' else res['extra']['elements']} "
+              f"{'lanes' if name != 'alu_chain' else 'elements'}, plain {res['plain_ms']:.3f} ms, bound "
+              f"{res['bound_ms']:.6f} ms ({res['bound_by']}, {res['ops']} operations, {res['bytes']} bytes), "
+              f"{100 * res['extra']['share']:.2f}% of it; {res['extra']}", flush=True)
+    print(f"phase 10 comparisons and times took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def phase_wide_compare(seed: int, device: str = "cuda", widths: tuple = TUNE_WIDTHS) -> dict:
+    """K2, K3, K1 and K4 at the widths the tool's --chunks leg launches them
+    at, beyond phase 2's LANES: at the widest, the raw outputs equal the
+    plain versions' on the same tensors, exactly (random rows and keys with
+    phase 2's special keys, random digits over K3's table, K4's inputs of
+    `_k4_inputs`); at each narrower width, the kernels' outputs equal the
+    widest plain run's first lanes, which are the plain version's at that
+    width since each lane is computed alone. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops import _build, ladder, sha512
+    from hotstuff_tpu_torch.ops import ed25519 as ed
+
+    t0 = time.perf_counter()
+    dev, n = torch.device(device), widths[0]
+    rng = np.random.default_rng(seed + 14)
+    rows = lambda k, hi=256: torch.from_numpy(rng.integers(0, hi, (k, n), np.uint8)).to(dev)
+    _build.reset_launches()
+
+    def hold(name: str, kernel, plain, *args):
+        got, want = kernel(*args), plain(*args)
+        as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+        if not all(torch.equal(g, p) for g, p in zip(as_tuple(got), as_tuple(want))):
+            fail(f"{name} differs from its plain version at {n} lanes")
+        for w in widths[1:]:
+            cut = as_tuple(kernel(*(_cut(a, w) for a in args)))
+            if not all(torch.equal(c, _cut(p, w)) for c, p in zip(cut, as_tuple(want))):
+                fail(f"{name} differs from its plain version at {w} lanes")
+        return want
+
+    hold("K2 h_digits", sha512.h_digits, sha512.h_digits_plain, rows(32), rows(32), rows(32))
+    keys = rows(32)
+    for i, enc in enumerate(_special_keys()):
+        keys[:, i] = torch.tensor(list(enc), dtype=torch.uint8, device=dev)
+    table, _ = hold("K3 decompress_table", ed.decompress_table, ed.decompress_table_plain, keys)
+    point = hold("K1 ladder", ladder.ladder, ladder.ladder_plain, rows(64, 16), rows(64, 16), table)
+    xyzt, r_bytes, valid, want = _k4_inputs(rng, point, ed.compress(point), dev)
+    if hold("K4 compress_eq", ed.compress_eq, ed.compress_eq_plain, xyzt, r_bytes, valid).cpu().tolist() != want:
+        fail(f"K4 compress_eq differs from the mask known by construction at {n} lanes")
+    launches = _build.launches()
+    print(f"K2, K3, K1, K4 at the tool's chunk widths {list(widths)}: identical to their plain versions "
+          f"({sum(want)}/{n} K4 lanes match); launches {launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def tune_missing(lines: list[str], chunk_rows: int) -> list[str]:
+    """The rows of TUNE_ROWS (and `chunk_rows` chunk rows) that the tool's
+    output lacks."""
+    missing = [p for p in TUNE_ROWS if not any(ln.startswith(p) for ln in lines)]
+    chunks = sum(ln.startswith("chunk ") for ln in lines)
+    return missing + ([f"{chunk_rows} chunk rows ({chunks} printed)"] if chunks != chunk_rows else [])
+
+
+def phase_tune(device: str = "cuda") -> dict:
+    """Phase 10's run of the port's device tuning tool, as a user runs it:
+    `python3 -m hotstuff_tpu_torch.tune_device --all` in its own process,
+    with a time limit (on the CPU with TUNE_CPU_ARGS). Its lines are
+    echoed; it must exit 0, print every leg's rows and, on the card, have
+    launched each kernel of TUNE_PATH_KERNELS. Returns the tool's launch
+    counts (its last line)."""
+    from hotstuff_tpu_torch.tune_device import CHUNK_PAIRS
+
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "hotstuff_tpu_torch.tune_device", *TUNE_ARGS,
+           *(TUNE_CPU_ARGS if device == "cpu" else ())]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=TUNE_TIMEOUT_S)
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        print(f"tune_device| {ln}", flush=True)
+    if proc.returncode != 0:
+        fail(f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    missing = tune_missing(lines, 1 if device == "cpu" else len(CHUNK_PAIRS))
+    if missing:
+        fail(f"the tuning tool did not print {missing}")
+    launches = json.loads(lines[-1].split(":", 1)[1])
+    if device == "cuda" and [k for k in TUNE_PATH_KERNELS if not launches.get(k)]:
+        fail(f"the tuning tool did not launch {[k for k in TUNE_PATH_KERNELS if not launches.get(k)]}: {launches}")
+    print(f"tune_device --all: exit 0, every leg's rows, launches {launches}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 REPLACES = {
@@ -2969,6 +3264,12 @@ REPLACES = {
     "g1_aggregate": "hotstuff_tpu/ops/bls.py:297",
     "bls_mont_mul": "hotstuff_tpu/ops/bls.py:180",
     "bit_ladder": "hotstuff_tpu/ops/ed25519.py:599",
+    "field12": "hotstuff_tpu/ops/field12.py:147",
+    "field12_mul": "hotstuff_tpu/ops/field12.py:137",
+    "field12_sub": "hotstuff_tpu/ops/field12.py:112",
+    "field12_canonical": "hotstuff_tpu/ops/field12.py:184",
+    "field_sqr_n": "tools/tune_device.py:96",
+    "alu_chain": "tools/tune_device.py:35",
 }
 
 
@@ -3029,6 +3330,19 @@ def main() -> int:
         fail(f"K7 launched in phases 2-8: {k7_off}")
     f32 = phase_f32(args.seed, main_path["batch"])
     print(f"f32 path sigs/s {f32['rates']} beside phase 3's packed path {main_path['sigs_per_s']:.1f}", flush=True)
+    tuning_off = off_path_errors({
+        "main path": main_path["launches"], "committee path": committee_path["launches"],
+        "sidecar": sidecar["launches"], "committee run": committee_run["launches"], "BLS": bls_path["launches"],
+        **{f"f32 {k}": d for k, d in f32["leg_launches"].items()},
+        "since phase 9's last reset": _build.launches(),
+        **{f"mesh {label} {leg}": m[leg] for label, m in mesh["meshes"].items()
+           for leg in ("launches", "committee_launches")},
+    }, TUNING_KERNELS)
+    if tuning_off:
+        fail(f"K8 or the tuning tool's kernels launched in phases 2-9: {tuning_off}")
+    tuning = phase_field12(args.seed)
+    phase_wide_compare(args.seed)
+    tool_launches = phase_tune()
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -3067,6 +3381,20 @@ def main() -> int:
         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
         bound_by=res["bound_by"], library_ms=None, **res["extra"],
     ))
+    # K8 and the tool's two kernels: launches are the tool's run (phase 10);
+    # `compare_launches` those of phase 10's comparisons and times.
+    for name, res in tuning.items():
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
+            replaces=REPLACES[name], launches=tool_launches.get(name, 0),
+            sidecar_launches=sidecar["launches"][name],
+            mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
+                           for label, m in mesh["meshes"].items()},
+            matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
+            ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+            bound_by=res["bound_by"], library_ms=None, **res["extra"],
+        ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,10 @@ repacking its bits, unreduced: the reference's [0, 2p) values arrive as
 they are, and the plain field functions take them. The port's key table is
 (12, N) int32 limbs of mont(x) and mont(y) beside an (N,) bool `present`,
 the reference's layout with wider limbs.
+
+The radix-2^12 field (`ops/field12.py`): both packages keep (22, B) uint32
+limbs; the port's tensors are int32 of the same bits, so the limbs cross
+bit for bit, unreduced.
 """
 
 from __future__ import annotations
@@ -145,3 +149,18 @@ def bls_point_to_jax(pt: torch.Tensor) -> np.ndarray:
     """(3, 12, B) limbs (int64 values or int32 bit patterns) -> (3, 32, B)
     uint32 12-bit digits."""
     return np.stack([bls_fe_to_jax(c) for c in pt])
+
+
+def field12_from_jax(limbs: np.ndarray) -> torch.Tensor:
+    """(22, B) uint32 radix-2^12 limbs (or `_reduce`'s (46, B) product
+    rows) -> an int32 tensor of the same shape and bits."""
+    arr = np.ascontiguousarray(np.asarray(limbs, np.uint32))
+    if arr.ndim != 2:
+        raise ValueError(f"expected (rows, B) limbs, got shape {arr.shape}")
+    return torch.from_numpy(arr.view(np.int32).copy())
+
+
+def field12_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """(22, B) port limbs (int32 bits, or int64 values below 2^32) -> (22, B)
+    uint32 numpy limbs, the reference's layout."""
+    return f.from_i32(t.detach().cpu()).numpy().astype(np.uint32)

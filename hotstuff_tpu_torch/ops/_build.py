@@ -14,8 +14,9 @@ launches on the given stream, and returns `cudaGetLastError()`;
 that does not build or launch is an error. A source may export more than
 one entry point (`h_digits.cu`: `hs_h_digits`, `hs_h_digits_idx` and the
 test entry `hs_reduce_mod_l`; `g1_aggregate.cu`: `hs_g1_aggregate` and the
-test entry `hs_bls_mont_mul`); each entry point is a `Kernel` with its own
-launch count.
+test entry `hs_bls_mont_mul`; `field12.cu`: `hs_field12`, `hs_field12_mul`,
+`hs_field12_sub` and `hs_field12_canonical`); each entry point is a
+`Kernel` with its own launch count.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
-NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder", "g1_aggregate", "bit_ladder")
+NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_ladder", "g1_aggregate", "bit_ladder",
+         "field12", "field_sqr_n", "alu_chain")
 # Entry points beyond `hs_<source name>`: kernel name -> its source.
-EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits", "bls_mont_mul": "g1_aggregate"}
+EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits", "bls_mont_mul": "g1_aggregate",
+                      "field12_mul": "field12", "field12_sub": "field12", "field12_canonical": "field12"}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -57,7 +57,7 @@ from .. import resolve_device
 from ..crypto import aggsig
 from ..utils import metrics
 from . import _build
-from .field import const
+from .field import const, from_i32, to_i32
 
 P = aggsig.P
 NLIMB = 12
@@ -92,16 +92,6 @@ def int_of_limbs(limbs: torch.Tensor) -> list[int]:
     """(12, B) limbs, int64 values or int32 bit patterns -> B ints."""
     cols = (limbs.reshape(NLIMB, -1).long() & MASK).T.tolist()
     return [sum(d << (BITS * i) for i, d in enumerate(col)) for col in cols]
-
-
-def to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 limbs in [0, 2^32) -> int32 tensors of the same bits."""
-    return (x - ((x >> 31) << 32)).to(torch.int32)
-
-
-def from_i32(x: torch.Tensor) -> torch.Tensor:
-    """int32 bit patterns -> int64 limbs in [0, 2^32)."""
-    return x.long() & MASK
 
 
 def to_mont(x: int) -> int:

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
+
 P = 2**255 - 19
 NL = 10
 WIDTHS = (26, 25, 26, 25, 26, 25, 26, 25, 26, 25)
@@ -121,6 +123,18 @@ _FACTOR, _GATHER = _factor_table()
 _DEVICE_CONSTS: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors of the same bits (the
+    uint32 limbs of `ops/bls.py` and `ops/field12.py`)."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def from_i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (int32, or int64 values below 2^32) -> int64 values in
+    [0, 2^32)."""
+    return x.long() & 0xFFFFFFFF
+
+
 def const(name: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Device-resident copy of a module constant, made once per device."""
     key = (name, device)
@@ -181,6 +195,20 @@ def sqr_n(a: torch.Tensor, n: int, sqr=sqr) -> torch.Tensor:
     for _ in range(n):
         a = sqr(a)
     return a
+
+
+def sqr_chain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """n squarings of (NL, B) carried limbs, int32 out: CPU tensors ->
+    `sqr_n`; CUDA tensors -> `csrc/field_sqr_n.cu` (`fe_sq` n times a lane
+    in one launch, the device tuning tool's production-field chain), which
+    equals `sqr_n` limb for limb."""
+    if x.device.type == "cpu":
+        return sqr_n(x.long(), n).to(torch.int32)
+    batch = x.shape[1]
+    _build.check(x, (NL, batch), torch.int32, x.device)
+    out = torch.empty_like(x)
+    _build.KERNELS["field_sqr_n"].launch(x, out, n, batch)
+    return out
 
 
 # ---------------------------------------------------------------------------

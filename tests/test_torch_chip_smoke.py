@@ -512,3 +512,74 @@ def test_bit_ladder_bound_counts_set_bits():
     report = ("ptxas info    : Used 96 registers, used 0 barriers, 360 bytes cmem[0]\n"
               "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
     assert chip_smoke.ptxas_numbers(report) == dict(registers=96, stack=8, spills=8)
+
+
+def test_phase_field12_on_cpu(small_smoke, capsys):
+    """Phase 10's comparisons at 16 lanes: K8 against its plain version (both
+    plain here) for every case at widths 1, 7 and 16, canonical against
+    v mod p on the 264-bit domain, the tool's two kernels against their
+    plain chains; the rows, bounds and launch bookkeeping."""
+    rows = small_smoke.phase_field12(0, "cpu")
+    assert set(rows) == set(small_smoke.TUNING_KERNELS)
+    for name, row in rows.items():
+        assert ROW_KEYS <= set(row) and row["max_abs_err"] == 0, name
+        assert row["bound_ms"] > 0 and row["bound_by"] in ("bytes", "operations"), name
+        assert row["extra"]["compare_launches"] == 0, name  # plain on the CPU: no launch
+    assert rows["field12"]["ops"] == 16 * 64 * 253 and rows["field12"]["bound_by"] == "operations"
+    assert rows["field12_mul"]["ops"] == 16 * 484 and rows["field_sqr_n"]["ops"] == 16 * 64 * 55
+    assert rows["alu_chain"]["ops"] == 64 * 64 * 16  # one IMAD a step of op 1
+    assert rows["field12_sub"]["bound_by"] == rows["field12_canonical"]["bound_by"] == "bytes"
+    out = capsys.readouterr().out
+    assert "K8: uint32 limbs identical to the plain version at widths [1, 7, 16]" in out
+    for label in ("'mul lazy'", "'sub lazy'", "'canonical 264-bit'", "'sqr_n 64 of products'"):
+        assert label in out
+    assert "canonical equal to v mod p on the 264-bit domain" in out
+
+
+def test_phase_wide_compare_on_cpu(small_smoke, capsys):
+    """Phase 10's hold of K2, K3, K1 and K4 at the tool's chunk widths, cut
+    to 16, 8 and 4 lanes: the plain versions on both sides here, so this
+    holds the inputs, the cuts and K4's mask known by construction."""
+    launches = small_smoke.phase_wide_compare(0, "cpu", (16, 8, 4))
+    assert set(KEYS) <= set(launches) and not any(launches.values())  # plain on the CPU: no launch
+    out = capsys.readouterr().out
+    assert "K2, K3, K1, K4 at the tool's chunk widths [16, 8, 4]: identical to their plain versions" in out
+
+
+def test_field12_inputs_cover_the_edges(small_smoke):
+    from hotstuff_tpu_torch.ops import field12 as f12
+
+    t, cs = small_smoke.field12_inputs(0, "cpu")
+    P = f12.P
+    assert f12.int_of_limbs(t["x"])[:4] == [0, 1, P - 1, 2**255 - 20]
+    assert cs[:6] == [P, P + 1, 2 * P - 1, 2 * P, 2**264 - 1, 500 * P + 7]
+    assert int(t["lazy"].max()) > f12.MASK  # one lazy add runs limbs past 12 bits
+    assert all(v.shape == (22, LANES) for v in t.values())
+
+
+def test_tune_rows_launch_checks_and_entry_ptxas():
+    rows = ["# devices: cpu", "vpu f32 mul+add 1", "vpu i32 mul+add 1", "vpu u32 xor/shift/add 1",
+            "field int32 radix-2^25.5 1", "field u32 radix-2^12 1", "field check: both rows equal v",
+            "phase decompress         fused into K3", "phase decompress+table 1", "phase ladder 1",
+            "phase compress 1", "phase sha512+modL (dh) 1", "phase full verify 1", "chunk  2048 (bucket 8192)",
+            "dh-compare host-hash 1", "dh-compare device-hash 1", "# launches: {}"]
+    assert chip_smoke.tune_missing(rows, 1) == []
+    assert chip_smoke.tune_missing(rows[:4] + rows[5:], 2) == ["field int32 radix-2^25.5", "2 chunk rows (1 printed)"]
+    assert chip_smoke.off_path_errors({"a": {"field12": 0, "alu_chain": 3}}, chip_smoke.TUNING_KERNELS) == [
+        "a: alu_chain launched 3 times"]
+    report = ("ptxas info : Compiling entry function '_ZN3_GLOBAL24field12_canonical_kernelEPKjPji' | "
+              "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | Used 64 registers | "
+              "ptxas info : Compiling entry function '_ZN3_GLOBAL14field12_kernelEPKjPjii' | "
+              "0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads | Used 56 registers")
+    assert chip_smoke.ptxas_numbers(chip_smoke.entry_ptxas(report, "field12")) == dict(
+        registers=56, stack=0, spills=16)
+    assert chip_smoke.ptxas_numbers(chip_smoke.entry_ptxas(report, "field12_canonical"))["registers"] == 64
+
+
+def test_phase_tune_on_cpu(capsys):
+    """Phase 10's run of the tuning tool, on the CPU with its small sizes:
+    exit 0, every leg's rows echoed, the launch line read back."""
+    assert chip_smoke.phase_tune("cpu") == {}
+    out = capsys.readouterr().out
+    assert "tune_device| field check: both rows equal v^(2^4) mod p on all 16 lanes" in out
+    assert "tune_device --all: exit 0, every leg's rows" in out

@@ -15,7 +15,8 @@ import torch
 import hotstuff_tpu_torch
 from hotstuff_tpu_torch import resolve_device
 from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
-from hotstuff_tpu_torch.ops import _build, bit_ladder, bls, committee, ladder, sha512
+from hotstuff_tpu_torch import tune_device
+from hotstuff_tpu_torch.ops import _build, bit_ladder, bls, committee, field, field12, ladder, sha512
 from hotstuff_tpu_torch.ops import ed25519 as ted
 
 REPO = Path(__file__).resolve().parents[1]
@@ -50,7 +51,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.ops.pipeline", "hotstuff_tpu_torch.ops.timeline",
                 "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh",
                 "hotstuff_tpu_torch.crypto.native_staging", "hotstuff_tpu_torch.ops.bls",
-                "hotstuff_tpu_torch.crypto.aggsig", "hotstuff_tpu_torch.ops.bit_ladder"):
+                "hotstuff_tpu_torch.crypto.aggsig", "hotstuff_tpu_torch.ops.bit_ladder",
+                "hotstuff_tpu_torch.ops.field12", "hotstuff_tpu_torch.tune_device"):
         assert mod in res["modules"]
 
 
@@ -149,6 +151,42 @@ def test_bit_ladder_off_the_cpu_launches_k7_never_the_plain_version(monkeypatch)
     assert calls == ["K3", "K7", "K4", "K3", "K1", "K4"]
 
 
+def test_field12_off_the_cpu_launches_k8_never_the_plain_version(monkeypatch):
+    """A non-CPU tensor goes to K8's checks and launch (stubbed here: there
+    is no card), never to a plain version; unstubbed, the checks refuse a
+    tensor on a device that is not a card. The tuning tool's two kernels
+    (`field.sqr_chain`, `tune_device.alu_chain`) do the same."""
+    meta = lambda *shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device="meta")
+    for wrapper, args in ((field12.mul, (meta(22, 8), meta(22, 8))), (field12.sub, (meta(22, 8), meta(22, 8))),
+                          (field12.canonical, (meta(22, 8),)), (field12.sqr_n, (meta(22, 8), 64)),
+                          (field.sqr_chain, (meta(10, 8), 64)), (tune_device.alu_chain, (meta(64, 8), 1, 64))):
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            wrapper(*args)
+
+    def plain(*a):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    for name in ("mul_plain", "sub_plain", "canonical_plain", "sqr_n_plain", "sqr_plain"):
+        monkeypatch.setattr(field12, name, plain)
+    monkeypatch.setattr(field, "sqr_n", plain)
+    monkeypatch.setattr(tune_device, "alu_chain_plain", plain)
+    launched = []
+    monkeypatch.setattr(_build, "check", lambda t, shape, dtype, dev: launched.append(("check", tuple(shape), dtype)))
+    for name in ("field12", "field12_mul", "field12_sub", "field12_canonical", "field_sqr_n", "alu_chain"):
+        monkeypatch.setattr(_build.KERNELS[name], "launch",
+                            lambda *a, name=name: launched.append((name, *(x for x in a if isinstance(x, int)))))
+    a, b = meta(22, 8), meta(22, 8)
+    for out in (field12.mul(a, b), field12.sub(a, b), field12.canonical(a), field12.sqr_n(a, 64), field12.sqr(a)):
+        assert out.device.type == "meta" and out.shape == (22, 8) and out.dtype == torch.int32
+    assert field.sqr_chain(meta(10, 8), 64).shape == (10, 8)
+    assert tune_device.alu_chain(meta(64, 8, dtype=torch.float32), 0, 64).dtype == torch.float32
+    i32 = ("check", (22, 8), torch.int32)
+    assert launched == [i32, i32, ("field12_mul", 8), i32, i32, ("field12_sub", 8), i32, ("field12_canonical", 8),
+                        i32, ("field12", 64, 8), i32, ("field12", 1, 8),
+                        ("check", (10, 8), torch.int32), ("field_sqr_n", 64, 8),
+                        ("check", (64, 8), torch.float32), ("alu_chain", 0, 64, 512)]
+
+
 def test_check_rejects_bad_tensors():
     dev = torch.device("cuda", 0)
     t = torch.empty((4, 4), dtype=torch.uint8)
@@ -169,6 +207,11 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_sources_and_kernels_listed():
     csrc = sorted(p.name for p in _build.CSRC.iterdir())
     assert csrc == sorted(["field.cuh", "quad.cuh", "split_field.cuh"] + [f"{n}.cu" for n in _build.NAMES])
+    assert {"field12.cu", "field_sqr_n.cu", "alu_chain.cu"} <= set(csrc)
+    for name in ("field12", "field12_mul", "field12_sub", "field12_canonical"):
+        assert _build.KERNELS[name].source == "field12"
+        assert f"extern \"C\" int hs_{name}(" in (_build.CSRC / "field12.cu").read_text()
+    assert _build.KERNELS["field_sqr_n"].source == "field_sqr_n" and _build.KERNELS["alu_chain"].source == "alu_chain"
     assert len(_build.source_hash()) == 16
 
 
