@@ -150,8 +150,9 @@ caught:
      aggregation and pairing. Fails on any difference, never on speed.
   9. the f32-argument path (`packed=False`): K7 `bit_ladder` against its
      plain version on the same CUDA tensors (random bits, K3's table of
-     random keys) at widths 7, 1,000, 4,096 and 8,192 (max_bucket, the
-     width of the f32 path's pieces), exactly (raw limbs, tolerance 0),
+     random keys) at widths 7, 1,001 (tail quads), 4,096 and 8,192
+     (max_bucket, the width of the f32 path's pieces), exactly (raw limbs,
+     tolerance 0),
      timed at 128, 4,096 and 8,192 lanes with its ptxas line (registers,
      stack, spills), its bound from this run's bits and its share; then
      phase 3's 16,384-lane batch through
@@ -2725,7 +2726,8 @@ def bls_off_path_errors(launch_sets: dict) -> list[str]:
 
 # --- phase 9: the f32-argument path and kernel K7 ----------------------------
 
-F32_WIDTHS = (7, 1000)  # K7 against its plain version at these widths beside LANES and MAX_BUCKET
+F32_WIDTHS = (7, 1001)  # K7 against its plain version at these widths beside LANES and MAX_BUCKET
+# (neither a whole number of K7's 8-lane blocks: each puts a tail quad on the card)
 F32_KERNELS = ("bits", "w4", "pallas")
 F32_MESH_KERNELS = ("bits", "w4")
 F32_ITERS = 3  # timed batches per flavour
@@ -2739,8 +2741,8 @@ F32_LEG_KERNELS = {
 # K7's limb products (csrc/bit_ladder.cu), one IMAD.WIDE each: a doubling
 # is 4 squares (55 products) and 4 products (100); a mixed add 7 products.
 # Every lane doubles 253 times; the function adds B or -A only where a bit
-# is set, so the bound counts this run's set bits (a warp issues an add
-# whenever any of its lanes has the bit set: about every step).
+# is set, so the bound counts this run's set bits (the kernel runs both
+# adds on every step and selects, as the reference does).
 BIT_DBL_PRODUCTS = 4 * 55 + 4 * 100
 BIT_MADD_PRODUCTS = 7 * 100
 

@@ -1,6 +1,7 @@
-"""The ladder kernels (K1 `ladder`, K5 `committee_ladder`), K3
-`decompress_table`, K4 `compress_eq`, K2 `h_digits` and K2g `h_digits_idx`
-of this checkout beside the same kernels of other checkouts, on one card.
+"""The ladder kernels (K1 `ladder`, K5 `committee_ladder`, K7
+`bit_ladder`), K3 `decompress_table`, K4 `compress_eq`, K2 `h_digits` and
+K2g `h_digits_idx` of this checkout beside the same kernels of other
+checkouts, on one card.
 
     python3 -m hotstuff_tpu_torch.ladder_ab [--csrc NAME=DIR ...] [--reps 3]
 
@@ -10,15 +11,17 @@ edit), built with the flags of `ops/_build.py`. For each build, per
 kernel: ptxas' registers, spills and stack frame, and SASS instructions by
 opcode (`cuobjdump -sass`): for the ladders, K3 and K4 those of the
 kernel's longest loop body (its longest backward branch; the 64-group loop
-of a ladder, the `split_sq_n` / `fe_sq_n` squaring loop of K4, so one
-squaring per thread, K3's loop over table entries); for K2 and K2g, which
-have no loop once unrolled, the whole kernel function. Then every build's
-output must equal this checkout's (ladders: raw limbs and `lane_valid`; K3: raw limbs and
-valid; K4: the mask; K2 / K2g: the digits), and the builds are timed in
-turns at 128 and 4,096 lanes: CUDA events over several launches as the host
-issues them (`events_ms`), and over launches queued behind a spin kernel,
-which leaves the host's launch time out (`queued_ms`). The last line is
-one JSON object with all of it, beside the card's name and power limit.
+of K1 and K5, K7's 253-step loop, the `split_sq_n` / `fe_sq_n` squaring
+loop of K4, so one squaring per thread, K3's loop over table entries); for
+K2 and K2g, which have no loop once unrolled, the whole kernel function.
+Then every build's output must equal this checkout's (ladders: raw limbs
+and `lane_valid`; K3: raw limbs and valid; K4: the mask; K2 / K2g: the
+digits), and the builds are timed in turns at 128 and 4,096 lanes (K7 at
+8,192 too, the f32 path's piece): CUDA events over several launches as
+the host issues them (`events_ms`), and over launches queued behind a spin
+kernel, which leaves the host's launch time out (`queued_ms`). The last
+line is one JSON object with all of it, beside the card's name and power
+limit.
 Needs a CUDA card and `nvcc`.
 """
 
@@ -40,7 +43,8 @@ from .ops import _build
 from .ops import ed25519 as ed
 from .ops import field, ladder
 
-SOURCES = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits", "h_digits_idx")
+SOURCES = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits", "h_digits_idx",
+           "bit_ladder")
 # Kernels counted over their whole function (no loop once unrolled): the
 # cuobjdump function names of this checkout's build and of earlier ones.
 WHOLE_FUNCTION = {
@@ -48,6 +52,7 @@ WHOLE_FUNCTION = {
     "h_digits_idx": r"h_digits_(idx_kernel|kernelILb1E)",
 }
 WIDTHS = (128, 4096)
+WIDTHS_OF = {"bit_ladder": (128, 4096, 8192)}  # K7 also at the f32 path's piece
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)")
 _FUNCTION = re.compile(r"Function : (\S+)")
@@ -108,8 +113,8 @@ def inputs(seed: int, lanes: int, dev) -> dict:
     """Random digits, random keys (about half decompress) and K3's table of
     them, a 64-validator committee table with random indices (every 97th
     out of range), K4's inputs: K1's points, R rows that match them on
-    every even lane, valid on all but every seventh lane; and K2's R and M
-    rows."""
+    every even lane, valid on all but every seventh lane; K2's R and M
+    rows; and K7's (253, lanes) bits of s and h."""
     rng = np.random.default_rng(seed)
     digits = lambda: torch.from_numpy(rng.integers(0, 16, (64, lanes), np.uint8)).to(dev)
     keys = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
@@ -125,7 +130,10 @@ def inputs(seed: int, lanes: int, dev) -> dict:
     r[:, ::2] = ed.compress(xyzt)[:, ::2]
     valid = torch.tensor([i % 7 != 5 for i in range(lanes)], device=dev)
     m = torch.from_numpy(rng.integers(0, 256, (32, lanes), np.uint8)).to(dev)
-    return dict(keys=keys, sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid, m=m)
+    bits = lambda: torch.from_numpy(rng.integers(0, 2, (ed.SCALAR_BITS, lanes), np.uint8)).to(dev)
+    sb, hb = bits(), bits()
+    return dict(keys=keys, sd=sd, hd=hd, table=table, ct=ct, idx=idx, xyzt=xyzt, r=r, valid=valid, m=m,
+                sb=sb, hb=hb)
 
 
 def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
@@ -156,6 +164,9 @@ def runner(kernel: _build.Kernel, src: str, x: dict, w: int):
     if src == "ladder":
         table = cut(x["table"])
         return out, None, lambda: kernel.launch(sd, hd, base, table, out, w)
+    if src == "bit_ladder":
+        sb, hb, table = cut(x["sb"]), cut(x["hb"]), cut(x["table"])
+        return out, None, lambda: kernel.launch(sb, hb, base, table, out, w)
     ct, idx = x["ct"], cut(x["idx"])
     valid = torch.empty((w,), dtype=torch.bool, device=dev)
     return out, valid, lambda: kernel.launch(sd, hd, base, ct.entries, ct.valid, idx, out, valid, ct.size, w)
@@ -193,9 +204,9 @@ def main() -> int:
             kernels[name, src] = _build.Kernel(src, source_of(src), lib=lib)
             print(f"{name} {src}: {row}", flush=True)
 
-    x = inputs(args.seed, max(WIDTHS), dev)
+    x = inputs(args.seed, max(max(w) for w in (WIDTHS, *WIDTHS_OF.values())), dev)
     for src in SOURCES:
-        for w in WIDTHS:
+        for w in WIDTHS_OF.get(src, WIDTHS):
             runs = {name: runner(kernels[name, src], src, x, w) for name in builds}
             for _, _, run in runs.values():
                 run()

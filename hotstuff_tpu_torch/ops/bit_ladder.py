@@ -5,8 +5,10 @@ Counterpart of the ladder in `hotstuff_tpu/ops/ed25519.py:_verify_kernel`
 (`:599-626`, jitted as `_verify_jit`): from the identity, for bit i = 252
 down to 0, a doubling, then a mixed add of B where bit i of s is set and a
 mixed add of -A where bit i of h is set. The plain version takes the
-reference's form (both adds on every lane, then a per-lane select); the
-kernel branches on the bit instead, which leaves the same limbs.
+reference's form (both adds on every lane, then a per-lane select), and so
+does the kernel, four threads a signature on `csrc/quad.cuh`: a quad may
+not skip an add its warp runs, so it keeps the same limbs by the same
+select.
 
 -A's affine precomp (y+x, y-x, 2d*x*y) is entry 1 of K3's cached table
 (k = 1, Z = 1): components 0, 1 and 3 of `ed.build_neg_a_table`'s output,

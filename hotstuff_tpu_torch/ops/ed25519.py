@@ -21,6 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..crypto import native_staging
 from . import _build
 from . import field as f
@@ -179,7 +180,8 @@ def decompress_int(key: bytes) -> tuple[int, int] | None:
 
 class CommitteeTable:
     """Per-validator k*(-A) tables, built once per committee and kept on
-    `device` (as `CommitteeTable`, hotstuff_tpu/ops/ed25519.py:349-409).
+    `device` (as `CommitteeTable`, hotstuff_tpu/ops/ed25519.py:349-409):
+    the card unless `device="cpu"`; no card raises.
 
     N = committee size:
       entries : (N, 16, 3, NL) int32 canonical limbs of the affine precomp
@@ -196,7 +198,8 @@ class CommitteeTable:
     table to that copy, this table's own device to itself; the mesh verifier
     (`parallel/mesh.py`) adds one copy per device of its mesh with `to`."""
 
-    def __init__(self, keys: Sequence[bytes], device: str | torch.device = "cpu") -> None:
+    def __init__(self, keys: Sequence[bytes], device: str | torch.device | None = None) -> None:
+        dev = resolve_device(device)
         keys = [bytes(k) for k in keys]
         if not keys:
             raise ValueError("committee must have at least one key")
@@ -222,7 +225,6 @@ class CommitteeTable:
                 cols[c].extend(row[c] for row in rows)
         # limbs_of_int gives (NL, N*16) with column v*16 + k.
         ta = torch.stack([f.limbs_of_int(c).view(NL, n, 16) for c in cols])  # (3, NL, N, 16)
-        dev = torch.device(device)
         self.entries = ta.permute(2, 3, 0, 1).to(torch.int32).contiguous().to(dev)
         self.valid = torch.tensor(valid, dtype=torch.bool, device=dev)
         self.keys_u8 = torch.from_numpy(

@@ -167,19 +167,21 @@ def test_verify_args_rejects_an_unknown_kernel(corpus):
         ladder.verify_args(*(torch.from_numpy(a) for a in ted.kernel_args(staged, WIDTH, "w4")), kernel="w8")
 
 
-def test_bit_ladder_plain_equals_python_int_double_and_add():
+@pytest.mark.parametrize("lanes", [4, 9])
+def test_bit_ladder_plain_equals_python_int_double_and_add(lanes):
     """[s]B + [h](-A) by Python ints (pysigner's extended-coordinate adds)
-    against `bit_ladder_plain` on 4 lanes of random 253-bit s and h, -A from
-    K3's plain table; the output's T is X Y / Z."""
+    against `bit_ladder_plain` on lanes of random 253-bit s and h (9: not a
+    whole number of K7's 8-lane blocks), -A from K3's plain table; the
+    output's T is X Y / Z."""
     rng = np.random.default_rng(13)
-    keys = [pysigner.keypair_from_seed(bytes(rng.integers(0, 256, 32, np.uint8)))[0] for _ in range(4)]
-    a_bytes = torch.from_numpy(np.frombuffer(b"".join(keys), np.uint8).reshape(4, 32).T.copy())
+    keys = [pysigner.keypair_from_seed(bytes(rng.integers(0, 256, 32, np.uint8)))[0] for _ in range(lanes)]
+    a_bytes = torch.from_numpy(np.frombuffer(b"".join(keys), np.uint8).reshape(lanes, 32).T.copy())
     table, valid = ted.decompress_table_plain(a_bytes)
     assert valid.all()
-    s_bits = torch.from_numpy(rng.integers(0, 2, (ted.SCALAR_BITS, 4), np.uint8))
-    h_bits = torch.from_numpy(rng.integers(0, 2, (ted.SCALAR_BITS, 4), np.uint8))
+    s_bits = torch.from_numpy(rng.integers(0, 2, (ted.SCALAR_BITS, lanes), np.uint8))
+    h_bits = torch.from_numpy(rng.integers(0, 2, (ted.SCALAR_BITS, lanes), np.uint8))
     out = bl.bit_ladder_plain(s_bits, h_bits, table)
-    assert out.dtype == torch.int32 and out.shape == (4, field.NL, 4)
+    assert out.dtype == torch.int32 and out.shape == (4, field.NL, lanes)
     assert torch.equal(bl.bit_ladder(s_bits, h_bits, table), out)
     X, Y, Z, T = (field.int_of_limbs(out[c]) for c in range(4))
     for lane, key in enumerate(keys):

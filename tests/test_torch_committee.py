@@ -97,7 +97,7 @@ def _vals(entries, v):
 def test_committee_table_matches_jax():
     _, pk2 = _signer(2)
     keys = [PK, pk2, PK, NO_SQRT, Y0_GE_P, Y1_GE_P, X0_SIGN, (2**256 - 1).to_bytes(32, "little")]
-    ours = ted.CommitteeTable(keys)
+    ours = ted.CommitteeTable(keys, device="cpu")
     ref = jed.CommitteeTable(keys)
     entries, valid, keys_u8 = convert.committee_table_from_jax(ref)
     assert ours.size == ref.size == len(keys)
@@ -114,13 +114,13 @@ def test_committee_table_matches_jax():
     assert _vals(ours.entries, 3) == ([[1]] + [[0]] * 15) * 2 + [[0]] * 16
     assert [pysigner._pt_decompress(k) is None for k in (Y0_GE_P, Y1_GE_P, X0_SIGN)] == [True] * 3
     with pytest.raises(ValueError):
-        ted.CommitteeTable([])
+        ted.CommitteeTable([], device="cpu")
 
 
 def test_committee_table_entries_are_multiples():
     """Entry k of validator v is k*(-A_v) in affine precomp form."""
     _, pk2 = _signer(3)
-    ct = ted.CommitteeTable([PK, pk2])
+    ct = ted.CommitteeTable([PK, pk2], device="cpu")
     for v, key in enumerate((PK, pk2)):
         x, y = ted.decompress_int(key)
         neg, cur = ((P - x) % P, y), (0, 1)
@@ -137,7 +137,7 @@ def test_committee_table_entries_are_multiples():
 def test_h_digits_gather_plain():
     rng = np.random.default_rng(5)
     keys = [bytes(r) for r in rng.integers(0, 256, (5, 32), np.uint8)]
-    ct = ted.CommitteeTable(keys)
+    ct = ted.CommitteeTable(keys, device="cpu")
     r, m = (torch.from_numpy(rng.integers(0, 256, (32, 9), np.uint8)) for _ in range(2))
     idx = torch.tensor([0, 4, 2, -1, 5, 1000, 3, 3, 1], dtype=torch.int32)
     got = tsha.h_digits_gather(r, ct.keys_u8, idx, m)  # CPU: the plain version
@@ -178,7 +178,7 @@ def test_committee_ladder_matches_jax():
     assert ours.tolist() == np.asarray(ref).tolist()
     assert ours[::2].tolist() == lane_valid[::2].tolist() and not ours[1::2].any()
     # the kernel wrapper on CPU tensors is the plain version
-    ct = ted.CommitteeTable(keys)
+    ct = ted.CommitteeTable(keys, device="cpu")
     p2, lv2 = tcm.committee_ladder(torch.from_numpy(sd), torch.from_numpy(hd), ct, torch.from_numpy(idx))
     assert torch.equal(p2, point) and torch.equal(lv2, lane_valid)
 
@@ -186,7 +186,7 @@ def test_committee_ladder_matches_jax():
 def test_committee_ladder_out_of_range_lanes():
     """An index outside [0, N) takes the clamped validator's table and is
     masked: lane_valid False, point as for the clamped index."""
-    ct = ted.CommitteeTable([PK, Y0_GE_P])
+    ct = ted.CommitteeTable([PK, Y0_GE_P], device="cpu")
     rng = np.random.default_rng(8)
     sd = torch.from_numpy(rng.integers(0, 16, (64, 6), np.uint8))
     hd = torch.from_numpy(rng.integers(0, 16, (64, 6), np.uint8))
@@ -203,7 +203,7 @@ def test_committee_ladder_out_of_range_lanes():
 @pytest.mark.parametrize("msg_len", [32, 33], ids=["device_hash", "host_hash"])
 def test_verify_committee96_matches_jax(msg_len):
     msgs, keys, sigs, want = _vote_batch(msg_len, seed=msg_len)
-    ct = ted.CommitteeTable(COMMITTEE)
+    ct = ted.CommitteeTable(COMMITTEE, device="cpu")
     jct = jed.CommitteeTable(COMMITTEE)
     indices = [ct.index[k] for k in keys]
     if msg_len == 32:

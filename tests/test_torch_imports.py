@@ -81,7 +81,7 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch():
         ted.compress_eq(meta(4, 10, 8, dtype=torch.int32), meta(32, 8), meta(8, dtype=torch.bool))
     with pytest.raises(ValueError, match="expected a tensor on"):
         sha512.h_digits_gather(meta(32, 8), meta(32, 3), meta(8, dtype=torch.int32), meta(32, 8))
-    table = ted.CommitteeTable([bytes(32)] * 3)  # tables on the CPU, digits elsewhere
+    table = ted.CommitteeTable([bytes(32)] * 3, device="cpu")  # tables on the CPU, digits elsewhere
     with pytest.raises(ValueError, match="expected a tensor on"):
         committee.committee_ladder(meta(64, 8), meta(64, 8), table, meta(8, dtype=torch.int32))
     assert _build.launches() == {name: 0 for name in _build.KERNELS}
@@ -103,6 +103,16 @@ def test_bls_table_has_no_host_fallback(monkeypatch):
     with pytest.raises(ValueError, match="expected a tensor on"):
         bls.mont_mul_device(meta(12, 4), meta(12, 4))
     assert _build.launches() == {name: 0 for name in _build.KERNELS}
+
+
+def test_ed25519_committee_table_asks_for_the_card(monkeypatch):
+    """The ed25519 `CommitteeTable` is placed as every entry point is: on
+    the card unless `device="cpu"` is asked for, so without a card the
+    default raises, as the BLS table's does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ted.CommitteeTable([bytes(32)] * 3)
+    assert ted.CommitteeTable([bytes(32)] * 3, device="cpu").entries.device.type == "cpu"
 
 
 def test_bits_verifier_on_the_card_without_one_raises(monkeypatch):

@@ -170,7 +170,7 @@ def test_plain_sharded_functions_join_shard_masks_in_lane_order():
     generic = ted.prepare_batch_packed_dh(msgs, [committee[i] for i in idx], sigs)
     got = sharded_packed(mesh, torch.from_numpy(generic["packed"]), device_hash=True)
     assert got.tolist() == device_want and (got.numpy() & generic["s_ok"]).tolist() == want
-    table = replicate(ted.CommitteeTable(committee), mesh.distinct)
+    table = replicate(ted.CommitteeTable(committee, device="cpu"), mesh.distinct)
     st = ted.prepare_batch_committee_dh(msgs, idx, sigs)
     got = sharded_committee(mesh, table, torch.from_numpy(st["idx"]), torch.from_numpy(st["packed"]), device_hash=True)
     assert got.tolist() == device_want
