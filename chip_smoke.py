@@ -8,8 +8,8 @@ caught:
   1. the card line (`nvidia-smi` name, power limit), then build every CUDA
      kernel from `hotstuff_tpu_torch/ops/csrc/` (nvcc, sm_90a); fails when
      ptxas reports spill bytes for either ladder kernel, K3, K4, K2 / K2g,
-     K7 or K8 (the ptxas lines of K6 and of the tuning tool's
-     `hs_field_sqr_n` and `hs_alu_chain` are printed, not gated);
+     K6, K7 or K8, or a stack frame for K6 (the ptxas lines of the tuning
+     tool's `hs_field_sqr_n` and `hs_alu_chain` are printed, not gated);
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at 4,096 lanes, exactly (integer outputs, tolerance 0); K3
      `decompress_table` (raw limbs and valid, on random and special keys),
@@ -140,14 +140,17 @@ caught:
      the special pairs) through `aggregate_masks`, then `verify_aggregate`
      at 64 and 256 validators with a signature under the summed secret
      (right message, wrong message, the invalid lane, the empty bitmap),
-     with the launch counts read around them: K6 once per aggregation,
-     nothing else. Every sum must equal the exact `add_affine` fold (in a
-     spawn pool), every verdict the expected one, and K6 its plain version
-     limb for limb at every size with B = 1,024 and B = 1; then K6's ms at
-     256 validators (B = 1,024 and 1), the plain version's, the bound,
-     `aggregate_masks`' wall split into the kernel and the host's affine
-     conversion, the table builds and `verify_aggregate`'s split into
-     aggregation and pairing. Fails on any difference, never on speed.
+     with the launch counts read around them: K6's affine entry
+     (`hs_g1_aggregate_affine`) once per aggregation, nothing else. Every
+     sum must equal the exact `add_affine` fold (in a spawn pool), every
+     verdict the expected one, and both K6 entries (the fold alone,
+     `hs_g1_aggregate`, and the affine one) their plain versions limb for
+     limb and flag for flag at every size with B = 1,024 and B = 1; then
+     each entry's ms at 256 validators (B = 1,024 and 1), the plain
+     versions', the bounds and shares, `aggregate_masks`' wall split into
+     the mask upload and the affine K6, the readback and `affine_of_limbs`,
+     the table builds and `verify_aggregate`'s split into aggregation and
+     pairing. Fails on any difference, never on speed.
   9. the f32-argument path (`packed=False`): K7 `bit_ladder` against its
      plain version on the same CUDA tensors (random bits, K3's table of
      random keys) at widths 7, 1,001 (tail quads), 4,096 and 8,192
@@ -188,7 +191,8 @@ caught:
      hotstuff_tpu_torch.tune_device --all` as a user runs it, in its own
      process with a time limit: it must exit 0, print every leg's rows and
      launch its kernels (its last line counts them; these are the K8 rows'
-     `launches`). Phases 2-9 must launch K8 and the tool's kernels 0 times.
+     `launches`). Phases 2-9 must launch K8 and the tool's kernels 0 times,
+     and phases 9-10 the BLS kernels 0 times.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
 Exits non-zero without a result when no CUDA device is available or the
@@ -239,11 +243,24 @@ H_DIGITS_OPS_PER_LANE = 2 * (64 * 13 + 80 * 24) + 2 * 32 * 20
 REDUCE_OPS_PER_LANE = (50 + 25 + 5) + (13 + 9 + 9 + 9)
 # K6 (csrc/g1_aggregate.cu): a Montgomery product on 12 x 32-bit limbs is
 # 12 x 12 products of a x b, 12 x 12 of m x p and 12 digit factors, 300
-# IMAD.WIDE; each member of a row beyond its first costs one mixed add,
-# 7M + 4S = 11 products. Counted from the mask, whatever the kernel issues,
-# so a redesign is read against the same work.
+# IMAD.WIDE; a squaring needs only the 12 x 13 / 2 distinct products of
+# a x a (234); a product by the integer 1, which leaves Montgomery form, only
+# the reduction (156). Each member of a row beyond its first costs one mixed
+# add, 7M + 4S. Counted from the mask, whatever the kernel issues, so a
+# redesign is read against the same work. The affine entry adds, at its
+# least, a batch inversion over the rows whose sum is not the identity:
+# 3 products a row (Montgomery's trick) and one chain Z^(p - 2) a launch,
+# the ops/bls.py INV_WINDOWS chain (its odd powers, 1 squaring and 15
+# products; 377 squarings and 67 products); then a row's zi^2, zi^3,
+# x zi^2, y zi^3 and two products by 1. The kernel runs the chain on every
+# row instead (466 products a row), more work than this count.
 BLS_OPS_PER_PRODUCT = 12 * 12 + 12 * 12 + 12
-BLS_OPS_PER_MEMBER = 11 * BLS_OPS_PER_PRODUCT
+BLS_OPS_PER_SQUARE = 12 * 13 // 2 + 12 * 12 + 12
+BLS_OPS_PER_REDUCTION = 12 * 12 + 12
+BLS_OPS_PER_MEMBER = 7 * BLS_OPS_PER_PRODUCT + 4 * BLS_OPS_PER_SQUARE
+BLS_CHAIN_SQUARES, BLS_CHAIN_PRODUCTS = 1 + 377, 15 + 67
+BLS_OPS_PER_CHAIN = BLS_CHAIN_SQUARES * BLS_OPS_PER_SQUARE + BLS_CHAIN_PRODUCTS * BLS_OPS_PER_PRODUCT
+BLS_OPS_PER_AFFINE = (3 + 3) * BLS_OPS_PER_PRODUCT + BLS_OPS_PER_SQUARE + 2 * BLS_OPS_PER_REDUCTION
 
 RFC8032_VECTORS = [  # (public key, message, signature), RFC 8032 section 7.1
     ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
@@ -314,6 +331,9 @@ def phase_build() -> float:
     for name in NO_SPILL:
         if _build.spill_bytes(report[name]):
             fail(f"ptxas reports spills for {name}: {report[name]}")
+    for name in NO_STACK:
+        if _build.stack_bytes(report[name]):
+            fail(f"ptxas reports a stack frame for {name}: {report[name]}")
     return secs
 
 
@@ -695,7 +715,8 @@ def _host_hash_batch(pool):
 
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
 NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits",
-            "bit_ladder", "field12")  # ptxas: 0 spill bytes
+            "bit_ladder", "field12", "g1_aggregate")  # ptxas: 0 spill bytes
+NO_STACK = ("g1_aggregate",)  # ptxas: 0 bytes stack frame in every function
 
 
 def phase_main_path(seed: int) -> dict:
@@ -2461,77 +2482,24 @@ def _bls_fold(args: tuple[list, list[list[int]]]) -> list:
     return out
 
 
-def _bls_keypair(seed: bytes) -> tuple[bytes, int]:
-    from hotstuff_tpu_torch.crypto import aggsig
-
-    return aggsig.ExactBlsScheme().keypair_from_seed(seed)
-
-
-def bls_bad_key() -> bytes:
-    """A compressed 48-byte G1 encoding whose x has no point: the smallest
-    x with x^3 + 4 a non-square mod p."""
-    from hotstuff_tpu_torch.crypto import aggsig
-
-    p = aggsig.P
-    x = next(x for x in range(1, 64) if pow(x**3 + aggsig.B_G1, (p - 1) // 2, p) != 1)
-    return bytes([0x80]) + x.to_bytes(47, "big")
-
-
-def bls_table_keys(pairs: list, n: int) -> tuple[list[bytes], list, dict[str, tuple[int, ...]]]:
-    """n committee keys from `pairs` ((key, secret) pairs), each lane's
-    secret beside it (None: no point), and the special lanes: a duplicate
-    key, a key beside its negation and one undecodable key in the last
-    three lanes; above 34 keys also a duplicate and an inverse pair in one
-    partial's lanes (0 and 32, 1 and 33, which K6's threads 0 and 1 fold
-    in turn; at BLS_SIZES the end lanes' pairs meet only in the tree)."""
-    from hotstuff_tpu_torch.crypto import aggsig
-    from hotstuff_tpu_torch.ops import bls
-
-    def neg(k: bytes) -> bytes:
-        return aggsig.compress_g1(aggsig._g1_neg(aggsig.decompress_g1(k)))
-
-    keys, sks = [pk for pk, _ in pairs[:n]], [sk for _, sk in pairs[:n]]
-    dup, inv = min(2, n - 4), min(3, n - 4)
-    keys[n - 3], sks[n - 3] = keys[dup], sks[dup]
-    keys[n - 2], sks[n - 2] = neg(keys[inv]), -sks[inv] % aggsig.R_ORDER
-    keys[n - 1], sks[n - 1] = bls_bad_key(), None
-    lanes = {"dup": (dup, n - 3), "inverse": (inv, n - 2), "invalid": (n - 1,)}
-    t = bls.THREADS
-    if n > t + 2:
-        keys[t], sks[t] = keys[0], sks[0]
-        keys[t + 1], sks[t + 1] = neg(keys[1]), -sks[1] % aggsig.R_ORDER
-        lanes.update(dup_one_partial=(0, t), inverse_one_partial=(1, t + 1))
-    return keys, sks, lanes
-
-
-def bls_rows(seed: int, n: int, lanes: dict, rows: int):
-    """(rows, n) bool bitmap rows and the edge rows' labels: empty, all, a
-    single member, one row per special-lane entry, then random quorums of
-    floor(2n / 3) + 1 members (2f + 1 where n = 3f + 1)."""
-    import numpy as np
-
-    rng = np.random.default_rng([seed, n])
-    labels = ["empty", "all", "single", *lanes]
-    masks = np.zeros((rows, n), bool)
-    masks[1] = True
-    masks[2, int(rng.integers(n))] = True
-    for r, name in enumerate(lanes, 3):
-        masks[r, list(lanes[name])] = True
-    for r in range(len(labels), rows):
-        masks[r, rng.choice(n, 2 * n // 3 + 1, replace=False)] = True
-    return masks, labels
-
-
-def bls_bound(masks, present) -> tuple[int, int]:
+def bls_bound(masks, present, identity=None) -> tuple[int, int]:
     """K6's least work for these rows: (bytes, INT32 operations). Bytes: the
     mask, the table and the output, each once; operations: one mixed add
-    per member beyond a row's first, counted from the mask."""
+    per member beyond a row's first, counted from the mask. With
+    `identity` ((B,) flags, 1 where a row's sum is the identity) the
+    affine entry's: (2, 12) limbs and a flag a row out, and the conversion
+    of every other row, BLS_OPS_PER_AFFINE each and BLS_OPS_PER_CHAIN once."""
     import numpy as np
 
     rows, n = masks.shape
     members = (np.asarray(masks, bool) & np.asarray(present, bool)[None]).sum(1)
     ops = int(np.maximum(members - 1, 0).sum()) * BLS_OPS_PER_MEMBER
-    return rows * n + n * (2 * 12 * 4 + 1) + rows * 3 * 12 * 4, ops
+    table = n * (2 * 12 * 4 + 1)
+    if identity is None:
+        return rows * n + table + rows * 3 * 12 * 4, ops
+    convert = rows - int(np.count_nonzero(np.asarray(identity)))
+    ops += convert * BLS_OPS_PER_AFFINE + (BLS_OPS_PER_CHAIN if convert else 0)
+    return rows * n + table + rows * (2 * 12 * 4 + 1), ops
 
 
 def phase_bls_field(seed: int, device: str = "cuda") -> dict:
@@ -2578,6 +2546,7 @@ def phase_bls(seed: int, device: str = "cuda") -> dict:
     import numpy as np
     import torch
 
+    from hotstuff_tpu_torch import bls_corpus
     from hotstuff_tpu_torch.breakdown import queued_ms
     from hotstuff_tpu_torch.crypto import aggsig
     from hotstuff_tpu_torch.ops import _build, bls
@@ -2586,13 +2555,12 @@ def phase_bls(seed: int, device: str = "cuda") -> dict:
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(BLS_POOL, os.cpu_count() or 1)) as pool:
         t0 = time.perf_counter()
-        seeds = [hashlib.sha256(b"bls validator %d" % i).digest() for i in range(max(BLS_SIZES))]
-        pairs = pool.map(_bls_keypair, seeds)
+        pairs = pool.map(bls_corpus.keypair, bls_corpus.validator_seeds(max(BLS_SIZES)))
         print(f"BLS keys: {len(pairs)} ExactBlsScheme keypairs in {time.perf_counter() - t0:.1f} s", flush=True)
         corpus, folds = {}, {}
         for n in BLS_SIZES:
-            keys, sks, lanes = bls_table_keys(pairs, n)
-            masks, labels = bls_rows(seed, n, lanes, BLS_ROWS)
+            keys, sks, lanes = bls_corpus.table_keys(pairs, n)
+            masks, labels = bls_corpus.bitmap_rows(seed, n, lanes, BLS_ROWS)
             points = [None if sk is None else aggsig.decompress_g1(k) for k, sk in zip(keys, sks)]
             corpus[n] = (keys, sks, lanes, masks, labels, points)
             rows = [np.flatnonzero(r).tolist() for r in masks]
@@ -2633,8 +2601,9 @@ def phase_bls(seed: int, device: str = "cuda") -> dict:
         launches = _build.launches()
         print(f"BLS path launches: {launches}", flush=True)
         want_launches = len(BLS_SIZES) + 3 * len(BLS_VERIFY_SIZES)  # the invalid-lane bitmap is refused first
-        if device == "cuda" and launches != {k: (want_launches if k == "g1_aggregate" else 0) for k in launches}:
-            fail(f"the BLS path did not launch K6 once per aggregation, and nothing else: {launches}")
+        if device == "cuda" and launches != {k: (want_launches if k == "g1_aggregate_affine" else 0)
+                                             for k in launches}:
+            fail(f"the BLS path did not launch K6's affine entry once per aggregation, and nothing else: {launches}")
         for n in BLS_VERIFY_SIZES:
             if verdicts[n] != [v for *_, v in verify[n]]:
                 fail(f"verify_aggregate at N = {n}: verdicts {verdicts[n]}, expected {[v for *_, v in verify[n]]}")
@@ -2650,58 +2619,82 @@ def phase_bls(seed: int, device: str = "cuda") -> dict:
           f"({BLS_ROWS} rows each: random quorums, empty, all, single, duplicate and inverse pairs, invalid lane); "
           f"verify_aggregate verdicts {verdicts} as expected", flush=True)
 
-    # K6 against its plain version on the same tensors, limb for limb.
-    err = 0
+    # Both K6 entries against their plain versions on the same tensors,
+    # limb for limb and flag for flag, at every size and at B = 1.
+    err = err_aff = 0
+    n_top = BLS_SIZES[-1]
     for n in BLS_SIZES:
         t = tables[n]
         rows = torch.from_numpy(corpus[n][3]).to(t.device)
-        got = bls.g1_aggregate(t.tx, t.ty, t.present, rows)
-        one = bls.g1_aggregate(t.tx, t.ty, t.present, rows[-1:].contiguous())
-        if n == BLS_SIZES[-1]:
+        last = rows[-1:].contiguous()
+        got, one = bls.g1_aggregate(t.tx, t.ty, t.present, rows), bls.g1_aggregate(t.tx, t.ty, t.present, last)
+        (lim, flags), (lim1, flags1) = (bls.g1_aggregate_affine(t.tx, t.ty, t.present, r) for r in (rows, last))
+        if n == n_top:
             plain_ms, want = _plain_ms(lambda: bls.g1_aggregate_plain(t.tx, t.ty, t.present, rows))
+            plain_aff_ms, (want_lim, want_flags) = _plain_ms(
+                lambda: bls.g1_aggregate_affine_plain(t.tx, t.ty, t.present, rows))
         else:
             want = bls.g1_aggregate_plain(t.tx, t.ty, t.present, rows)
+            want_lim, want_flags = bls.g1_aggregate_affine_plain(t.tx, t.ty, t.present, rows)
         if not torch.equal(got, want) or not torch.equal(one, want[:, :, -1:]):
             fail(f"K6 g1_aggregate differs from its plain version at N = {n}")
-        err = max(err, _max_abs(got, want))
-    t = tables[BLS_SIZES[-1]]
-    masks = corpus[BLS_SIZES[-1]][3]
+        if not (torch.equal(lim, want_lim) and torch.equal(flags, want_flags)
+                and torch.equal(lim1, want_lim[:, :, -1:]) and torch.equal(flags1, want_flags[-1:])):
+            fail(f"K6 g1_aggregate_affine differs from its plain version at N = {n}")
+        if bls.affine_of_limbs(lim, flags) != sums[n]:
+            fail(f"K6 g1_aggregate_affine at N = {n} differs from aggregate_masks' sums")
+        err = max(err, _max_abs(got, want), _max_abs(one, want[:, :, -1:]))
+        err_aff = max(err_aff, _max_abs(lim, want_lim), _max_abs(flags, want_flags),
+                      _max_abs(lim1, want_lim[:, :, -1:]), _max_abs(flags1, want_flags[-1:]))
+    t = tables[n_top]
+    masks = corpus[n_top][3]
     rows = torch.from_numpy(masks).to(t.device)
-    ms = queued_ms(lambda: bls.g1_aggregate(t.tx, t.ty, t.present, rows), 20)
     last = rows[-1:].contiguous()
+    ms = queued_ms(lambda: bls.g1_aggregate(t.tx, t.ty, t.present, rows), 20)
     ms_b1 = queued_ms(lambda: bls.g1_aggregate(t.tx, t.ty, t.present, last), 20)
+    aff_ms = queued_ms(lambda: bls.g1_aggregate_affine(t.tx, t.ty, t.present, rows), 20)
+    aff_ms_b1 = queued_ms(lambda: bls.g1_aggregate_affine(t.tx, t.ty, t.present, last), 20)
     # aggregate_masks' wall, then its stages run by hand in the same order
-    # (upload and kernel to a synchronize, readback, the affine conversion),
-    # in turns; medians of BLS_WALL_REPS.
+    # (mask upload and the affine K6 to a synchronize, readback, reading the
+    # limbs into ints), in turns; medians of BLS_WALL_REPS.
     walls, stages = [], []
     for _ in range(BLS_WALL_REPS):
         t0 = time.perf_counter()
         t.aggregate_masks(masks)
         walls.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        jac = bls.g1_aggregate(t.tx, t.ty, t.present, torch.from_numpy(masks).to(t.device))
+        lim, flags = bls.g1_aggregate_affine(t.tx, t.ty, t.present, torch.from_numpy(masks).to(t.device))
         if t.device.type == "cuda":
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        host = jac.cpu()
+        lim, flags = lim.cpu(), flags.cpu()
         t2 = time.perf_counter()
-        bls.affine_points(host)
+        bls.affine_of_limbs(lim, flags)
         stages.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
     wall = statistics.median(walls) * 1e3
     device_leg, readback, conv = (statistics.median(x) * 1e3 for x in zip(*stages))
-    bytes_moved, ops = bls_bound(masks, t.present.cpu().numpy())
-    res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bytes=bytes_moved, ops=ops)
-    res["bound_ms"], res["bound_by"] = _bound_ms(bytes_moved, ops)
-    res["extra"] = dict(ms_b1=ms_b1, aggregate_masks_wall_ms=wall, upload_and_kernel_ms=device_leg,
-                        readback_ms=readback, host_conversion_ms=conv, table_build_s=build_s)
-    n = BLS_SIZES[-1]
-    print(f"K6: limbs identical to the plain version at N = {list(BLS_SIZES)} with B = {BLS_ROWS} and B = 1; "
-          f"{ms:.4f} ms at N = {n}, B = {BLS_ROWS}; {ms_b1:.4f} ms at B = 1; plain {plain_ms:.1f} ms; "
-          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, {ops} operations, {bytes_moved} bytes)", flush=True)
-    print(f"aggregate_masks at N = {n}, B = {BLS_ROWS}: {wall:.2f} ms wall (median of {BLS_WALL_REPS}; first call "
-          f"{agg_s[n] * 1e3:.2f} ms); its stages by hand: mask upload and K6 to a synchronize {device_leg:.3f} ms "
-          f"(K6 alone {ms:.4f} ms on the device), readback {readback:.3f} ms, the host's affine conversion "
-          f"{conv:.2f} ms", flush=True)
+    present = t.present.cpu().numpy()
+    res, aff = {}, {}
+    for row, entry_ms, entry_plain, entry_err, identity in ((res, ms, plain_ms, err, None),
+                                                            (aff, aff_ms, plain_aff_ms, err_aff, want_flags.cpu())):
+        row.update(ms=entry_ms, plain_ms=entry_plain, max_abs_err=entry_err)
+        row["bytes"], row["ops"] = bls_bound(masks, present, identity)
+        row["bound_ms"], row["bound_by"] = _bound_ms(row["bytes"], row["ops"])
+        row["extra"] = dict(share=row["bound_ms"] / entry_ms if entry_ms else 0.0)
+    res["extra"].update(ms_b1=ms_b1, table_build_s=build_s)
+    aff["extra"].update(ms_b1=aff_ms_b1, aggregate_masks_wall_ms=wall,
+                        upload_and_kernel_ms=device_leg, readback_ms=readback, affine_of_limbs_ms=conv)
+    print(f"K6: both entries identical to their plain versions (limbs, flags) at N = {list(BLS_SIZES)} with "
+          f"B = {BLS_ROWS} and B = 1; at N = {n_top}: fold alone {ms:.4f} ms at B = {BLS_ROWS}, {ms_b1:.4f} ms at "
+          f"B = 1, plain {plain_ms:.1f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, {res['ops']} "
+          f"operations, {res['bytes']} bytes), share {res['extra']['share']:.2%}; affine {aff_ms:.4f} ms at "
+          f"B = {BLS_ROWS}, {aff_ms_b1:.4f} ms at B = 1, plain {plain_aff_ms:.1f} ms, bound {aff['bound_ms']:.4f} ms "
+          f"({aff['bound_by']}, {aff['ops']} operations, {aff['bytes']} bytes), share {aff['extra']['share']:.2%}",
+          flush=True)
+    print(f"aggregate_masks at N = {n_top}, B = {BLS_ROWS}: {wall:.2f} ms wall (median of {BLS_WALL_REPS}; first "
+          f"call {agg_s[n_top] * 1e3:.2f} ms); its stages by hand: mask upload and the affine K6 to a synchronize "
+          f"{device_leg:.3f} ms (K6 alone {aff_ms:.4f} ms on the device), readback {readback:.3f} ms, "
+          f"affine_of_limbs {conv:.3f} ms", flush=True)
     for n in BLS_VERIFY_SIZES:
         bitmap = verify[n][0][0]
         t0 = time.perf_counter()
@@ -2711,7 +2704,7 @@ def phase_bls(seed: int, device: str = "cuda") -> dict:
         print(f"verify_aggregate at N = {n} (right message): {total:.3f} s wall: aggregation {agg * 1e3:.2f} ms, "
               f"pairing and the rest {total - agg:.3f} s; refused invalid-lane bitmap {verify_s[n][2] * 1e3:.3f} ms",
               flush=True)
-    return dict(kernels={"g1_aggregate": res, "bls_mont_mul": field}, launches=launches)
+    return dict(kernels={"g1_aggregate": res, "g1_aggregate_affine": aff, "bls_mont_mul": field}, launches=launches)
 
 
 def off_path_errors(launch_sets: dict, names) -> list[str]:
@@ -2721,7 +2714,7 @@ def off_path_errors(launch_sets: dict, names) -> list[str]:
 
 def bls_off_path_errors(launch_sets: dict) -> list[str]:
     """Where a phase of the ed25519 paths launched a BLS kernel."""
-    return off_path_errors(launch_sets, ("g1_aggregate", "bls_mont_mul"))
+    return off_path_errors(launch_sets, ("g1_aggregate", "g1_aggregate_affine", "bls_mont_mul"))
 
 
 # --- phase 9: the f32-argument path and kernel K7 ----------------------------
@@ -3264,6 +3257,7 @@ REPLACES = {
     "h_digits_idx": "hotstuff_tpu/ops/ed25519.py:480",
     "reduce_mod_l": "hotstuff_tpu/ops/sha512.py:421",
     "g1_aggregate": "hotstuff_tpu/ops/bls.py:297",
+    "g1_aggregate_affine": "hotstuff_tpu/ops/bls.py:389",
     "bls_mont_mul": "hotstuff_tpu/ops/bls.py:180",
     "bit_ladder": "hotstuff_tpu/ops/ed25519.py:599",
     "field12": "hotstuff_tpu/ops/field12.py:147",
@@ -3332,19 +3326,27 @@ def main() -> int:
         fail(f"K7 launched in phases 2-8: {k7_off}")
     f32 = phase_f32(args.seed, main_path["batch"])
     print(f"f32 path sigs/s {f32['rates']} beside phase 3's packed path {main_path['sigs_per_s']:.1f}", flush=True)
+    since_f32 = _build.launches()
     tuning_off = off_path_errors({
         "main path": main_path["launches"], "committee path": committee_path["launches"],
         "sidecar": sidecar["launches"], "committee run": committee_run["launches"], "BLS": bls_path["launches"],
         **{f"f32 {k}": d for k, d in f32["leg_launches"].items()},
-        "since phase 9's last reset": _build.launches(),
+        "since phase 9's last reset": since_f32,
         **{f"mesh {label} {leg}": m[leg] for label, m in mesh["meshes"].items()
            for leg in ("launches", "committee_launches")},
     }, TUNING_KERNELS)
     if tuning_off:
         fail(f"K8 or the tuning tool's kernels launched in phases 2-9: {tuning_off}")
     tuning = phase_field12(args.seed)
+    field_launches = _build.launches()
     phase_wide_compare(args.seed)
     tool_launches = phase_tune()
+    bls_late = bls_off_path_errors({
+        **{f"f32 {k}": d for k, d in f32["leg_launches"].items()}, "since phase 9's last reset": since_f32,
+        "phase 10 field12": field_launches, "phase 10 wide compare": _build.launches(), "tuning tool": tool_launches,
+    })
+    if bls_late:
+        fail(f"BLS kernels launched in phases 9-10: {bls_late}")
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -3360,7 +3362,8 @@ def main() -> int:
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,
             ))
-    # The BLS kernels run on no ed25519 path: their launches are phase 8's.
+    # The BLS kernels run on no ed25519 path: their launches are phase 8's
+    # (the affine entry's; the fold alone and the product are test entries).
     for name, res in bls_path["kernels"].items():
         rows.append(dict(
             name=name, route="cuda",

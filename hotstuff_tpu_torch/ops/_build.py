@@ -13,8 +13,8 @@ launches on the given stream, and returns `cudaGetLastError()`;
 `Kernel.launch` raises when that is not 0. There is no fallback: a kernel
 that does not build or launch is an error. A source may export more than
 one entry point (`h_digits.cu`: `hs_h_digits`, `hs_h_digits_idx` and the
-test entry `hs_reduce_mod_l`; `g1_aggregate.cu`: `hs_g1_aggregate` and the
-test entry `hs_bls_mont_mul`; `field12.cu`: `hs_field12`, `hs_field12_mul`,
+test entry `hs_reduce_mod_l`; `g1_aggregate.cu`: `hs_g1_aggregate`,
+`hs_g1_aggregate_affine` and the test entry `hs_bls_mont_mul`; `field12.cu`: `hs_field12`, `hs_field12_mul`,
 `hs_field12_sub` and `hs_field12_canonical`); each entry point is a
 `Kernel` with its own launch count.
 """
@@ -39,7 +39,8 @@ NAMES = ("ladder", "h_digits", "decompress_table", "compress_eq", "committee_lad
          "field12", "field_sqr_n", "alu_chain")
 # Entry points beyond `hs_<source name>`: kernel name -> its source.
 EXTRA_ENTRY_POINTS = {"h_digits_idx": "h_digits", "reduce_mod_l": "h_digits", "bls_mont_mul": "g1_aggregate",
-                      "field12_mul": "field12", "field12_sub": "field12", "field12_canonical": "field12"}
+                      "g1_aggregate_affine": "g1_aggregate", "field12_mul": "field12", "field12_sub": "field12",
+                      "field12_canonical": "field12"}
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -134,6 +135,14 @@ def spill_bytes(ptxas_text: str) -> int:
     """Spill stores + loads, in bytes, over every function of a ptxas -v
     report (a `ptxas_report` value or a build log)."""
     return sum(int(a) + int(b) for a, b in _SPILL.findall(ptxas_text))
+
+
+_STACK = re.compile(r"(\d+) bytes stack frame")
+
+
+def stack_bytes(ptxas_text: str) -> int:
+    """Stack frame bytes summed over every function of a ptxas -v report."""
+    return sum(int(a) for a in _STACK.findall(ptxas_text))
 
 
 def check(t: torch.Tensor, shape: tuple, dtype: torch.dtype, device: torch.device) -> None:

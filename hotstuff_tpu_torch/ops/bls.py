@@ -18,29 +18,37 @@ on the card over a device-resident key table:
     compute the same formulas in the same order, agree limb for limb. The
     plain field functions take operands in [0, 2p), the reference's
     invariant, so they take the reference's values as they are.
-  * Montgomery multiplication: the kernel runs CIOS over 32-bit digits
-    with 64-bit accumulators; the plain `mont_mul` reduces over 16-bit
-    digits on int64 tensors (every product is of two 16-bit halves, every
-    column sum exact and non-negative). Both compute t = (ab + mp) / R with
-    m the one value in [0, R) that makes the sum divisible by R, so t is the
-    same integer; a conditional subtraction of p makes it canonical.
+  * Montgomery multiplication: the kernel interleaves product and
+    reduction a 32-bit digit of b at a time, in two carry chains (the even
+    and the odd limbs' products, `csrc/carry.cuh`); the plain `mont_mul`
+    reduces over 16-bit digits on int64 tensors (every product is of two
+    16-bit halves, every column sum exact and non-negative). Both compute
+    t = (ab + mp) / R with m the one value in [0, R) that makes the sum
+    divisible by R, so t is the same integer; a conditional subtraction of
+    p makes it canonical.
   * Jacobian points with Z = 0 as the identity, written (mont(1), mont(1),
     0) as in the reference. `point_dbl` (dbl-2009-l, a = 0) and `point_add`
     (add-2007-bl, the four special cases resolved in the reference's order)
     are the reference's formulas; `point_madd` adds an affine point (Z2 = 1,
     madd-2007-bl, 7M + 4S) and is what the fold runs per member.
 
-`g1_aggregate` is the kernel wrapper: CUDA tensors launch
-`csrc/g1_aggregate.cu`, CPU tensors take `g1_aggregate_plain`. Both fold a
-row's members in one order: THREADS partial sums, member k into partial
-k mod THREADS in ascending k (a mixed add each), then a halving tree of
-Jacobian adds over the partials. `mont_mul_device` runs the kernel's field
-product alone (a test entry).
+`g1_aggregate` and `g1_aggregate_affine` are the kernel wrappers: CUDA
+tensors launch `csrc/g1_aggregate.cu` (`hs_g1_aggregate`, the fold alone,
+and `hs_g1_aggregate_affine`, the fold and each row's affine conversion in
+one launch), CPU tensors take `g1_aggregate_plain` /
+`g1_aggregate_affine_plain`. Both fold a row's members in one order:
+THREADS partial sums, member k into partial k mod THREADS in ascending k (a
+mixed add each), then a halving tree of Jacobian adds over the partials.
+The conversion inverts Z by the kernel's fixed chain, Z^(p - 2) over
+INV_WINDOWS (`invert_plain`), as the reference does on its host
+(`pow(z, P - 2, P)`), and leaves Montgomery form by a product with 1.
+`mont_mul_device` runs the kernel's field product alone (a test entry).
 
 `CommitteeTable` mirrors the reference's, name for name: keys decompressed
 once per committee on the host (exact integers, the port's
 `crypto/aggsig.py`), Montgomery-affine limbs resident on the device,
-`aggregate_masks` / `aggregate_bitmaps` in one launch per call, and
+`aggregate_masks` / `aggregate_bitmaps` in one launch per call that returns
+affine limbs (the host only reads them into ints, `affine_of_limbs`), and
 `verify_aggregate` with one exact pairing on the host. There is no host
 fallback: the table asks for the card unless `device="cpu"` is given, and
 the plain version runs only on CPU tensors.
@@ -67,7 +75,7 @@ R_MONT = (1 << (BITS * NLIMB)) % P  # 2^384 mod p, the reference's R
 R_INV = pow(R_MONT, -1, P)
 PINV32 = (-pow(P, -1, 1 << 32)) % (1 << 32)  # -p^-1 mod 2^32: the kernel's CIOS digit factor
 PINV16 = (-pow(P, -1, 1 << 16)) % (1 << 16)  # -p^-1 mod 2^16: the plain reduction's
-THREADS = 32  # partial sums per row; the block size of csrc/g1_aggregate.cu
+THREADS = 32  # partial sums per row; a row's warp in csrc/g1_aggregate.cu
 
 _M_TABLE_BUILDS = metrics.counter("bls.table_builds")
 _M_AGGREGATIONS = metrics.counter("bls.aggregations")
@@ -94,6 +102,33 @@ def int_of_limbs(limbs: torch.Tensor) -> list[int]:
     return [sum(d << (BITS * i) for i, d in enumerate(col)) for col in cols]
 
 
+def sliding_windows(e: int, width: int) -> tuple[tuple[int, int], ...]:
+    """e > 0 as (squarings, odd digit) pairs, most significant first, each
+    digit below 2^width: x^e is x^d0, then per later pair s squarings and
+    a product by x^d. Every digit ends on a set bit, so a zero run lands in
+    the next pair's squarings; e must be odd (no squarings after the last
+    digit)."""
+    bits = bin(e)[2:]
+    assert e > 0 and bits[-1] == "1"
+    out, i, shift = [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            shift, i = shift + 1, i + 1
+            continue
+        j = min(i + width, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        out.append((shift + j - i, int(bits[i:j], 2)))
+        shift, i = 0, j
+    return tuple(out)
+
+
+# p - 2 in 5-bit windows: the kernel's `__constant__ INV_WINDOWS` (the
+# same pairs; tests/test_torch_bls.py parses them from the source).
+INV_WINDOWS = sliding_windows(P - 2, 5)
+INV_ODD = 16  # odd powers x, x^3, ..., x^31 a 5-bit window reads
+
+
 def to_mont(x: int) -> int:
     return x * R_MONT % P
 
@@ -109,6 +144,7 @@ _P_DIGITS = _digits(P, NLIMB, BITS)
 _TWOP_DIGITS = _digits(2 * P, NLIMB, BITS)
 _P16 = torch.tensor(_digits(P, 2 * NLIMB, 16), dtype=torch.int64)
 _ONE_LIMBS = limbs_of_int(MONT_ONE)
+_PLAIN_ONE = limbs_of_int(1)  # a product by 1 leaves Montgomery form
 
 
 def _col(name: str, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -307,8 +343,9 @@ def g1_aggregate_plain(
 def g1_aggregate(tx: torch.Tensor, ty: torch.Tensor, present: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Kernel K6 wrapper (replaces `masked_tree_aggregate` and the field and
     point functions it runs, `hotstuff_tpu/ops/bls.py:180-319`): CPU
-    tensors -> `g1_aggregate_plain`; CUDA tensors -> `csrc/g1_aggregate.cu`,
-    one block per mask row (raises if it cannot launch)."""
+    tensors -> `g1_aggregate_plain`; CUDA tensors -> `hs_g1_aggregate` in
+    `csrc/g1_aggregate.cu`, one warp per mask row (raises if it cannot
+    launch)."""
     if tx.device.type == "cpu":
         return g1_aggregate_plain(tx, ty, present, mask)
     n, batch = tx.shape[1], mask.shape[0]
@@ -321,6 +358,69 @@ def g1_aggregate(tx: torch.Tensor, ty: torch.Tensor, present: torch.Tensor, mask
     if batch:
         _build.KERNELS["g1_aggregate"].launch(tx, ty, present, mask, out, n, batch)
     return out
+
+
+def mont_pow_plain(a: torch.Tensor, windows: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """a^e by the kernel's window chain, e given as `sliding_windows`
+    pairs with digits below 32; Montgomery limbs in and out, canonical. The
+    odd powers a, a^3, ..., a^31 (one squaring, INV_ODD - 1 products), then
+    acc = a^d0 and per later window s squarings and a product."""
+    a2 = mont_sqr(a)
+    odd = [a]
+    for _ in range(INV_ODD - 1):
+        odd.append(mont_mul(odd[-1], a2))
+    acc = odd[windows[0][1] >> 1]
+    for s, d in windows[1:]:
+        for _ in range(s):
+            acc = mont_sqr(acc)
+        acc = mont_mul(acc, odd[d >> 1])
+    return acc
+
+
+def invert_plain(a: torch.Tensor) -> torch.Tensor:
+    """(12, ...) Montgomery limbs of z -> those of z^-1 (0 for 0): z^(p - 2)
+    over INV_WINDOWS, the chain `hs_g1_aggregate_affine` runs."""
+    return mont_pow_plain(a, INV_WINDOWS)
+
+
+def g1_aggregate_affine_plain(
+    tx: torch.Tensor, ty: torch.Tensor, present: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`g1_aggregate_plain`'s sums in affine form: (2, 12, B) int32
+    canonical limbs of x and y (not Montgomery) and (B,) uint8, 1 where the
+    sum is the identity (Z = 0; x and y are then 0). The kernel's steps:
+    zi = invert_plain(Z), then X zi^2 and Y zi^3, each times 1."""
+    X, Y, Z = (from_i32(c) for c in g1_aggregate_plain(tx, ty, present, mask))
+    one = _col("bls_plain_one", _PLAIN_ONE, Z)
+    zi = invert_plain(Z)
+    zi2 = mont_sqr(zi)
+    x = mont_mul(mont_mul(zi2, X), one)
+    y = mont_mul(mont_mul(mont_mul(zi2, zi), Y), one)
+    return torch.stack([to_i32(x), to_i32(y)]), (Z == 0).all(0).to(torch.uint8)
+
+
+def g1_aggregate_affine(
+    tx: torch.Tensor, ty: torch.Tensor, present: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K6's affine entry (replaces `masked_tree_aggregate` and
+    `aggregate_masks`' conversion, `hotstuff_tpu/ops/bls.py:297,389-419`):
+    CPU tensors -> `g1_aggregate_affine_plain`; CUDA tensors ->
+    `hs_g1_aggregate_affine` in `csrc/g1_aggregate.cu` (raises if it cannot
+    launch). Returns (2, 12, B) int32 limbs of x and y and (B,) uint8
+    identity flags."""
+    if tx.device.type == "cpu":
+        return g1_aggregate_affine_plain(tx, ty, present, mask)
+    n, batch = tx.shape[1], mask.shape[0]
+    dev = tx.device
+    _build.check(tx, (NLIMB, n), torch.int32, dev)
+    _build.check(ty, (NLIMB, n), torch.int32, dev)
+    _build.check(present, (n,), torch.bool, dev)
+    _build.check(mask, (batch, n), torch.bool, dev)
+    out = torch.empty((2, NLIMB, batch), dtype=torch.int32, device=dev)
+    identity = torch.empty((batch,), dtype=torch.uint8, device=dev)
+    if batch:
+        _build.KERNELS["g1_aggregate_affine"].launch(tx, ty, present, mask, out, identity, n, batch)
+    return out, identity
 
 
 def mont_mul_device(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -338,9 +438,28 @@ def mont_mul_device(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def affine_of_limbs(limbs: torch.Tensor, identity: torch.Tensor) -> list[tuple[int, int] | None]:
+    """(2, 12, B) canonical limbs of x and y and (B,) identity flags, as
+    `g1_aggregate_affine` returns them -> B affine integer points, None
+    for the identity. One bytes view of all rows, then `int.from_bytes`
+    per coordinate."""
+    raw = limbs.cpu().permute(2, 0, 1).contiguous().numpy().view(np.uint32).astype("<u4", copy=False).tobytes()
+    size = NLIMB * BITS // 8
+    out: list[tuple[int, int] | None] = []
+    for b, flag in enumerate(identity.cpu().tolist()):
+        if flag:
+            out.append(None)
+            continue
+        o = 2 * size * b
+        out.append((int.from_bytes(raw[o:o + size], "little"), int.from_bytes(raw[o + size:o + 2 * size], "little")))
+    return out
+
+
 def affine_points(jac: torch.Tensor) -> list[tuple[int, int] | None]:
     """(3, 12, B) Montgomery Jacobian limbs -> B affine integer points, None
-    for the identity (Z = 0 mod p). Exact integers on the host."""
+    for the identity (Z = 0 mod p). Exact integers on the host: the
+    conversion `aggregate_masks` ran before the kernel took it over, kept
+    for the tests and for timing the two against each other."""
     xs, ys, zs = (int_of_limbs(c) for c in jac.cpu())
     out = []
     for x, y, z in zip(xs, ys, zs):
@@ -406,8 +525,10 @@ class CommitteeTable:
 
     def aggregate_masks(self, masks) -> list[tuple[int, int] | None]:
         """(B, N) bool mask rows -> affine integer G1 sums (None = the
-        identity), one kernel launch. Masked lanes whose key was invalid
-        contribute the identity; callers gate on `invalid` first."""
+        identity), one kernel launch that also converts each sum to affine
+        form; the host only reads the limbs into ints. Masked lanes whose
+        key was invalid contribute the identity; callers gate on `invalid`
+        first."""
         masks = np.ascontiguousarray(masks, bool)
         if masks.ndim == 1:
             masks = masks[None]
@@ -416,7 +537,7 @@ class CommitteeTable:
         _M_AGGREGATIONS.inc(masks.shape[0])
         _M_POINTS.inc(int(masks.sum()))
         rows = torch.from_numpy(masks).to(self.device)
-        return affine_points(g1_aggregate(self.tx, self.ty, self.present, rows))
+        return affine_of_limbs(*g1_aggregate_affine(self.tx, self.ty, self.present, rows))
 
     def _masks_of_bitmaps(self, bitmaps: Sequence[int]) -> np.ndarray:
         """Bitmaps (bit i = lane i) -> (B, N) bool rows; a bit beyond the

@@ -1,6 +1,7 @@
 """The port's BLS12-381 G1 committee aggregation (hotstuff_tpu_torch/ops/bls.py:
-the plain field and point functions, the plain version of kernel K6
-`g1_aggregate` and `CommitteeTable` on the CPU) against the JAX package's
+the plain field and point functions, the plain versions of kernel K6's two
+entries `g1_aggregate` and `g1_aggregate_affine`, the inversion chain
+and `CommitteeTable` on the CPU) against the JAX package's
 `hotstuff_tpu/ops/bls.py` and the exact integer fold of `crypto/aggsig.py`.
 Inputs come from seeds; every comparison is exact (tolerance 0): the
 outputs are integers. The port's residues are canonical in [0, p), the
@@ -8,6 +9,8 @@ reference's in [0, 2p), so values are compared mod p and the port's are
 also held below p."""
 
 import random
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -17,7 +20,7 @@ import torch
 import chip_smoke
 from hotstuff_tpu.crypto import aggsig as jagg
 from hotstuff_tpu.ops import bls as jb
-from hotstuff_tpu_torch import convert
+from hotstuff_tpu_torch import bls_corpus, convert
 from hotstuff_tpu_torch.crypto import aggsig
 from hotstuff_tpu_torch.ops import bls
 from hotstuff_tpu_torch.utils import metrics
@@ -218,10 +221,10 @@ def test_committee_table_matches_jax(shape):
 
 
 def _special_table(n: int) -> tuple[list[bytes], dict]:
-    """`chip_smoke.py` phase 8's table of n keys: a duplicate, a key beside
-    its negation, one undecodable key, and (n > 34) a duplicate and an
-    inverse pair in one partial's lanes."""
-    keys, _, lanes = chip_smoke.bls_table_keys([SCHEME.keypair_from_seed(bytes([i + 1]) * 32) for i in range(n)], n)
+    """Phase 8's table of n keys (`bls_corpus.table_keys`): a duplicate, a
+    key beside its negation, one undecodable key, and (n > 34) a duplicate
+    and an inverse pair in one partial's lanes."""
+    keys, _, lanes = bls_corpus.table_keys([SCHEME.keypair_from_seed(bytes([i + 1]) * 32) for i in range(n)], n)
     return keys, lanes
 
 
@@ -233,7 +236,7 @@ def test_aggregate_masks_equals_the_exact_fold(n):
     keys, lanes = _special_table(n)
     table = bls.CommitteeTable(keys, device="cpu")
     assert table.invalid.tolist() == [i == n - 1 for i in range(n)]
-    masks, labels = chip_smoke.bls_rows(n, n, lanes, 3 + len(lanes) + 4)
+    masks, labels = bls_corpus.bitmap_rows(n, n, lanes, 3 + len(lanes) + 4)
     got = table.aggregate_masks(masks)
     assert got == [_exact_fold(table.points, row) for row in masks]
     named = dict(zip(labels, got))
@@ -290,3 +293,80 @@ def test_verify_aggregate_verdicts_match_jax():
     assert bls.CommitteeTable(bad_keys, device="cpu").verify_aggregate(0b11, msg, sig) is False
     assert jb.CommitteeTable(bad_keys).verify_aggregate(0b11, msg, sig) is False
     assert jagg.exact_scheme().verify(keys, msg, sig)
+
+
+# --- the affine conversion: the inversion chain and the affine entry ------------
+
+
+def test_invert_plain_equals_pow():
+    """z^(p - 2) over INV_WINDOWS on Montgomery limbs: z^-1 mod p for 0, 1,
+    p - 1, mont(1) and seeded residues (0 goes to 0, as the kernel's chain
+    takes it)."""
+    rng = random.Random(16)
+    zs = [0, 1, P - 1, bls.MONT_ONE] + [rng.randrange(1, P) for _ in range(8)]
+    got = _ints(bls.invert_plain(bls.limbs_of_int([bls.to_mont(z) for z in zs])))
+    assert got == [0] + [bls.to_mont(pow(z, -1, P)) for z in zs[1:]]
+    assert all(v < P for v in got)
+
+
+def test_inv_windows_are_p_minus_2_and_the_kernels_digits():
+    """INV_WINDOWS recomposes to p - 2 with odd digits below 32, and equals
+    the `__constant__` pairs of csrc/g1_aggregate.cu; chip_smoke.py's count
+    of the chain's squarings and products (its bound) is the chain's."""
+    e = 0
+    for s, d in bls.INV_WINDOWS:
+        e = (e << s) + d
+    assert e == P - 2
+    assert all(d % 2 == 1 and d < 2 * bls.INV_ODD for _, d in bls.INV_WINDOWS)
+    src = (Path(bls.__file__).parent / "csrc" / "g1_aggregate.cu").read_text()
+    body = re.search(r"INV_WINDOWS\[INV_STEPS\]\[2\] = \{(.*?)\};", src, re.S).group(1)
+    pairs = tuple((int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}", body))
+    assert pairs == bls.INV_WINDOWS
+    assert int(re.search(r"INV_STEPS = (\d+);", src).group(1)) == len(pairs)
+    squarings = sum(s for s, _ in bls.INV_WINDOWS[1:])
+    assert chip_smoke.BLS_CHAIN_SQUARES == 1 + squarings
+    assert chip_smoke.BLS_CHAIN_PRODUCTS == bls.INV_ODD - 1 + len(pairs) - 1
+
+
+@pytest.mark.parametrize("n", [5, 7, 43, 64])
+def test_g1_aggregate_affine_plain_matches_jax_and_the_exact_fold(n):
+    """Phase 8's rows (empty, all, one member, the special pairs, then
+    quorums) on its special table: the affine entry's plain version, read by
+    `affine_of_limbs`, equals the JAX package's `aggregate_masks` and the
+    exact fold; identity rows are flagged with zero limbs."""
+    keys, lanes = _special_table(n)
+    table = bls.CommitteeTable(keys, device="cpu")
+    masks, _ = bls_corpus.bitmap_rows(n, n, lanes, 3 + len(lanes) + 2)
+    limbs, identity = bls.g1_aggregate_affine_plain(table.tx, table.ty, table.present, torch.from_numpy(masks))
+    assert limbs.shape == (2, 12, len(masks)) and limbs.dtype == torch.int32
+    assert identity.shape == (len(masks),) and identity.dtype == torch.uint8
+    got = bls.affine_of_limbs(limbs, identity)
+    assert got == [_exact_fold(table.points, row) for row in masks]
+    assert got == jb.CommitteeTable(keys).aggregate_masks(masks)
+    assert identity.tolist() == [int(pt is None) for pt in got]
+    assert not limbs[:, :, identity.bool()].any()
+
+
+def test_g1_aggregate_affine_wrapper_takes_the_plain_version_on_cpu():
+    keys, _ = _special_table(7)
+    table = bls.CommitteeTable(keys, device="cpu")
+    mask = torch.from_numpy(np.random.default_rng(4).random((5, 7)) < 0.6)
+    limbs, identity = bls.g1_aggregate_affine(table.tx, table.ty, table.present, mask)
+    want_limbs, want_identity = bls.g1_aggregate_affine_plain(table.tx, table.ty, table.present, mask)
+    assert limbs.shape == (2, 12, 5) and identity.shape == (5,)
+    assert torch.equal(limbs, want_limbs) and torch.equal(identity, want_identity)
+    empty, none = bls.g1_aggregate_affine(table.tx, table.ty, table.present, mask[:0])
+    assert empty.shape == (2, 12, 0) and none.shape == (0,)
+    assert bls.affine_of_limbs(empty, none) == []
+
+
+def test_affine_of_limbs_equals_affine_points():
+    """The host's old conversion of the Jacobian sums and the affine entry's
+    limbs read by `affine_of_limbs` give the same points, identities too."""
+    keys, lanes = _special_table(43)
+    table = bls.CommitteeTable(keys, device="cpu")
+    masks, _ = bls_corpus.bitmap_rows(1, 43, lanes, 3 + len(lanes) + 3)
+    rows = torch.from_numpy(masks)
+    want = bls.affine_points(bls.g1_aggregate(table.tx, table.ty, table.present, rows))
+    assert bls.affine_of_limbs(*bls.g1_aggregate_affine(table.tx, table.ty, table.present, rows)) == want
+    assert None in want and table.aggregate_masks(masks) == want

@@ -97,6 +97,19 @@ def test_spill_bytes_parses_ptxas():
     assert _build.spill_bytes("") == 0
 
 
+def test_stack_bytes_parses_ptxas():
+    """K6's gate (NO_STACK): stack frames summed over every function of a
+    source's report, as `phase_build` reads them."""
+    from hotstuff_tpu_torch.ops import _build
+
+    report = ("ptxas info    : Compiling entry function 'a' | 0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+              "spill loads | ptxas info    : Compiling entry function 'b' | 32 bytes stack frame, 64 bytes spill "
+              "stores, 64 bytes spill loads")
+    assert _build.stack_bytes(report) == 32 and _build.spill_bytes(report) == 128
+    assert _build.stack_bytes(report.replace("32 bytes stack", "0 bytes stack")) == 0
+    assert set(chip_smoke.NO_STACK) <= set(chip_smoke.NO_SPILL) and "g1_aggregate" in chip_smoke.NO_STACK
+
+
 def test_phase_reduce_compare_on_cpu(small_smoke, capsys):
     """The reduction phase's values are the reduction tests' own: the 11
     edge values and the 4,096-value sweep (its first rows all-ones with a
@@ -403,14 +416,17 @@ def test_bls_corpus_and_bound_count():
     """Phase 8's tables and rows: the special lanes hold what they claim
     (each key is its secret times the generator), the rows are the edge
     rows then quorums of floor(2n/3) + 1, and the bound counts one mixed add
-    per member beyond a row's first, the undecodable lane left out."""
+    (7 products, 4 squarings) per member beyond a row's first, the
+    undecodable lane left out; the affine entry's adds a batch inversion's
+    work for each row that is not the identity and one chain a launch."""
     import numpy as np
 
+    from hotstuff_tpu_torch import bls_corpus
     from hotstuff_tpu_torch.crypto import aggsig
     from hotstuff_tpu_torch.ops import bls
 
     for n in (4, 40):
-        keys, sks, lanes = chip_smoke.bls_table_keys(_bls_pairs(n), n)
+        keys, sks, lanes = bls_corpus.table_keys(_bls_pairs(n), n)
         assert len(keys) == len(sks) == n and sks[-1] is None
         with pytest.raises(ValueError):
             aggsig.decompress_g1(keys[-1])
@@ -421,7 +437,7 @@ def test_bls_corpus_and_bound_count():
         a, b = lanes["inverse"]
         assert aggsig.decompress_g1(keys[b]) == aggsig._g1_neg(aggsig.decompress_g1(keys[a]))
         assert ("dup_one_partial" in lanes) == (n > bls.THREADS + 2)
-        masks, labels = chip_smoke.bls_rows(0, n, lanes, 12)
+        masks, labels = bls_corpus.bitmap_rows(0, n, lanes, 12)
         assert labels[:3] == ["empty", "all", "single"] and masks.shape == (12, n)
         assert masks[0].sum() == 0 and masks[1].all() and masks[2].sum() == 1
         for r, name in enumerate(labels[3:], 3):
@@ -430,8 +446,15 @@ def test_bls_corpus_and_bound_count():
         present = np.array([sk is not None for sk in sks])
         moved, ops = chip_smoke.bls_bound(masks, present)
         members = [int((row & present).sum()) for row in masks]
-        assert ops == sum(max(m - 1, 0) for m in members) * 11 * 300
+        assert ops == sum(max(m - 1, 0) for m in members) * (7 * 300 + 4 * 234)
         assert moved == 12 * n + n * 97 + 12 * 144
+        identity = np.array([m == 0 for m in members])
+        moved_aff, ops_aff = chip_smoke.bls_bound(masks, present, identity)
+        convert = 12 - int(identity.sum())
+        assert 0 < convert < 12
+        assert ops_aff == ops + convert * (6 * 300 + 234 + 2 * 156) + 378 * 234 + 82 * 300
+        assert moved_aff == 12 * n + n * 97 + 12 * 97
+        assert chip_smoke.bls_bound(masks[:1], present, identity[:1])[1] == 0
 
 
 def test_bls_off_path_errors():
@@ -450,16 +473,19 @@ def test_phase_bls_on_cpu(small_smoke, monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "BLS_VERIFY_SIZES", (16,))
     monkeypatch.setattr(chip_smoke, "BLS_POOL", 2)
     res = small_smoke.phase_bls(0, "cpu")
-    assert set(res["kernels"]) == {"g1_aggregate", "bls_mont_mul"}
+    assert set(res["kernels"]) == {"g1_aggregate", "g1_aggregate_affine", "bls_mont_mul"}
     for name, row in res["kernels"].items():
         assert ROW_KEYS <= set(row), name
         assert row["max_abs_err"] == 0 and row["bound_ms"] > 0, name
     assert res["kernels"]["g1_aggregate"]["bound_by"] == "operations"
+    assert res["kernels"]["g1_aggregate_affine"]["bound_by"] == "operations"
+    assert res["kernels"]["g1_aggregate_affine"]["ops"] > res["kernels"]["g1_aggregate"]["ops"]
     assert set(res["kernels"]["g1_aggregate"]["extra"]["table_build_s"]) == {4, 16}
     out = capsys.readouterr().out
     assert "every affine sum equals the exact add_affine fold at N = [4, 16]" in out
     assert "verify_aggregate verdicts {16: [True, False, False, False]} as expected" in out
-    assert "limbs identical to the plain version at N = [4, 16] with B = 8 and B = 1" in out
+    assert "both entries identical to their plain versions (limbs, flags) at N = [4, 16] with B = 8 and B = 1" in out
+    assert "aggregate_masks at N = 16, B = 8" in out and "affine_of_limbs" in out
     assert "bls_mont_mul: kernel equals the plain mont_mul and Python ints on 4096 pairs" in out
 
 

@@ -101,6 +101,8 @@ def test_bls_table_has_no_host_fallback(monkeypatch):
     with pytest.raises(ValueError, match="expected a tensor on"):
         bls.g1_aggregate(meta(12, 2), meta(12, 2), meta(2, dtype=torch.bool), meta(4, 2, dtype=torch.bool))
     with pytest.raises(ValueError, match="expected a tensor on"):
+        bls.g1_aggregate_affine(meta(12, 2), meta(12, 2), meta(2, dtype=torch.bool), meta(4, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="expected a tensor on"):
         bls.mont_mul_device(meta(12, 4), meta(12, 4))
     assert _build.launches() == {name: 0 for name in _build.KERNELS}
 
@@ -216,11 +218,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_sources_and_kernels_listed():
     csrc = sorted(p.name for p in _build.CSRC.iterdir())
-    assert csrc == sorted(["field.cuh", "quad.cuh", "split_field.cuh"] + [f"{n}.cu" for n in _build.NAMES])
+    assert csrc == sorted(["carry.cuh", "field.cuh", "quad.cuh", "split_field.cuh"] + [f"{n}.cu" for n in _build.NAMES])
     assert {"field12.cu", "field_sqr_n.cu", "alu_chain.cu"} <= set(csrc)
     for name in ("field12", "field12_mul", "field12_sub", "field12_canonical"):
         assert _build.KERNELS[name].source == "field12"
         assert f"extern \"C\" int hs_{name}(" in (_build.CSRC / "field12.cu").read_text()
+    for name in ("g1_aggregate", "g1_aggregate_affine", "bls_mont_mul"):
+        assert _build.KERNELS[name].source == "g1_aggregate"
+        assert f"extern \"C\" int hs_{name}(" in (_build.CSRC / "g1_aggregate.cu").read_text()
     assert _build.KERNELS["field_sqr_n"].source == "field_sqr_n" and _build.KERNELS["alu_chain"].source == "alu_chain"
     assert len(_build.source_hash()) == 16
 
