@@ -177,8 +177,9 @@ caught:
      0 times.
  10. device tuning: kernel K8 (`hotstuff_tpu_torch/ops/field12.py`, the
      radix-2^12 field; `hs_field12` for sqr_n, `hs_field12_mul`,
-     `hs_field12_sub`, `hs_field12_canonical`) against its plain version on
-     the same CUDA tensors at every width of WIDTHS and at 4,096 lanes,
+     `hs_field12_sub`, `hs_field12_canonical`; its layout printed: threads
+     a lane, rows and products of each) against its plain version on the
+     same CUDA tensors at every width of WIDTHS and at 4,096 lanes,
      exactly (uint32 limbs, tolerance 0): mul on normalized operands and on
      one lazy add, sub on lazy-add inputs, canonical on 264-bit encodings
      (p, p + 1, 2p - 1, 2p, 2^264 - 1, 500p + 7, random) and on products,
@@ -716,7 +717,7 @@ def _host_hash_batch(pool):
 GENERIC_KERNELS = ("ladder", "h_digits", "decompress_table", "compress_eq")
 NO_SPILL = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits",
             "bit_ladder", "field12", "g1_aggregate")  # ptxas: 0 spill bytes
-NO_STACK = ("g1_aggregate",)  # ptxas: 0 bytes stack frame in every function
+NO_STACK = ("g1_aggregate", "field12")  # ptxas: 0 bytes stack frame in every function
 
 
 def phase_main_path(seed: int) -> dict:
@@ -3078,6 +3079,11 @@ def phase_field12(seed: int, device: str = "cuda") -> dict:
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
+    layout = f12.kernel_layout()
+    print(f"K8 layout: sqr_n and mul {layout['threads_per_lane']} threads a lane (one in each warp of a block of "
+          f"{layout['lanes_per_block']} lanes), rows per thread {layout['rows']}, products of a squaring "
+          f"{layout['sqr_products']}, of a product {layout['mul_products']}; sub and canonical one thread a lane",
+          flush=True)
     _build.reset_launches()
     t, cs = field12_inputs(seed, device)
     errs = {}

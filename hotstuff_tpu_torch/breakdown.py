@@ -156,12 +156,30 @@ def main() -> int:
     return 0
 
 
-def device_trace(run, trace_path: Path) -> dict:
-    """Run `run()` once under `torch.profiler` (CPU and CUDA activity),
-    write its Chrome trace to `trace_path` and read the device's work from
-    it (`read_device_trace`). A spin kernel queued on the default stream
-    just before `run()` and another just after it mark that stream's id in
-    the trace; they stay outside the timed wall."""
+class TraceIncomplete(RuntimeError):
+    """A profiler trace without `device_trace`'s default-stream markers."""
+
+
+TRACE_TRIES = 3
+
+
+def device_trace(run, trace_path: Path, tries: int = TRACE_TRIES) -> dict:
+    """Run `run()` under `torch.profiler` (CPU and CUDA activity), write its
+    Chrome trace to `trace_path` and read the device's work from it
+    (`read_device_trace`). A spin kernel queued on the default stream just
+    before `run()` and another just after it mark that stream's id in the
+    trace; they stay outside the timed wall. The profiler now and then loses
+    events on the card, the markers too (PERF.md section 7): a trace without
+    them is taken again, `run()` with it, up to `tries` times in all."""
+    for attempt in range(1, tries + 1):
+        try:
+            return _trace_once(run, trace_path)
+        except TraceIncomplete:
+            if attempt == tries:
+                raise
+
+
+def _trace_once(run, trace_path: Path) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -194,7 +212,7 @@ def read_device_trace(trace: dict, wall_s: float) -> dict:
     marker = [e for e in events if "spin" in e.get("name", "")]
     if not marker:
         names = sorted({e.get("name", "") for e in events})[:8]
-        raise RuntimeError(f"no default-stream marker kernel in the profiler trace "
+        raise TraceIncomplete(f"no default-stream marker kernel in the profiler trace "
                            f"({len(events)} device events, e.g. {names})")
     default = stream(marker[0])
     work = [e for e in events if "spin" not in e.get("name", "")]

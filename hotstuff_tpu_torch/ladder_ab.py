@@ -1,7 +1,7 @@
 """The ladder kernels (K1 `ladder`, K5 `committee_ladder`, K7
 `bit_ladder`), K3 `decompress_table`, K4 `compress_eq`, K2 `h_digits`,
-K2g `h_digits_idx` and K6 `g1_aggregate` of this checkout beside the same
-kernels of other checkouts, on one card.
+K2g `h_digits_idx`, K6 `g1_aggregate` and K8 `field12` of this checkout
+beside the same kernels of other checkouts, on one card.
 
     python3 -m hotstuff_tpu_torch.ladder_ab [--csrc NAME=DIR ...] [--reps 3] [--kernels K ...]
 
@@ -32,6 +32,17 @@ give every build's limbs at all rows and at 1 row, and is timed in turns
 build serves it, in turns (upload, launch, readback, ints): a build with
 `hs_g1_aggregate_affine` runs it and `affine_of_limbs`, one without runs
 the fold and the host's `affine_points`; every build's points must agree.
+
+K8's leg (`field12`, `field12_ab`) runs the tuning tool's chain,
+`hs_field12` with F12_CHAIN squarings a launch, on seeded normalized
+elements (the first lanes 0, 1, p - 1, 2^255 - 20): every build's limbs
+must equal this checkout's at every width of F12_WIDTHS, and
+`hs_field12_mul`'s at F12_MUL_WIDTH; then the builds are timed in turns
+(`queued_ms`) at F12_TIMED, with this checkout's `hs_field_sqr_n` (the
+production field's chain, the tool's other `--field` row) beside them at
+the same widths: the field ratio. SASS is counted over the squaring loop
+in `hs_field12`'s function (the longest backward branch: the busiest
+warp's loop where a lane's products are split over warps).
 
 The carry-overlap leg (`mont_chain`, `chain_ab`) asks whether the card
 overlaps two independent carry chains in one thread: CHAIN_SOURCE,
@@ -72,6 +83,7 @@ from .crypto import pysigner
 from .ops import _build, bls
 from .ops import ed25519 as ed
 from .ops import field, ladder
+from .ops import field12 as f12
 
 SOURCES = ("ladder", "committee_ladder", "decompress_table", "compress_eq", "h_digits", "h_digits_idx",
            "bit_ladder")
@@ -147,6 +159,13 @@ WHOLE_FUNCTION = {
     "g1_aggregate": r"g1_aggregate_kernel(ILb0E|EP)",
     "bls_mont_mul": r"mont_mul_kernel",
 }
+F12 = "field12"  # K8's leg: `field12_ab`
+F12_CHAIN = 64  # squarings a launch, as tune_device --field
+F12_WIDTHS = (7, 128, 4096, 135168)  # limbs held equal; 135,168 = 33 x 4,096 lanes
+F12_TIMED = (128, 4096, 135168)
+F12_MUL_WIDTH = 4096
+# Kernels whose loop lies in one of several functions of their library.
+LOOP_FUNCTION = {F12: r"\dfield12_kernel"}
 WIDTHS = (128, 4096)
 WIDTHS_OF = {"bit_ladder": (128, 4096, 8192)}  # K7 also at the f32 path's piece
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -179,30 +198,38 @@ def build(jobs: dict[str, Path], kernels) -> dict:
     return dict(builds)
 
 
-def sass_counts(lib: Path, kernel: str) -> dict:
+def sass_counts(lib: Path, kernel: str, sass: str | None = None) -> dict:
     """SASS instructions counted by opcode (before the first '.'), plus
     `total` and the library's static count `all`. For a kernel of
     WHOLE_FUNCTION, every instruction of its function; otherwise those of
-    the library's longest backward branch (a `#pragma unroll 1` loop: a
-    ladder's group loop, K4's squaring loop, K3's entry loop)."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
-                          text=True).stdout
-    insns = [(int(m.group(1), 16), m.group(3), m.group(4)) for m in _INSN.finditer(sass)]
+    the longest backward branch inside one function (a `#pragma unroll 1`
+    loop: a ladder's group loop, K4's squaring loop, K3's entry loop, K8's
+    squaring loop: in a function of LOOP_FUNCTION where the library has
+    several), counted in that function alone: addresses restart at every
+    function. `sass` stands for `cuobjdump -sass lib`'s output."""
+    if sass is None:
+        cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
+                              text=True).stdout
+    parse = lambda text: [(int(m.group(1), 16), m.group(3), m.group(4)) for m in _INSN.finditer(text)]
+    functions = [(f.group(1), parse(sec)) for sec in re.split(r"(?=Function : )", sass)
+                 if (f := _FUNCTION.match(sec))]
+    total = sum(len(insns) for _, insns in functions)
+    pattern = WHOLE_FUNCTION.get(kernel, LOOP_FUNCTION.get(kernel))
+    mine = [insns for name, insns in functions if pattern is None or re.search(pattern, name)]
+    if pattern is not None and len(mine) != 1:
+        raise SystemExit(f"ladder_ab: {len(mine)} SASS functions of {kernel} in {lib}")
     if kernel in WHOLE_FUNCTION:
-        mine = [sec for sec in re.split(r"(?=Function : )", sass)
-                if (f := _FUNCTION.match(sec)) and re.search(WHOLE_FUNCTION[kernel], f.group(1))]
-        if len(mine) != 1:
-            raise SystemExit(f"ladder_ab: {len(mine)} SASS functions of {kernel} in {lib}")
-        counts = collections.Counter(m.group(3).split(".")[0] for m in _INSN.finditer(mine[0]))
-        return dict(counts.most_common(), total=sum(counts.values()), all=len(insns))
-    lo, hi = 0, -1
-    for addr, op, args in insns:
-        t = _TARGET.search(args) if op.startswith("BRA") else None
-        if t and int(t.group(1), 16) < addr and addr - int(t.group(1), 16) > hi - lo:
-            lo, hi = int(t.group(1), 16), addr
-    counts = collections.Counter(op.split(".")[0] for addr, op, _ in insns if lo <= addr <= hi)
-    return dict(counts.most_common(), total=sum(counts.values()), all=len(insns))
+        counts = collections.Counter(op.split(".")[0] for _, op, _ in mine[0])
+        return dict(counts.most_common(), total=sum(counts.values()), all=total)
+    best, lo, hi = [], 0, -1
+    for insns in mine:
+        for addr, op, args in insns:
+            t = _TARGET.search(args) if op.startswith("BRA") else None
+            if t and int(t.group(1), 16) < addr and addr - int(t.group(1), 16) > hi - lo:
+                best, lo, hi = insns, int(t.group(1), 16), addr
+    counts = collections.Counter(op.split(".")[0] for addr, op, _ in best if lo <= addr <= hi)
+    return dict(counts.most_common(), total=sum(counts.values()), all=total)
 
 
 def inputs(seed: int, lanes: int, dev) -> dict:
@@ -347,6 +374,80 @@ def bls_ab(fold: dict, affine: dict, reps: int, seed: int, dev) -> dict:
     return out
 
 
+def field12_inputs(seed: int, lanes: int, dev) -> tuple:
+    """x and y: (22, lanes) normalized radix-2^12 elements below 2^255, x's
+    first lanes 0, 1, p - 1, 2^255 - 20; x25: (10, lanes) carried limbs of
+    the production field (`hs_field_sqr_n`'s input)."""
+    rng = np.random.default_rng(seed)
+
+    def elements() -> np.ndarray:
+        limbs = rng.integers(0, f12.RADIX, (f12.NLIMB, lanes), dtype=np.uint32)
+        limbs[-1] &= 7  # limb 21 holds bits 252-254
+        return limbs
+
+    x, y = elements(), elements()
+    edge = [0, 1, f12.P - 1, 2**255 - 20][:lanes]
+    x[:, :len(edge)] = np.concatenate([f12.limbs_of_int(v) for v in edge], axis=1)
+    x25 = np.stack([rng.integers(0, 1 << w, lanes) for w in field.WIDTHS]).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t).view(np.int32)).to(dev) for t in (x, y, x25))
+
+
+def field12_ab(kernels: dict, sqr_n_kernel, reps: int, seed: int, dev, widths=F12_WIDTHS, timed=F12_TIMED,
+               mul_width: int = F12_MUL_WIDTH, chain: int = F12_CHAIN) -> dict:
+    """K8 of every build in turns (name -> (`hs_field12`, `hs_field12_mul`)
+    kernels; "shipped" is this checkout's): `chain` squarings a launch, limbs
+    equal to the shipped build's at every width of `widths` and the product's
+    at `mul_width`; queued ms at `timed`, with `sqr_n_kernel`
+    (`hs_field_sqr_n`) at the same widths. Returns {"builds": {name: {...}},
+    "field_sqr_n": {...}}; `over_field_sqr_n_<w>` is a build's median ms
+    over `hs_field_sqr_n`'s, the production field's rate over field12's."""
+    x, y, x25 = field12_inputs(seed, max(widths), dev)
+    cut = lambda t, w: t[:, :w].contiguous()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    runs = {}
+    for w in widths:
+        xw = cut(x, w)
+        res = {name: torch.empty_like(xw) for name in kernels}
+        for name, (sq, _) in kernels.items():
+            runs[name, w] = lambda sq=sq, xw=xw, o=res[name], w=w: sq.launch(xw, o, chain, w)
+            runs[name, w]()
+        sync()
+        for name, o in res.items():
+            if not torch.equal(o, res["shipped"]):
+                raise SystemExit(f"ladder_ab: {name}/{F12} differs from the shipped build at {w} lanes")
+    a, b = cut(x, mul_width), cut(y, mul_width)
+    res = {name: torch.empty_like(a) for name in kernels}
+    for name, (_, mul) in kernels.items():
+        mul.launch(a, b, res[name], mul_width)
+    sync()
+    for name, o in res.items():
+        if not torch.equal(o, res["shipped"]):
+            raise SystemExit(f"ladder_ab: {name}/{F12}_mul differs from the shipped build at {mul_width} lanes")
+    for w in timed:
+        xw, o = cut(x25, w), torch.empty_like(cut(x25, w))
+        runs["field_sqr_n", w] = lambda xw=xw, o=o, w=w: sqr_n_kernel.launch(xw, o, chain, w)
+    queued = collections.defaultdict(list)
+    for _ in range(reps):
+        for w in timed:
+            for name in (*kernels, "field_sqr_n"):
+                queued[name, w].append(queued_ms(runs[name, w], 20))
+    out = {"builds": {name: {"limbs_equal_at": list(widths), "mul_equal_at": mul_width} for name in kernels},
+           "field_sqr_n": {}}
+    for w in timed:
+        base = statistics.median(queued["field_sqr_n", w])
+        out["field_sqr_n"][f"queued_ms_{w}"] = queued["field_sqr_n", w]
+        for name in kernels:
+            q = queued[name, w]
+            out["builds"][name].update({f"queued_ms_{w}": q,
+                                        f"over_field_sqr_n_{w}": statistics.median(q) / base if base else 0.0})
+            print(f"{name} {F12} sqr_n(., {chain}) {w} lanes: queued {[round(v, 6) for v in q]} ms, "
+                  f"{w * chain / statistics.median(q) / 1e3:.2f} M field-sqr/s; over hs_field_sqr_n "
+                  f"{out['builds'][name][f'over_field_sqr_n_{w}']:.3f}", flush=True)
+        print(f"field_sqr_n {w} lanes: queued {[round(v, 6) for v in queued['field_sqr_n', w]]} ms, "
+              f"{w * chain / base / 1e3:.2f} M field-sqr/s", flush=True)
+    return out
+
+
 def chain_build(csrcs: dict[str, Path]) -> dict[str, Path]:
     """CHAIN_SOURCE compiled against each build's csrc directory (name ->
     directory), all in parallel; returns name -> library."""
@@ -438,8 +539,8 @@ def main() -> int:
     ap.add_argument("--csrc", action="append", default=[], help="NAME=DIR: another checkout's csrc/")
     ap.add_argument("--reps", type=int, default=3, help="rounds of timing in turns")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", nargs="+", choices=SOURCES + BLS_KERNELS + (CHAIN,),
-                    default=SOURCES + BLS_KERNELS + (CHAIN,),
+    ap.add_argument("--kernels", nargs="+", choices=SOURCES + BLS_KERNELS + (F12, CHAIN),
+                    default=SOURCES + BLS_KERNELS + (F12, CHAIN),
                     help="legs to build, compare and time (K6's runs when g1_aggregate is named)")
     args = ap.parse_args()
     names = tuple(k for k in args.kernels if k != CHAIN)
@@ -464,7 +565,7 @@ def main() -> int:
             ptxas = [ln.strip() for ln in log.read_text().splitlines()
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
             row = dict(ptxas=" | ".join(ptxas), spill_bytes=_build.spill_bytes("\n".join(ptxas)),
-                       sass=sass_counts(lib, src))
+                       stack_bytes=_build.stack_bytes("\n".join(ptxas)), sass=sass_counts(lib, src))
             report["builds"][name][src] = row
             kernels[name, src] = _build.Kernel(src, source_of(src), lib=lib)
             print(f"{name} {src}: {row}", flush=True)
@@ -496,6 +597,13 @@ def main() -> int:
                     args.reps, args.seed, dev)
         for name, row in k6.items():
             report["builds"][name]["g1_aggregate"].update(row)
+    if F12 in names:
+        libs = {name: per_src[F12][0] for name, per_src in builds.items()}
+        k8 = field12_ab({name: (_build.Kernel(F12, lib=lib), _build.Kernel("field12_mul", F12, lib=lib))
+                         for name, lib in libs.items()}, _build.KERNELS["field_sqr_n"], args.reps, args.seed, dev)
+        for name, row in k8["builds"].items():
+            report["builds"][name][F12].update(row)
+        report["field_sqr_n"] = k8["field_sqr_n"]
     if CHAIN in args.kernels:
         libs = chain_build({"shipped": _build.CSRC, **jobs})
         lanes = 32 * torch.cuda.get_device_properties(dev).multi_processor_count

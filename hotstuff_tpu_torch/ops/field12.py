@@ -24,10 +24,14 @@ folds stay exactly where the reference puts them; only the order in which
 product rows are summed differs, which uint32's ring arithmetic ignores.
 
 Kernel wrappers (`mul`, `sqr`, `sqr_n`, `sub`, `canonical`): a CPU tensor
-runs the plain version; a CUDA tensor launches K8 or raises.
+runs the plain version; a CUDA tensor launches K8 or raises. K8's products
+give a lane four threads, one in each warp of a block, by the partition
+table of `csrc/field12.cu` (`kernel_layout`).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -246,6 +250,28 @@ def canonical_plain(x: torch.Tensor) -> torch.Tensor:
 def eq_canonical(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(B,) bool equality of two canonical elements."""
     return (from_i32(a) == from_i32(b)).all(dim=0)
+
+
+def kernel_partition() -> tuple[int, ...]:
+    """K8's `F12_PART` table, read from `csrc/field12.cu`: warp g of a
+    block owns the column pairs [part[g], part[g + 1]) of its lanes'
+    products."""
+    text = (_build.CSRC / "field12.cu").read_text()
+    m = re.search(r"F12_PART\[\d+\]\s*=\s*\{([^}]*)\}", text)
+    return tuple(int(v) for v in m.group(1).split(","))
+
+
+def kernel_layout() -> dict:
+    """K8's products as `csrc/field12.cu` splits them: threads a lane, the
+    product rows of each (column pair k is rows k and 22 + k; the first
+    thread also holds rows 44 and 45, which take only carries), and each
+    thread's share of a squaring's and of a product's limb products."""
+    part = kernel_partition()
+    rows = [[*range(part[g], part[g + 1]), *range(NLIMB + part[g], NLIMB + part[g + 1])]
+            + ([2 * NLIMB, 2 * NLIMB + 1] if g == 0 else []) for g in range(len(part) - 1)]
+    mine = lambda rs, sq: sum(1 for i in range(NLIMB) for j in range(i if sq else 0, NLIMB) if i + j in rs)
+    return dict(threads_per_lane=len(rows), lanes_per_block=32, rows=rows,
+                sqr_products=[mine(rs, True) for rs in rows], mul_products=[mine(rs, False) for rs in rows])
 
 
 # ---------------------------------------------------------------------------

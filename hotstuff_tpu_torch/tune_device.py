@@ -14,7 +14,8 @@ outputs lie side by side:
             on the port's production field (`int32 radix-2^25.5`,
             `ops/csrc/field_sqr_n.cu`, in the reference's `f32 radix-256`
             row) and on the radix-2^12 field (`u32 radix-2^12`, kernel K8
-            `hs_field12`), in M field-sqr/s with the device ms of one call;
+            `hs_field12`, each lane's products split over four warps of a
+            block), in M field-sqr/s with the device ms of one call;
             both rows must equal v^(2^64) mod p on every lane (K8's through
             its `canonical`);
   --phases  `phase`: the verify kernels on one 4,096-lane device-hash chunk

@@ -98,7 +98,7 @@ def test_spill_bytes_parses_ptxas():
 
 
 def test_stack_bytes_parses_ptxas():
-    """K6's gate (NO_STACK): stack frames summed over every function of a
+    """K6's and K8's gate (NO_STACK): stack frames summed over every function of a
     source's report, as `phase_build` reads them."""
     from hotstuff_tpu_torch.ops import _build
 
@@ -107,7 +107,8 @@ def test_stack_bytes_parses_ptxas():
               "stores, 64 bytes spill loads")
     assert _build.stack_bytes(report) == 32 and _build.spill_bytes(report) == 128
     assert _build.stack_bytes(report.replace("32 bytes stack", "0 bytes stack")) == 0
-    assert set(chip_smoke.NO_STACK) <= set(chip_smoke.NO_SPILL) and "g1_aggregate" in chip_smoke.NO_STACK
+    assert set(chip_smoke.NO_STACK) <= set(chip_smoke.NO_SPILL)
+    assert {"g1_aggregate", "field12"} <= set(chip_smoke.NO_STACK)
 
 
 def test_phase_reduce_compare_on_cpu(small_smoke, capsys):
@@ -275,6 +276,28 @@ def test_read_device_trace_unions_intervals_and_finds_the_default_stream():
     assert res["kernels"] == 3
     with pytest.raises(RuntimeError, match="marker"):
         breakdown.read_device_trace({"traceEvents": trace["traceEvents"][1:]}, 50e-6)
+
+
+def test_device_trace_takes_the_trace_again_when_its_markers_are_lost(monkeypatch, tmp_path):
+    """The profiler now and then loses events on the card, the markers too:
+    `device_trace` then runs its work under the profiler again, up to
+    `tries` times in all, and raises when every trace lost them."""
+    runs, results = [], [breakdown.TraceIncomplete("lost"), breakdown.TraceIncomplete("lost"), {"kernels": 4}]
+
+    def once(run, trace_path):
+        run()
+        res = results.pop(0)
+        if isinstance(res, Exception):
+            raise res
+        return res
+
+    monkeypatch.setattr(breakdown, "_trace_once", once)
+    assert breakdown.device_trace(lambda: runs.append(1), tmp_path / "t.json") == {"kernels": 4}
+    assert len(runs) == breakdown.TRACE_TRIES == 3
+    results[:] = [breakdown.TraceIncomplete("lost")] * 2
+    with pytest.raises(breakdown.TraceIncomplete, match="lost"):
+        breakdown.device_trace(lambda: runs.append(1), tmp_path / "t.json", tries=2)
+    assert len(runs) == 5 and not results
 
 
 def test_trace_kernel_counts_and_traced_launches():
@@ -556,6 +579,8 @@ def test_phase_field12_on_cpu(small_smoke, capsys):
     assert rows["alu_chain"]["ops"] == 64 * 64 * 16  # one IMAD a step of op 1
     assert rows["field12_sub"]["bound_by"] == rows["field12_canonical"]["bound_by"] == "bytes"
     out = capsys.readouterr().out
+    assert "K8 layout: sqr_n and mul 4 threads a lane (one in each warp of a block of 32 lanes)" in out
+    assert "products of a squaring [69, 69, 58, 57], of a product [132, 132, 110, 110]" in out
     assert "K8: uint32 limbs identical to the plain version at widths [1, 7, 16]" in out
     for label in ("'mul lazy'", "'sub lazy'", "'canonical 264-bit'", "'sqr_n 64 of products'"):
         assert label in out

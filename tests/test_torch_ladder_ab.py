@@ -1,4 +1,4 @@
-"""`hotstuff_tpu_torch.ladder_ab`'s K7 and K6 legs on the CPU: their inputs,
+"""`hotstuff_tpu_torch.ladder_ab`'s K7, K6 and K8 legs on the CPU: their inputs,
 and the launches they make, through stand-in kernels that run the plain
 versions on the launch's arguments (the tool itself needs a card and
 nvcc)."""
@@ -14,6 +14,7 @@ from hotstuff_tpu_torch.ops import bit_ladder as bl
 from hotstuff_tpu_torch.ops import bls
 from hotstuff_tpu_torch.ops import ed25519 as ted
 from hotstuff_tpu_torch.ops import field
+from hotstuff_tpu_torch.ops import field12 as f12
 from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -156,3 +157,106 @@ def test_chain_leg_refuses_a_build_that_differs():
                            steps=1, checked=1)
     with pytest.raises(SystemExit, match="shipped/mont_chain \\(field, 1 chains\\) differs from Python's ints"):
         ladder_ab.chain_ab({"shipped": _PlainChain(flip=True)}, 1, 0, torch.device("cpu"), 3, steps=1, checked=3)
+
+
+class _PlainField12:
+    """Stands in for `hs_field12(x, out, n, batch)` (or, with `mul`,
+    `hs_field12_mul(a, b, out, batch)`) through the plain versions."""
+
+    def __init__(self, mul: bool = False, flip: bool = False) -> None:
+        self.mul, self.flip = mul, flip
+        self.launches = 0
+
+    def launch(self, *args):
+        self.launches += 1
+        if self.mul:
+            a, b, out, batch = args
+            out.copy_(f12.mul_plain(a, b))
+        else:
+            x, out, n, batch = args
+            out.copy_(f12.sqr_n_plain(x, n))
+        assert out.shape == (f12.NLIMB, batch)
+        if self.flip:
+            out[0, -1] ^= 1
+
+
+class _PlainSqrChain:
+    """Stands in for `hs_field_sqr_n(x, out, n, batch)`."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def launch(self, x, out, n, batch):
+        self.launches += 1
+        assert x.shape == (field.NL, batch)
+        out.copy_(field.sqr_chain(x, n))
+
+
+def test_field12_leg_times_both_builds_beside_the_production_field(monkeypatch):
+    """K8's leg at widths 3 and 5, a chain of 2: every build's `hs_field12`
+    and `hs_field12_mul` against the shipped build's, then both builds and
+    `hs_field_sqr_n` timed in turns at the timed widths, with the ratio of
+    each build's median to the production field's."""
+    monkeypatch.setattr(ladder_ab, "queued_ms", lambda fn, reps=20: fn() or 2.0)
+    kernels = {name: (_PlainField12(), _PlainField12(mul=True)) for name in ("shipped", "old")}
+    chain = _PlainSqrChain()
+    res = ladder_ab.field12_ab(kernels, chain, 2, 0, torch.device("cpu"), widths=(3, 5), timed=(5,), mul_width=4,
+                               chain=2)
+    assert set(res["builds"]) == {"shipped", "old"}
+    for row in res["builds"].values():
+        assert row["limbs_equal_at"] == [3, 5] and row["mul_equal_at"] == 4
+        assert row["queued_ms_5"] == [2.0, 2.0] and row["over_field_sqr_n_5"] == 1.0
+    assert res["field_sqr_n"]["queued_ms_5"] == [2.0, 2.0]
+    for sq, mul in kernels.values():
+        assert sq.launches == 2 + 2 and mul.launches == 1  # one check a width, one a timed round
+    assert chain.launches == 2
+    assert (ladder_ab.F12_WIDTHS, ladder_ab.F12_TIMED) == ((7, 128, 4096, 135168), (128, 4096, 135168))
+    assert ladder_ab.F12_CHAIN == chip_smoke.FIELD12_CHAIN and ladder_ab.source_of(ladder_ab.F12) == "field12"
+
+
+def test_field12_leg_inputs_are_normalized_with_the_edges_first():
+    x, y, x25 = ladder_ab.field12_inputs(0, 9, torch.device("cpu"))
+    assert x.shape == y.shape == (f12.NLIMB, 9) and x25.shape == (field.NL, 9)
+    assert f12.int_of_limbs(x)[:4] == [0, 1, f12.P - 1, 2**255 - 20]
+    assert all(v < 2**255 for v in f12.int_of_limbs(x) + f12.int_of_limbs(y))
+    assert int(x25.min()) >= 0 and all(int(x25[i].max()) < 2 ** w for i, w in enumerate(field.WIDTHS))
+
+
+def test_field12_leg_refuses_a_build_that_differs():
+    cpu = torch.device("cpu")
+    with pytest.raises(SystemExit, match="old/field12 differs from the shipped build at 3 lanes"):
+        ladder_ab.field12_ab({"shipped": (_PlainField12(), _PlainField12(mul=True)),
+                              "old": (_PlainField12(flip=True), _PlainField12(mul=True))},
+                             _PlainSqrChain(), 1, 0, cpu, widths=(3,), timed=(3,), mul_width=3, chain=1)
+    with pytest.raises(SystemExit, match="old/field12_mul differs from the shipped build at 3 lanes"):
+        ladder_ab.field12_ab({"shipped": (_PlainField12(), _PlainField12(mul=True)),
+                              "old": (_PlainField12(), _PlainField12(mul=True, flip=True))},
+                             _PlainSqrChain(), 1, 0, cpu, widths=(3,), timed=(3,), mul_width=3, chain=1)
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_118field12_mul_kernelEPKjS1_Pji
+        /*0000*/                   IMAD R1, R2, R3, R4 ;
+        /*0010*/                   IMAD R1, R2, R3, R4 ;
+        /*0020*/                   LOP3.LUT R1, R2, 0xfff, RZ, 0xc0, !PT ;
+        /*0030*/                   IMAD R1, R2, R3, R4 ;
+        /*0040*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_114field12_kernelEPKjPjii
+        /*0000*/                   LDG.E R1, desc[UR4][R2.64] ;
+        /*0010*/                   IMAD R1, R2, R3, R4 ;
+        /*0020*/                   LEA.HI R1, R2, R3, RZ, 0x14 ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0040*/              @P0  BRA 0x10 ;
+        /*0050*/                   EXIT ;
+"""
+
+
+def test_sass_counts_read_one_function_of_a_library():
+    """K8's library holds four kernels whose addresses all start at 0: the
+    squaring loop (the backward branch at 0x40) is counted in
+    `field12_kernel` alone, not with the product kernel's instructions at
+    the same addresses."""
+    counts = ladder_ab.sass_counts(None, "field12", SASS)
+    assert counts == dict(IMAD=1, LEA=1, BAR=1, BRA=1, total=4, all=11)
+    with pytest.raises(SystemExit, match="0 SASS functions of field12"):
+        ladder_ab.sass_counts(None, "field12", SASS.replace("14field12_kernel", "14field99_kernel"))
