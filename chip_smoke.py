@@ -72,9 +72,16 @@ caught:
      table; votes/s of the committee and generic paths on the same votes,
      in turns; one committee batch under `torch.profiler` (busy share,
      nothing on the default stream); the host-vs-card break-even of both
-     paths (a sweep of batch sizes 1..64 against the host verifier that
-     `TorchBackend` runs below its crossover, and against OpenSSL where the
-     `cryptography` wheel is installed, as a reported column); last, kernels K5 `committee_ladder` and K2g `h_digits_idx`
+     paths (a sweep of batch sizes 1..64 against the exact host verifier
+     and against OpenSSL where the `cryptography` wheel is installed: the
+     break-evens `TorchBackend`'s defaults on each host route are taken
+     from), then `TorchBackend` at its default crossovers (its resolved
+     `crossover`, `committee_crossover` and `host_route` printed) on each
+     size of the sweep, tagged and untagged, with rejected lanes among
+     them: a batch under its path's default must go to the host route (its
+     `stats` and `verifier.crossover_fallbacks` move), one at or above it
+     to the card, and each must give the card's mask; last, kernels K5
+     `committee_ladder` and K2g `h_digits_idx`
      against their plain versions at 4,096 lanes (random indices over the
      67-entry table, a few out of range, a ragged width), exactly; both
      also at every width of WIDTHS and timed at 128 lanes beside 4,096;
@@ -194,6 +201,19 @@ caught:
      launch its kernels (its last line counts them; these are the K8 rows'
      `launches`). Phases 2-9 must launch K8 and the tool's kernels 0 times,
      and phases 9-10 the BLS kernels 0 times.
+ 11. the port's bench: `hotstuff_tpu_torch.bench.main(argv)` in this
+     process, at full width (batch 16,384, chunk 4,096, `--iters 8
+     --e2e-iters 3`), six runs: `--committee-cache on`, `--committee-cache
+     off`, `--kernel bits --device-batch 8192`, `--mesh` (every visible
+     GPU), `--pipeline-ab` and `--committee-scale --e2e-iters 1
+     --cpu-budget 0.5`, each with `--metrics-out` to a file of its own under
+     `.chip_smoke/`. Each run's output is echoed; each must end with a JSON
+     line that parses and equals what `main` returned, with backend "cuda"
+     and a positive value, launch exactly the kernels of its legs
+     (`bench_kernels`: no K6, K8 or the tool's kernels) and leave a metrics
+     dump that holds `TorchBackend`'s routing counters; the
+     committee-scale table's QCs must each have been routed once, each
+     committee's on one route. Prints each run's time and the phase's.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
 Exits non-zero without a result when no CUDA device is available or the
@@ -1396,7 +1416,7 @@ def phase_committee_path(corpus: tuple, device: str = "cuda") -> dict:
           f"events per stream {trace['streams']} (default stream {trace['default_stream']}: none)", flush=True)
     identity = set(identity_lanes)
     ok_lanes = [i for i in range(len(M)) if expected[i] and i not in identity]
-    crossover = phase_crossover(backend, M, K, S, ok_lanes)
+    crossover = phase_crossover(backend, M, K, S, expected, ok_lanes)
     qcs = (M[:n_signed], K[:n_signed], S[:n_signed], expected[:n_signed].tolist())
     return dict(launches=launches, table_keys=table_keys, rates=rates, crossover=crossover, qcs=qcs,
                 votes=(M, K, S, expected))
@@ -1428,17 +1448,19 @@ def _openssl_verifier():
     return verify_batch_mask
 
 
-def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
+def phase_crossover(backend, M, K, S, expected, ok_lanes) -> dict:
     """Host-vs-card break-even. For each batch size n of SWEEP: the median
     host-clock ms of verifying n valid votes with the host verifier
-    (`HostBackend`, what `TorchBackend` runs below its crossover), with
-    OpenSSL where `cryptography` imports (else "not available"), and with
-    the card's committee and generic paths (`backend` has crossover 1 and
-    the committee registered). A path's break-even is the least n of the
-    sweep from which the card is faster at every larger n of the sweep."""
+    (`HostBackend`, what `TorchBackend` runs below its crossover on the
+    exact route), with OpenSSL where `cryptography` imports (else "not
+    available"; what it runs on the OpenSSL route), and with the card's
+    committee and generic paths (`backend` has crossover 1 and the
+    committee registered). A path's break-even is the least n of the sweep
+    from which the card is faster at every larger n of the sweep; the
+    OpenSSL route's defaults (`torch_backend.DEFAULT_CROSSOVERS`) are
+    OpenSSL's break-evens. Then `check_default_routing`."""
     from hotstuff_tpu_torch.crypto.backend import HostBackend
     from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
-    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
 
     host = HostBackend()
     openssl = _openssl_verifier()
@@ -1472,9 +1494,59 @@ def phase_crossover(backend, M, K, S, ok_lanes) -> dict:
     res["break_even_openssl"] = (
         {p: break_even(res[f"{p}_ms"], res["openssl_ms"]) for p in paths} if openssl else "not available"
     )
-    res["default_crossover"] = TorchBackend(device=backend.device).crossover
+    res["routing"] = check_default_routing(backend, M, K, S, expected, ok_lanes)
     print(f"crossover sweep: {json.dumps(res)}", flush=True)
     return res
+
+
+def routing_lanes(expected, ok_lanes) -> list[int]:
+    """The routing check's lanes: rejected and valid lanes in turns, then
+    valid ones, so that every size of SWEEP holds a rejected lane."""
+    bad = [i for i in range(len(expected)) if not expected[i]][:8]
+    return [i for pair in zip(bad, ok_lanes) for i in pair] + list(ok_lanes[len(bad):max(SWEEP)])
+
+
+def check_default_routing(card, M, K, S, expected, ok_lanes) -> dict:
+    """`TorchBackend` at its default crossovers (`card`'s committee
+    registered) on each size n of SWEEP, tagged and untagged: below the
+    path's default the batch must go to the host route (`stats` host lanes
+    and `verifier.crossover_fallbacks` move by the batch), at or above it
+    to the card, and either way the mask must be `card`'s (crossover 1) and
+    the expected one. Returns the defaults and the sizes sent to the host."""
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.utils import metrics
+
+    lanes = routing_lanes(expected, ok_lanes)
+    default = TorchBackend(device=card.device, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    default.register_committee(card._verifier.committee.keys)
+    fallbacks = metrics.counter("verifier.crossover_fallbacks")
+    out = {"crossover": default.crossover, "committee_crossover": default.committee_crossover,
+           "host_route": default.host_route, "host": {"generic": [], "committee": []}}
+    try:
+        for n in SWEEP:
+            args = ([M[i] for i in lanes[:n]], [PublicKey(K[i]) for i in lanes[:n]],
+                    [Signature(S[i]) for i in lanes[:n]])
+            want = [bool(expected[i]) for i in lanes[:n]]
+            for path, threshold in (("generic", default.crossover), ("committee", default.committee_crossover)):
+                tagged = path == "committee"
+                host0, f0 = default.stats["host_sigs"], fallbacks.value
+                mask = default.verify_batch_mask(*args, committee=tagged)
+                on_host = default.stats["host_sigs"] - host0 == n and fallbacks.value - f0 == 1
+                if on_host != (n < threshold):
+                    fail(f"default backend: a {path} batch of {n} went to the "
+                         f"{'host' if on_host else 'card'} at crossover {threshold}: {default.stats}")
+                if mask != card.verify_batch_mask(*args, committee=tagged) or mask != want:
+                    fail(f"default backend: a {path} batch of {n} on the {'host' if on_host else 'card'} "
+                         f"gave another mask than the card's")
+                if on_host:
+                    out["host"][path].append(n)
+    finally:
+        default.close()
+    print(f"default routing: crossover {out['crossover']}, committee_crossover {out['committee_crossover']}, "
+          f"host route {out['host_route']}; the sizes sent to the host ({out['host']}) gave the card's masks",
+          flush=True)
+    return out
 
 
 # --- phase 5b: the sharded verifier on a mesh -----------------------------------
@@ -3254,6 +3326,136 @@ def phase_tune(device: str = "cuda") -> dict:
     return launches
 
 
+# --- phase 11: the port's bench -------------------------------------------------
+
+BENCH_BASE = ("--batch", "16384", "--chunk", "4096", "--iters", "8", "--e2e-iters", "3")
+BENCH_RUNS = (  # label, the run's flags after BENCH_BASE
+    ("committee cache on", ("--committee-cache", "on")),
+    ("committee cache off", ("--committee-cache", "off")),
+    ("bits", ("--kernel", "bits", "--device-batch", "8192")),
+    ("mesh", ("--mesh",)),
+    ("pipeline A/B", ("--pipeline-ab",)),
+    ("committee scale", ("--committee-scale", "--e2e-iters", "1", "--cpu-budget", "0.5")),
+)
+ROUTING_COUNTERS = ("crypto.tpu_batches", "crypto.tpu_sigs", "crypto.cpu_batches", "crypto.cpu_sigs",
+                    "verifier.crossover_fallbacks", "verifier.committee_misses", "verifier.rejected_sigs",
+                    "verifier.committee_rejected_sigs")
+F32_KERNELS = {"w4": {"decompress_table", "ladder", "compress_eq"},
+               "pallas": {"decompress_table", "ladder", "compress_eq"},
+               "bits": {"decompress_table", "bit_ladder", "compress_eq"}}
+PACKED_KERNELS = {"h_digits", "decompress_table", "ladder", "compress_eq"}
+COMMITTEE_PATH_KERNELS = {"h_digits_idx", "committee_ladder", "compress_eq"}
+
+
+def bench_kernels(argv) -> set[str]:
+    """The kernels a bench run of `argv` must launch, and no others: the
+    kernel-only leg's K3, K1 or K7, K4 and the verifier's packed kernels (the
+    f32 path's with `--kernel bits`), plus the committee leg's; the pipeline
+    A/B runs the verifier's only; the committee-scale table runs the
+    committee kernels for the quorums that reach the card."""
+    from hotstuff_tpu_torch.bench import parser
+
+    args = parser().parse_args(list(argv))
+    verifier = F32_KERNELS["bits"] if args.kernel == "bits" else PACKED_KERNELS
+    if args.committee_scale:
+        return set(COMMITTEE_PATH_KERNELS)
+    if args.pipeline_ab:
+        return set(verifier)
+    out = F32_KERNELS[args.kernel] | verifier
+    if args.committee_cache == "on":
+        out |= COMMITTEE_PATH_KERNELS
+    elif args.committee_cache == "off":
+        out |= verifier
+    return out
+
+
+def bench_line(stdout: str) -> dict:
+    """The bench's JSON line: the last line of its standard output."""
+    lines = stdout.strip().splitlines()
+    if not lines:
+        fail("the bench printed nothing")
+    try:
+        line = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        fail(f"the bench's last line does not parse: {lines[-1][:200]}")
+    if not isinstance(line, dict):
+        fail(f"the bench's last line is not an object: {lines[-1][:200]}")
+    return line
+
+
+def bench_errors(line: dict, launches: dict, want: set, dump: dict, device: str = "cuda") -> list[str]:
+    """What a bench run got wrong: its line's backend and value, the kernels
+    it launched against `want`, the routing counters in its metrics dump."""
+    errors = []
+    if line.get("backend") != device:
+        errors.append(f"backend {line.get('backend')!r}, not {device!r}")
+    if not (isinstance(line.get("value"), (int, float)) and line["value"] > 0):
+        errors.append(f"value {line.get('value')!r} is not positive")
+    launched = {k for k, n in launches.items() if n}
+    if device == "cuda" and launched != want:
+        errors.append(f"launched {sorted(launched)}, not {sorted(want)}")
+    missing = [k for k in ROUTING_COUNTERS if k not in dump.get("counters", {})]
+    if missing or "crypto.batch_size" not in dump.get("histograms", {}):
+        errors.append(f"the metrics dump lacks {missing or ['crypto.batch_size']}")
+    return errors
+
+
+def phase_bench(device: str = "cuda", base=BENCH_BASE, runs=BENCH_RUNS) -> dict:
+    """Phase 11: `hotstuff_tpu_torch.bench.main(argv)` in this process for
+    each run of `runs`, with the registry, the device timeline and the
+    launch counts reset before it (as a fresh process of the bench starts)
+    and `--metrics-out` to a file of its own. Each run's standard output
+    is echoed; each must return normally, end with a JSON line equal to
+    what `main` returned, with `backend` the device and a positive
+    `value`, launch exactly `bench_kernels`' kernels (on the card) and
+    leave a metrics dump with the routing counters. The committee-scale
+    table's batches must each have taken one route. Returns each run's
+    line and launches."""
+    import contextlib
+    import io
+
+    from hotstuff_tpu_torch import bench
+    from hotstuff_tpu_torch.ops import _build, timeline
+    from hotstuff_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    out_dir = REPO / ".chip_smoke"
+    out_dir.mkdir(exist_ok=True)
+    results = {}
+    for label, flags in runs:
+        path = out_dir / f"bench_metrics_{label.replace(' ', '_').replace('/', '')}.json"
+        argv = [*base, *flags, "--device", device, "--metrics-out", str(path)]
+        metrics.reset()
+        timeline.reset()
+        _build.reset_launches()
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = bench.main(argv)
+        secs = time.perf_counter() - t1
+        launches = _build.launches()
+        for ln in buf.getvalue().splitlines():
+            print(f"bench {label}| {ln}", flush=True)
+        line = bench_line(buf.getvalue())
+        errors = bench_errors(line, launches, bench_kernels(argv), json.loads(path.read_text()), device)
+        if line != json.loads(json.dumps(ret)):
+            errors.append("the last line is not what main returned")
+        if "committee_scale" in line:
+            counters = json.loads(path.read_text())["counters"]
+            iters = bench.parser().parse_args(argv).e2e_iters  # each QC a call, plus one first call a committee
+            calls = sum(r["qcs"] for r in line["committee_scale"]) * iters + len(line["committee_scale"])
+            routed = counters["crypto.tpu_batches"] + counters["crypto.cpu_batches"]
+            if routed != calls or "mixed" in [r["route"] for r in line["committee_scale"]]:
+                errors.append(f"committee scale: {routed} batches routed for {calls} calls, or a mixed route")
+        if errors:
+            fail(f"bench {label} ({' '.join(argv)}): {errors}")
+        print(f"bench {label}: ok in {secs:.1f} s, launches "
+              f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+        results[label] = {"line": line, "launches": launches, "seconds": secs}
+    print(f"phase 11 (the port's bench): {len(runs)} runs in {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
@@ -3353,6 +3555,8 @@ def main() -> int:
     })
     if bls_late:
         fail(f"BLS kernels launched in phases 9-10: {bls_late}")
+    bench_runs = phase_bench()
+    bench_launches = {label: r["launches"] for label, r in bench_runs.items()}
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -3362,6 +3566,7 @@ def main() -> int:
                 source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
                 replaces=REPLACES[name], launches=path["launches"][name],
                 sidecar_launches=sidecar["launches"][name],
+                bench_launches={label: n[name] for label, n in bench_launches.items()},
                 mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                                for label, m in mesh["meshes"].items()},
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
@@ -3376,6 +3581,7 @@ def main() -> int:
             source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
             replaces=REPLACES[name], launches=bls_path["launches"][name],
             sidecar_launches=sidecar["launches"][name],
+            bench_launches={label: n[name] for label, n in bench_launches.items()},
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
@@ -3387,6 +3593,7 @@ def main() -> int:
         name="bit_ladder", route="cuda", source="hotstuff_tpu_torch/ops/csrc/bit_ladder.cu",
         replaces=REPLACES["bit_ladder"], launches=f32["launches"]["bit_ladder"],
         sidecar_launches=sidecar["launches"]["bit_ladder"],
+        bench_launches={label: n["bit_ladder"] for label, n in bench_launches.items()},
         mesh_launches=f32["mesh_launches"],  # phase 9's ShardedEd25519TorchVerifier(packed=False) runs
         matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
@@ -3400,6 +3607,7 @@ def main() -> int:
             source=f"hotstuff_tpu_torch/ops/csrc/{_build.KERNELS[name].source}.cu",
             replaces=REPLACES[name], launches=tool_launches.get(name, 0),
             sidecar_launches=sidecar["launches"][name],
+            bench_launches={label: n[name] for label, n in bench_launches.items()},
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],

@@ -101,6 +101,32 @@ class CpuBackend(CryptoBackend):
         return out
 
 
+HOST_ROUTES = ("openssl", "exact")
+
+
+def host_backend(host: str | None) -> CryptoBackend:
+    """The host verifier of a backend that routes batches off the card
+    (`TorchBackend` below its crossover, `RemoteBackend` below its crossover
+    and through sidecar outages): `"openssl"` is `CpuBackend` (raises
+    ImportError where `cryptography` is missing), `"exact"` is
+    `HostBackend`, and None takes OpenSSL where it imports, else exact."""
+    if host is None:
+        try:
+            return CpuBackend()
+        except ImportError:
+            return HostBackend()
+    if host == "openssl":
+        return CpuBackend()
+    if host == "exact":
+        return HostBackend()
+    raise ValueError(f"host must be one of {HOST_ROUTES} or None, got {host!r}")
+
+
+def host_route(backend: CryptoBackend) -> str:
+    """The name in HOST_ROUTES of a verifier made by `host_backend`."""
+    return "openssl" if isinstance(backend, CpuBackend) else "exact"
+
+
 _lock = threading.Lock()
 _backend: CryptoBackend = HostBackend()
 

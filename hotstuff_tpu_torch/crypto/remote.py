@@ -46,7 +46,7 @@ import struct
 import threading
 from typing import Sequence
 
-from .backend import CpuBackend, CryptoBackend, HostBackend, make_backend
+from .backend import CryptoBackend, host_backend, host_route, make_backend
 from .batch_service import BatchVerificationService
 from .primitives import PublicKey, Signature
 
@@ -118,25 +118,6 @@ def _parse_request(body: memoryview) -> tuple[list[bytes], list[tuple[PublicKey,
     return msgs, pairs
 
 
-HOST_ROUTES = ("openssl", "exact")
-
-
-def _host_backend(host: str | None) -> CryptoBackend:
-    """The host verifier of a `RemoteBackend`: `"openssl"` is `CpuBackend`
-    (raises ImportError where `cryptography` is missing), `"exact"` is
-    `HostBackend`, and None takes OpenSSL where it imports, else exact."""
-    if host is None:
-        try:
-            return CpuBackend()
-        except ImportError:
-            return HostBackend()
-    if host == "openssl":
-        return CpuBackend()
-    if host == "exact":
-        return HostBackend()
-    raise ValueError(f"host must be one of {HOST_ROUTES} or None, got {host!r}")
-
-
 class RemoteBackend(CryptoBackend):
     """CryptoBackend that ships batches to the sidecar.
 
@@ -144,7 +125,7 @@ class RemoteBackend(CryptoBackend):
     cannot be reached after a retry on a fresh connection, the batch
     verifies on the host too, with a warning: a sidecar outage must not
     halt the protocol. `stats` counts both. The host verifier is chosen once
-    (`host`, see `_host_backend`): OpenSSL, the reference's host path, where
+    (`host`, see `backend.host_backend`): OpenSSL, the reference's host path, where
     `cryptography` imports; `host_route` says which ("openssl" or "exact").
     Both give the card's verdicts."""
 
@@ -157,8 +138,8 @@ class RemoteBackend(CryptoBackend):
     def __init__(self, addr: tuple[str, int], crossover: int = 64, host: str | None = None):
         self.addr = addr
         self.crossover = crossover
-        self._host = _host_backend(host)
-        self.host_route = "openssl" if isinstance(self._host, CpuBackend) else "exact"
+        self._host = host_backend(host)
+        self.host_route = host_route(self._host)
         log.info("remote backend %s:%s: batches under %d and sidecar outages verify on the host (%s)",
                  addr[0], addr[1], crossover, self.host_route)
         self._pool: list[socket.socket] = []

@@ -14,14 +14,37 @@ any unregistered key takes the generic path and counts in
 `stats["committee_misses"]`; without a registration the tag is ignored.
 Correctness never depends on the tag.
 
-Batches smaller than `crossover` are verified on the host (`HostBackend`,
-exact integers with the card's verdicts), as the reference sends small
-batches to the host CPU. That is a size rule, not a device fallback: both
-sides give the same mask, and `stats` counts the host's lanes. The default, 1,
-sends every batch to the card: on one H100 80GB HBM3 (700 W) the card
-verified a single signature faster than the port's host verifier, on the
-committee path and on the generic path alike, so one crossover serves both
-(`chip_smoke.py`'s crossover sweep; numbers in PERF.md).
+Batches smaller than the crossover are verified on the host, as the
+reference sends small batches to the host CPU (`tpu_backend.py:276-316`).
+That is a size rule, not a device fallback: every route gives the same
+mask, and `stats` counts the host's lanes. The host verifier is chosen
+once (`host`, see `backend.host_backend`): OpenSSL (`CpuBackend`, the
+reference's host path) where `cryptography` imports, else the exact-integer
+`HostBackend`; `host_route` says which ("openssl" or "exact").
+
+A batch tagged `committee=True` that resolves against the registered table
+is held to `committee_crossover`, any other batch to `crossover`; committee
+routing is resolved before the size test, as in the reference
+(`tpu_backend.py:289-296`). `crossover=None` means the measured default of
+the route in use (`DEFAULT_CROSSOVERS`): on the OpenSSL route the least
+batch size from which the card beat OpenSSL at every larger size in
+`chip_smoke.py`'s crossover sweep, on each path; on the exact route 1,
+since the card beat `HostBackend` from one signature on both paths.
+`committee_crossover=None` means the route's measured committee default
+when `crossover` is None too, else the reference's `crossover // 4` (at
+least 1). Then, on a sharded verifier, it is floored at `mesh_alignment //
+8` (`tpu_backend.py:110-124`): a quorum narrower than the mesh's bucket
+pads to a whole mesh bucket, and the card pays for every padded lane. An
+explicit `committee_crossover` is taken as given. Routing never changes a
+verdict, only where it is computed.
+
+The routing is mirrored into the port's metrics registry under the
+reference's names (`crypto.tpu_batches` and `crypto.tpu_sigs` count the
+card's batches, `crypto.cpu_*` the host's; `crypto.batch_size`,
+`verifier.crossover_fallbacks`, `verifier.committee_misses`,
+`verifier.rejected_sigs`, `verifier.committee_rejected_sigs`), so a dump of
+either package reads the same; the first, tenth, hundredth, ... fallback
+and miss are logged.
 
 The verifier's dispatch pipeline runs at `HOTSTUFF_PIPELINE_DEPTH` chunks in
 flight (default 2; 1 runs every chunk inline on the caller's thread);
@@ -33,14 +56,6 @@ when asked for.
 the devices of a `parallel.DeviceMesh` (`tpu_backend.py:74-86`): the
 verifier is then `ShardedEd25519TorchVerifier`, buckets are multiples of its
 `mesh_alignment`, and a registered committee has a table replica per device.
-Deliberate departure: the reference's mesh-aware committee crossover floor
-(`tpu_backend.py:110-124`, `max(crossover // 4, mesh_alignment // 8)`) is
-not carried over. Its host path is OpenSSL; this backend's is the
-exact-integer verifier, far slower than the card even on a quorum padded
-to a mesh bucket, and the floor would send every QC of a 4-device mesh to
-it. The port has OpenSSL's route too now (`backend.CpuBackend`, which
-`remote.RemoteBackend` takes below its crossover), so the floor can be
-revisited. Routing never changes a verdict, only where it is computed.
 """
 
 from __future__ import annotations
@@ -56,10 +71,44 @@ import torch
 from ..ops import _build
 from ..ops.verifier import Ed25519TorchVerifier
 from ..parallel.mesh import DeviceMesh, ShardedEd25519TorchVerifier, default_mesh
-from .backend import CryptoBackend, HostBackend
+from ..utils import metrics
+from .backend import CryptoBackend, host_backend, host_route
 from .primitives import PublicKey, Signature
 
 log = logging.getLogger("hotstuff.crypto")
+
+# The defaults of `crossover` and `committee_crossover` on each host route:
+# the least batch size of `chip_smoke.py`'s crossover sweep (1, 2, 4, 8, 16,
+# 32, 43, 64 signatures) from which the card beat the route's host verifier
+# at every larger size of the sweep, on the generic and the committee path.
+# Six sweeps in two runs of three (`phase_crossover`) on one NVIDIA H100
+# 80GB HBM3 at a power limit of 700.00 W: OpenSSL's break-even read 8 in
+# three and 16 in three, on both paths alike (the card took 1.2-1.8 ms a
+# batch at every size up to 64 signatures, OpenSSL 1.09-1.58 ms at 8 and
+# 2.24-3.56 ms at 16), so the default is 16, where the card won every
+# sweep; the exact verifier lost to the card from one signature on both
+# paths (3.0-4.0 ms for one signature).
+CROSSOVER_OPENSSL = 16
+COMMITTEE_CROSSOVER_OPENSSL = 16
+DEFAULT_CROSSOVERS = {"openssl": (CROSSOVER_OPENSSL, COMMITTEE_CROSSOVER_OPENSSL), "exact": (1, 1)}
+
+# The reference's routing metrics (`tpu_backend.py:31-47`): the card's
+# batches count as `tpu_*`, the host's as `cpu_*`.
+_M_TPU_BATCHES = metrics.counter("crypto.tpu_batches")
+_M_TPU_SIGS = metrics.counter("crypto.tpu_sigs")
+_M_CPU_BATCHES = metrics.counter("crypto.cpu_batches")
+_M_CPU_SIGS = metrics.counter("crypto.cpu_sigs")
+_M_BATCH_SIZE = metrics.histogram("crypto.batch_size", metrics.SIZE_BUCKETS)
+_M_CROSSOVER_FALLBACKS = metrics.counter("verifier.crossover_fallbacks")
+_M_COMMITTEE_MISSES = metrics.counter("verifier.committee_misses")
+_M_REJECTED = metrics.counter("verifier.rejected_sigs")
+_M_COMMITTEE_REJECTED = metrics.counter("verifier.committee_rejected_sigs")
+
+
+def _is_decade(count: int) -> bool:
+    """True on the 1st, 10th, 100th, ... occurrence: the log throttle of
+    the fallback and miss lines."""
+    return count >= 1 and count == 10 ** (len(str(count)) - 1)
 
 
 class TorchBackend(CryptoBackend):
@@ -69,7 +118,7 @@ class TorchBackend(CryptoBackend):
 
     def __init__(
         self,
-        crossover: int = 1,
+        crossover: int | None = None,
         max_bucket: int = 8192,
         min_bucket: int = 128,
         chunk: int | None = None,
@@ -77,6 +126,8 @@ class TorchBackend(CryptoBackend):
         sharded: bool = False,
         mesh: DeviceMesh | None = None,
         staging: str = "native",
+        committee_crossover: int | None = None,
+        host: str | None = None,
     ):
         kw = dict(min_bucket=min_bucket, max_bucket=max_bucket, chunk=chunk, staging=staging)
         if sharded or mesh is not None:
@@ -86,8 +137,19 @@ class TorchBackend(CryptoBackend):
             log.info("batches split over %s", self._verifier.mesh)
         else:
             self._verifier = Ed25519TorchVerifier(device=device, **kw)
-        self._host = HostBackend()
-        self.crossover = crossover
+        self._host = host_backend(host)
+        self.host_route = host_route(self._host)
+        generic, committee = DEFAULT_CROSSOVERS[self.host_route]
+        self.crossover = generic if crossover is None else crossover
+        if committee_crossover is not None:
+            self.committee_crossover = committee_crossover
+        else:
+            self.committee_crossover = committee if crossover is None else max(1, crossover // 4)
+            align = getattr(self._verifier, "mesh_alignment", 0)
+            if align:
+                self.committee_crossover = max(self.committee_crossover, align // 8)
+        log.info("batches under %d (committee batches under %d) verify on the host (%s)",
+                 self.crossover, self.committee_crossover, self.host_route)
         self._lock = threading.Lock()
         self.stats = {
             "device_batches": 0, "device_sigs": 0, "host_batches": 0, "host_sigs": 0,
@@ -193,28 +255,44 @@ class TorchBackend(CryptoBackend):
         n = len(messages)
         if n == 0:
             return []
+        _M_BATCH_SIZE.record(n)
         resolved = self._resolve_committee(keys) if committee else None
-        if n < self.crossover:
+        threshold = self.crossover if resolved is None else self.committee_crossover
+        if n < threshold:
             with self._lock:
                 self.stats["host_batches"] += 1
                 self.stats["host_sigs"] += n
-            return self._host.verify_batch_mask(messages, keys, signatures)
+            _M_CPU_BATCHES.inc()
+            _M_CPU_SIGS.inc(n)
+            _M_CROSSOVER_FALLBACKS.inc()
+            count = _M_CROSSOVER_FALLBACKS.value
+            if _is_decade(count):
+                log.info("sub-crossover fallback #%d: batch of %d < crossover %d verified on the host (%s)",
+                         count, n, threshold, self.host_route)
+            mask = self._host.verify_batch_mask(messages, keys, signatures)
+            _count_rejections(mask, resolved is not None)
+            return mask
         with self._lock:
             self.stats["device_batches"] += 1
             self.stats["device_sigs"] += n
             if resolved is not None:
                 self.stats["committee_batches"] += 1
                 self.stats["committee_sigs"] += n
+        _M_TPU_BATCHES.inc()
+        _M_TPU_SIGS.inc(n)
         if resolved is not None:
             indices, table = resolved
             # `table` is pinned through the dispatch: a re-registration
             # cannot swap it under these indices.
-            return self._verifier.verify_batch_mask_committee(
+            mask = self._verifier.verify_batch_mask_committee(
                 list(messages), indices, [s.data for s in signatures], table=table
             ).tolist()
-        return self._verifier.verify_batch_mask(
-            list(messages), [k.data for k in keys], [s.data for s in signatures]
-        ).tolist()
+        else:
+            mask = self._verifier.verify_batch_mask(
+                list(messages), [k.data for k in keys], [s.data for s in signatures]
+            ).tolist()
+        _count_rejections(mask, resolved is not None)
+        return mask
 
     def _resolve_committee(self, keys: Sequence[PublicKey]):
         """Validator indices of `keys` against ONE snapshot of the registered
@@ -228,4 +306,17 @@ class TorchBackend(CryptoBackend):
         except KeyError:
             with self._lock:
                 self.stats["committee_misses"] += 1
+            _M_COMMITTEE_MISSES.inc()
+            count = _M_COMMITTEE_MISSES.value
+            if _is_decade(count):
+                log.info("committee miss #%d: tagged batch of %d holds unregistered key(s); it takes the "
+                         "generic kernels (re-register after reconfiguration?)", count, len(keys))
             return None
+
+
+def _count_rejections(mask: Sequence[bool], committee: bool) -> None:
+    bad = mask.count(False)
+    if bad:
+        _M_REJECTED.inc(bad)
+        if committee:
+            _M_COMMITTEE_REJECTED.inc(bad)

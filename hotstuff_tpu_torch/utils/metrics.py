@@ -6,8 +6,11 @@ A trimmed copy of `hotstuff_tpu/utils/metrics.py`: only what
 loop (`ops/verifier.py`, `ops/pipeline.py`, `ops/timeline.py`) and the
 BLS committee table (`ops/bls.py`: `bls.table_builds`, `bls.aggregations`,
 `bls.points_aggregated`; the reference's `bls.host_fallbacks` has no
-counterpart, since the port has no host fallback) record into, and the
-`dump` / `reset` that read and clear it.
+counterpart, since the port has no host fallback) and `TorchBackend`'s
+routing (`crypto.*`, `verifier.crossover_fallbacks`, ...) record into, and
+what reads and clears it: `dump`, `snapshot_json` and `write_json` (the
+bench's `--metrics-out`, in the reference's layout,
+`hotstuff_tpu/utils/metrics.py:354-386`) and `reset`.
 
   * `counter(name)` / `gauge(name)` / `histogram(name)` — get-or-create
     metrics in a process-global registry. Counters are monotonic;
@@ -24,12 +27,16 @@ same. Every metric guards its state with its own lock: the service's
 dispatch threads, the pipeline's workers and the event loop record
 concurrently.
 
-The reference's periodic emitter, `timed`, the recording switch and the
-eagerly registered namespace are not ported.
+The reference's periodic emitter (`emit_snapshot`,
+`start_periodic_emitter`; its one caller is the reference node's `main`,
+which the port does not carry), `timed`, the recording switch and the
+eagerly registered namespace are not ported: a dump's `enabled` is always
+true.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import threading
 import time
@@ -48,6 +55,8 @@ __all__ = [
     "histogram",
     "dump",
     "percentile",
+    "snapshot_json",
+    "write_json",
     "reset",
     "span",
 ]
@@ -172,6 +181,11 @@ class Histogram:
         return {"count": total, "sum": s, "min": lo, "max": hi, "mean": s / total,
                 "p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99)}
 
+    def buckets_dict(self) -> dict:
+        with self._lock:
+            counts = list(self._counts)
+        return {"le": list(self.bounds) + ["+inf"], "counts": counts}
+
     def _reset(self) -> None:
         with self._lock:
             self._counts = [0] * (len(self.bounds) + 1)
@@ -209,19 +223,33 @@ class Registry:
     def histogram(self, name: str, buckets: Sequence[float] = TIME_BUCKETS_S) -> Histogram:
         return self._get_or_create(name, Histogram, lambda: Histogram(name, buckets))
 
-    def dump(self) -> dict:
-        """{counters, gauges, histograms (summaries)} by name."""
+    def dump(self, include_buckets: bool = True) -> dict:
+        """{v, enabled, counters, gauges, histograms (summaries, with each
+        histogram's bucket counts unless `include_buckets` is False)} by
+        name: the reference's `--metrics-out` layout."""
         with self._lock:
             metrics = list(self._metrics.values())
-        out = {"counters": {}, "gauges": {}, "histograms": {}}
+        out = {"v": 1, "enabled": True, "counters": {}, "gauges": {}, "histograms": {}}
         for m in metrics:
             if isinstance(m, Counter):
                 out["counters"][m.name] = m.value
             elif isinstance(m, Gauge):
                 out["gauges"][m.name] = m.value
             else:
-                out["histograms"][m.name] = m.summary()
+                summary = m.summary()
+                if include_buckets:
+                    summary["buckets"] = m.buckets_dict()
+                out["histograms"][m.name] = summary
         return out
+
+    def snapshot_json(self) -> str:
+        """One-line JSON of the dump without bucket counts."""
+        return json.dumps(self.dump(include_buckets=False), separators=(",", ":"), sort_keys=True)
+
+    def write_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.dump(), f, indent=2, sort_keys=True)
+            f.write("\n")
 
     def reset(self) -> None:
         """Zero every metric; registrations are kept."""
@@ -269,8 +297,16 @@ def span(hist: Histogram) -> _Span:
     return _Span(hist)
 
 
-def dump() -> dict:
-    return REGISTRY.dump()
+def dump(include_buckets: bool = True) -> dict:
+    return REGISTRY.dump(include_buckets)
+
+
+def snapshot_json() -> str:
+    return REGISTRY.snapshot_json()
+
+
+def write_json(path: str) -> None:
+    REGISTRY.write_json(path)
 
 
 def reset() -> None:

@@ -634,3 +634,56 @@ def test_phase_tune_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "tune_device| field check: both rows equal v^(2^4) mod p on all 16 lanes" in out
     assert "tune_device --all: exit 0, every leg's rows" in out
+
+
+def test_bench_kernels_of_each_phase_11_run():
+    """The kernels each of phase 11's runs must launch, and no others."""
+    want = {
+        "committee cache on": chip_smoke.PACKED_KERNELS | chip_smoke.COMMITTEE_PATH_KERNELS,
+        "committee cache off": chip_smoke.PACKED_KERNELS,
+        "bits": {"decompress_table", "bit_ladder", "compress_eq"},
+        "mesh": chip_smoke.PACKED_KERNELS,
+        "pipeline A/B": chip_smoke.PACKED_KERNELS,
+        "committee scale": chip_smoke.COMMITTEE_PATH_KERNELS,
+    }
+    for label, flags in chip_smoke.BENCH_RUNS:
+        assert chip_smoke.bench_kernels([*chip_smoke.BENCH_BASE, *flags]) == want[label], label
+    assert chip_smoke.bench_kernels(["--kernel", "pallas"]) == chip_smoke.PACKED_KERNELS
+    assert chip_smoke.bench_kernels(["--kernel", "bits", "--committee-cache", "on"]) == {
+        "decompress_table", "bit_ladder", "compress_eq"} | chip_smoke.COMMITTEE_PATH_KERNELS
+    assert chip_smoke.bench_kernels(["--kernel", "bits", "--committee-cache", "off"]) == {
+        "decompress_table", "bit_ladder", "compress_eq"}
+
+
+def test_bench_line_and_errors():
+    line = chip_smoke.bench_line('# a table\n{"backend": "cuda", "value": 2.5}\n')
+    assert line == {"backend": "cuda", "value": 2.5}
+    for bad in ("", "table only\n", '["a list"]\n'):
+        with pytest.raises(SystemExit, match="FAIL"):
+            chip_smoke.bench_line(bad)
+    dump = {"counters": {k: 0 for k in chip_smoke.ROUTING_COUNTERS}, "histograms": {"crypto.batch_size": {}}}
+    want = {"ladder", "compress_eq"}
+    launches = {"ladder": 4, "compress_eq": 4, "bit_ladder": 0}
+    assert chip_smoke.bench_errors(line, launches, want, dump) == []
+    errors = chip_smoke.bench_errors({"backend": "cpu", "value": 0}, {**launches, "bit_ladder": 1}, want,
+                                     {"counters": {}, "histograms": {}})
+    assert len(errors) == 4 and "launched ['bit_ladder', 'compress_eq', 'ladder']" in errors[2]
+    assert chip_smoke.bench_errors({"backend": "cpu", "value": 1.0}, {}, want, dump, device="cpu") == []
+
+
+def test_phase_bench_on_cpu(monkeypatch, capsys):
+    """Phase 11 on the CPU at 128 lanes: the default leg with the committee
+    leg, and the committee-scale table cut to three committees."""
+    from hotstuff_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "COMMITTEE_SIZES", (4, 10, 64))
+    base = ("--batch", "86", "--device-batch", "64", "--chunk", "128", "--iters", "1", "--e2e-iters", "1",
+            "--cpu-budget", "0.05")
+    runs = tuple(r for r in chip_smoke.BENCH_RUNS if r[0] in ("committee cache on", "committee scale"))
+    out = chip_smoke.phase_bench("cpu", base=base, runs=runs)
+    assert set(out) == {"committee cache on", "committee scale"}
+    assert out["committee cache on"]["line"]["committee_cache"] == "on"
+    rows = out["committee scale"]["line"]["committee_scale"]
+    assert [r["route"] for r in rows] == ["openssl", "openssl", "card"]
+    text = capsys.readouterr().out
+    assert "bench committee scale| committee  quorum" in text and "phase 11 (the port's bench): 2 runs" in text

@@ -279,18 +279,19 @@ def test_verifier_pipeline_matches_reference_verifier(depth):
 
 
 def test_committee_crossover():
-    """A committee batch obeys the same crossover as a generic one: on the
-    H100 both paths beat the host verifier from one signature, so the
-    default sends every batch to the card."""
-    assert TorchBackend(device="cpu").crossover == 1
+    """A committee batch obeys `committee_crossover`, a generic one
+    `crossover`. On the exact route both default to 1: on the H100 both
+    paths beat the exact host verifier from one signature."""
+    exact = TorchBackend(device="cpu", host="exact")
+    assert (exact.crossover, exact.committee_crossover) == (1, 1)
     msgs, keys, sigs, want = _vote_batch(32, seed=9)
-    tb = TorchBackend(device="cpu", crossover=17, min_bucket=16)
+    tb = TorchBackend(device="cpu", crossover=17, committee_crossover=17, min_bucket=16)
     tb.register_committee(COMMITTEE)
     pks, sgs = [PublicKey(k) for k in keys], [Signature(s) for s in sigs]
     host = tb.verify_batch_mask(msgs, pks, sgs, committee=True)  # 16 < 17: the host verifier
     assert tb.stats["host_batches"] == 1 and tb.stats["committee_batches"] == 0
     assert host == want  # the card's verdicts, identity-key forgeries (lanes 9, 10) included
-    tb.crossover = 16
+    tb.committee_crossover = 16
     assert tb.verify_batch_mask(msgs, pks, sgs, committee=True) == want  # 16 >= 16: the card's path
     assert tb.stats["committee_batches"] == 1 and tb.stats["host_batches"] == 1
 

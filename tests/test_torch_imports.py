@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.parallel", "hotstuff_tpu_torch.parallel.mesh",
                 "hotstuff_tpu_torch.crypto.native_staging", "hotstuff_tpu_torch.ops.bls",
                 "hotstuff_tpu_torch.crypto.aggsig", "hotstuff_tpu_torch.ops.bit_ladder",
-                "hotstuff_tpu_torch.ops.field12", "hotstuff_tpu_torch.tune_device"):
+                "hotstuff_tpu_torch.ops.field12", "hotstuff_tpu_torch.tune_device",
+                "hotstuff_tpu_torch.bench"):
         assert mod in res["modules"]
 
 

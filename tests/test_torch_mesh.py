@@ -241,7 +241,7 @@ def test_sharded_backend_behind_the_sidecar_answers_a_qc(run_async):
     kps = validators(4)
     committee = [pk for pk, _ in kps]
     msgs, idx, sigs, want = digest_corpus(kps)
-    backend = TorchBackend(mesh=default_mesh(2, device="cpu"), max_bucket=256)
+    backend = TorchBackend(mesh=default_mesh(2, device="cpu"), crossover=1, max_bucket=256)
     assert backend.register_committee(committee) == 4 and backend.bucket_alignment == 256
     assert len(backend._verifier.committee.replicas) == 1
 
