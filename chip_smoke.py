@@ -214,6 +214,30 @@ caught:
      dump that holds `TorchBackend`'s routing counters; the
      committee-scale table's QCs must each have been routed once, each
      committee's on one route. Prints each run's time and the phase's.
+ 12. the bench's AggQC, scheduler and client-plane legs, through
+     `bench.main(argv)` in this process as phase 11's runs (metrics, the
+     flight recorder, the timeline and the launch counts reset before
+     each), each with `--metrics-out` and `--trace-out` to files under
+     `.chip_smoke/` (every trace dump must load): `--aggregate-ab
+     --agg-sizes 4,16,64,256` must verify every certificate, give 204-byte
+     AggQCs (spread 1.0) and the reference's entry-list bytes (428, 1,580,
+     6,188 at 4, 16, 64; 44 + 96 n), and launch K6's affine entry once a
+     `verify_aggregate` and nothing else; `--scheduler-ab` at the
+     reference's defaults (bulk 512 x 3 feeders, critical 44 every 20 ms,
+     6 s a leg) must verify in both legs with every mask all True, flush
+     through `_run_legacy` and `DeviceScheduler.run`, and launch only K2,
+     K3, K1 and K4 (each lane's p50/p99, `p99_improvement` and
+     `verified_ratio` printed); `--ingress` at the reference's defaults
+     (100 tx/s, flash x5 in the middle third, 10 s, 8 clients, batch 64)
+     and at `--ingress-rate 5000` must reject no signature and commit what
+     the pipeline accepted (offered against the curve, committed, shed,
+     latency, the signer and its rate, and the card / host route split
+     printed, never gated). Last, the forced ingress check: 256
+     transactions of the port's load generator, 1/16 with a flipped
+     signature bit, submitted to an `IngressPipeline` over
+     `TorchBackend(device="cuda")` before its drain first runs: every
+     status must be the expected one, and K2, K3, K1 and K4 must each
+     launch 4 times (four 64-transaction batches), nothing else.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
 Exits non-zero without a result when no CUDA device is available or the
@@ -3400,6 +3424,37 @@ def bench_errors(line: dict, launches: dict, want: set, dump: dict, device: str 
     return errors
 
 
+def run_bench(label: str, argv: list[str]) -> tuple[dict, dict, float, list[str]]:
+    """`hotstuff_tpu_torch.bench.main(argv)` in this process, as a fresh
+    process of the bench starts: the metrics registry, the flight recorder,
+    the device timeline and the launch counts reset first. Echoes its
+    standard output. Returns its JSON line (the last line, which must
+    parse), the launches, the seconds and, as a list of errors, whether the
+    line is what `main` returned."""
+    import contextlib
+    import io
+
+    from hotstuff_tpu_torch import bench
+    from hotstuff_tpu_torch.ops import _build, timeline
+    from hotstuff_tpu_torch.utils import metrics, tracing
+
+    metrics.reset()
+    tracing.reset()
+    timeline.reset()
+    _build.reset_launches()
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = bench.main(argv)
+    secs = time.perf_counter() - t1
+    launches = _build.launches()
+    for ln in buf.getvalue().splitlines():
+        print(f"bench {label}| {ln}", flush=True)
+    line = bench_line(buf.getvalue())
+    errors = [] if line == json.loads(json.dumps(ret)) else ["the last line is not what main returned"]
+    return line, launches, secs, errors
+
+
 def phase_bench(device: str = "cuda", base=BENCH_BASE, runs=BENCH_RUNS) -> dict:
     """Phase 11: `hotstuff_tpu_torch.bench.main(argv)` in this process for
     each run of `runs`, with the registry, the device timeline and the
@@ -3411,35 +3466,15 @@ def phase_bench(device: str = "cuda", base=BENCH_BASE, runs=BENCH_RUNS) -> dict:
     leave a metrics dump with the routing counters. The committee-scale
     table's batches must each have taken one route. Returns each run's
     line and launches."""
-    import contextlib
-    import io
-
     from hotstuff_tpu_torch import bench
-    from hotstuff_tpu_torch.ops import _build, timeline
-    from hotstuff_tpu_torch.utils import metrics
 
     t0 = time.perf_counter()
-    out_dir = REPO / ".chip_smoke"
-    out_dir.mkdir(exist_ok=True)
     results = {}
     for label, flags in runs:
-        path = out_dir / f"bench_metrics_{label.replace(' ', '_').replace('/', '')}.json"
+        path = _leg_paths(label)[0]
         argv = [*base, *flags, "--device", device, "--metrics-out", str(path)]
-        metrics.reset()
-        timeline.reset()
-        _build.reset_launches()
-        buf = io.StringIO()
-        t1 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            ret = bench.main(argv)
-        secs = time.perf_counter() - t1
-        launches = _build.launches()
-        for ln in buf.getvalue().splitlines():
-            print(f"bench {label}| {ln}", flush=True)
-        line = bench_line(buf.getvalue())
-        errors = bench_errors(line, launches, bench_kernels(argv), json.loads(path.read_text()), device)
-        if line != json.loads(json.dumps(ret)):
-            errors.append("the last line is not what main returned")
+        line, launches, secs, errors = run_bench(label, argv)
+        errors += bench_errors(line, launches, bench_kernels(argv), json.loads(path.read_text()), device)
         if "committee_scale" in line:
             counters = json.loads(path.read_text())["counters"]
             iters = bench.parser().parse_args(argv).e2e_iters  # each QC a call, plus one first call a committee
@@ -3453,6 +3488,262 @@ def phase_bench(device: str = "cuda", base=BENCH_BASE, runs=BENCH_RUNS) -> dict:
               f"{ {k: n for k, n in launches.items() if n} }", flush=True)
         results[label] = {"line": line, "launches": launches, "seconds": secs}
     print(f"phase 11 (the port's bench): {len(runs)} runs in {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
+# --- phase 12: the bench's AggQC, scheduler and client-plane legs ----------------
+
+AGG_SIZES = (4, 16, 64, 256)  # bench.py's defaults 4-64, and the committee ops/bls.py is sized for
+ENTRY_BYTES = {4: 428, 16: 1580, 64: 6188}  # the entry-list QCs of AGG_AB_r01.json
+AGG_CERT_BYTES = 204  # 32 + 8 + the 64-byte bitmap + 4 + 96
+INGRESS_RUNS = (  # label, flags: the reference's defaults (100 tx/s, flash x5, 10 s), then
+    ("ingress 100 tx/s", ()),  # the lower rate of benchmark/fabfile.py's REMOTE_BENCH_PARAMS
+    ("ingress 5000 tx/s", ("--ingress-rate", "5000")),
+)
+SCHED_FLAGS = ()  # the reference's defaults: bulk 512 x 3 feeders, critical 44 every 20 ms, 6 s a leg
+FORCED_TXS = 256  # the forced ingress check: 4 batches of FORCED_BATCH
+FORCED_BATCH = 64
+FORCED_BAD_EVERY = 16  # 1/16 of the transactions carry a flipped signature bit
+FORCED_TIMEOUT_S = 300
+
+
+def _leg_paths(label: str) -> tuple[Path, Path]:
+    out_dir = REPO / ".chip_smoke"
+    out_dir.mkdir(exist_ok=True)
+    stem = label.replace(" ", "_").replace("/", "")
+    return out_dir / f"bench_metrics_{stem}.json", out_dir / f"bench_trace_{stem}.json"
+
+
+def _leg_argv(flags, device: str, label: str) -> tuple[list[str], Path, Path]:
+    metrics_path, trace_path = _leg_paths(label)
+    return [*flags, "--device", device, "--metrics-out", str(metrics_path), "--trace-out", str(trace_path)], \
+        metrics_path, trace_path
+
+
+def _trace_errors(path: Path) -> list[str]:
+    """A `--trace-out` dump must load and have the flight recorder's layout."""
+    keys = {"v", "enabled", "node", "capacity", "recorded", "dropped", "anchor", "events"}
+    try:
+        dump = json.loads(path.read_text())
+    except (OSError, json.JSONDecodeError) as e:
+        return [f"the trace dump does not load: {e}"]
+    return [] if set(dump) == keys else [f"the trace dump's keys are {sorted(dump)}"]
+
+
+def _leg_ok(label: str, secs: float, launches: dict) -> None:
+    print(f"bench {label}: ok in {secs:.1f} s, launches { {k: n for k, n in launches.items() if n} }", flush=True)
+
+
+def aggregate_errors(line: dict, launches: dict, sizes, device: str = "cuda") -> list[str]:
+    """What the `--aggregate-ab` run got wrong: every certificate verified,
+    each AggQC 204 bytes (spread 1.0), the entry-list bytes 44 + 96 n (the
+    reference's at 4, 16 and 64), and on the card K6's affine entry once a
+    `verify_aggregate` with no other kernel."""
+    errors = []
+    if line.get("all_verified") is not True:
+        errors.append("not every certificate verified")
+    rows = line.get("sizes", [])
+    if [r["n"] for r in rows] != list(sizes):
+        errors.append(f"sizes {[r['n'] for r in rows]}, not {list(sizes)}")
+    for r in rows:
+        if r["aggregate"]["cert_bytes"] != AGG_CERT_BYTES:
+            errors.append(f"n={r['n']}: AggQC of {r['aggregate']['cert_bytes']} bytes")
+        if r["entry_list"]["cert_bytes"] != ENTRY_BYTES.get(r["n"], 44 + 96 * r["n"]):
+            errors.append(f"n={r['n']}: QC of {r['entry_list']['cert_bytes']} bytes")
+    if line.get("agg_bytes_spread") != 1.0:
+        errors.append(f"agg_bytes_spread {line.get('agg_bytes_spread')}")
+    launched = {k: n for k, n in launches.items() if n}
+    if device == "cuda" and launched != {"g1_aggregate_affine": len(sizes)}:
+        errors.append(f"launched {launched}, not K6's affine entry {len(sizes)} times")
+    return errors
+
+
+def scheduler_errors(line: dict, launches: dict, device: str = "cuda") -> list[str]:
+    """What the `--scheduler-ab` run got wrong: both legs verified, every
+    mask all True, the legacy leg flushed through `_run_legacy` and the
+    scheduler leg through `DeviceScheduler.run`, and on the card only K2,
+    K3, K1 and K4 launched."""
+    errors = []
+    loops = {"legacy": "BatchVerificationService._run_legacy", "scheduler": "DeviceScheduler.run"}
+    for leg, loop in loops.items():
+        d = line.get(leg, {})
+        if not d.get("verified_per_sec", 0) > 0 or not d.get("flushes", 0) > 0:
+            errors.append(f"{leg}: nothing verified")
+        if d.get("masks_all_true") is not True:
+            errors.append(f"{leg}: a mask was not all True")
+        if d.get("flush_loop") != loop:
+            errors.append(f"{leg}: flushed through {d.get('flush_loop')!r}, not {loop}")
+    launched = {k for k, n in launches.items() if n}
+    if device == "cuda" and launched != PACKED_KERNELS:
+        errors.append(f"launched {sorted(launched)}, not {sorted(PACKED_KERNELS)}")
+    return errors
+
+
+def ingress_errors(line: dict, launches: dict, dump: dict, device: str = "cuda") -> list[str]:
+    """What an `--ingress` run got wrong: a rejected signature (every
+    offered one is valid, so a failed dispatch shows here), committed
+    unequal to the pipeline's accepted or to `ingress.forwarded`, a kernel
+    launched beyond K2, K3, K1 and K4."""
+    errors = []
+    counters = dump.get("counters", {})
+    if counters.get("ingress.rejected_sigs") != 0:
+        errors.append(f"ingress.rejected_sigs {counters.get('ingress.rejected_sigs')}")
+    committed = line.get("committed")
+    if committed != line.get("pipeline", {}).get("accepted") or committed != counters.get("ingress.forwarded"):
+        errors.append(f"committed {committed}, the pipeline accepted {line.get('pipeline', {}).get('accepted')}, "
+                      f"forwarded {counters.get('ingress.forwarded')}")
+    if not line.get("offered", 0) > 0:
+        errors.append("nothing offered")
+    launched = {k for k, n in launches.items() if n}
+    if device == "cuda" and not launched <= PACKED_KERNELS:
+        errors.append(f"launched {sorted(launched)}, beyond {sorted(PACKED_KERNELS)}")
+    return errors
+
+
+def curve_offered(curve: dict, duration: float) -> float:
+    """Transactions a flash curve offers over `duration` s."""
+    spike = max(0.0, min(curve["t_end"], duration) - curve["t_start"])
+    return curve["rate"] * (duration - spike) + curve["peak"] * spike
+
+
+def forced_ingress(seed: int, device: str = "cuda") -> dict:
+    """The forced ingress check: FORCED_TXS transactions of the port's load
+    generator (`random.Random(seed)`), every FORCED_BAD_EVERY-th with a bit
+    of its signature flipped, submitted to an `IngressPipeline` over a
+    `TorchBackend(device)` before its drain first runs, so that the drain
+    takes FORCED_TXS / FORCED_BATCH batches of FORCED_BATCH onto the card.
+    Every status must be the one known by construction, and on the card K2,
+    K3, K1 and K4 must each launch once a batch, nothing else. Returns the
+    launches."""
+    import asyncio
+    import random
+
+    from hotstuff_tpu_torch.crypto.batch_service import BatchVerificationService
+    from hotstuff_tpu_torch.crypto.primitives import Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ingress import (ACCEPTED, BAD_SIGNATURE, ArrivalCurve, ClientTransaction, IngressConfig,
+                                            IngressPipeline, OpenLoopLoadGen)
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.utils import metrics
+
+    gen = OpenLoopLoadGen(None, ArrivalCurve(), 0.0, rng=random.Random(seed))
+    txs, expected = [], []
+    for i in range(FORCED_TXS):
+        tx = gen._make_tx()
+        if i % FORCED_BAD_EVERY == FORCED_BAD_EVERY // 2:
+            sig = bytearray(tx.signature.data)
+            sig[i % 32] ^= 1 << (i % 8)  # a bit of R
+            tx = ClientTransaction(tx.client, tx.nonce, tx.fee, tx.body, Signature(bytes(sig)))
+            expected.append(BAD_SIGNATURE)
+        else:
+            expected.append(ACCEPTED)
+        txs.append(tx)
+    backend = TorchBackend(device=device)
+
+    async def drive():
+        pipeline = IngressPipeline(BatchVerificationService(backend), asyncio.Queue(),
+                                   IngressConfig(verify_batch=FORCED_BATCH))
+        # gather schedules every submit before the drain task the first
+        # one spawns, so admission holds all of them when the drain starts.
+        return await asyncio.gather(*[pipeline.submit(tx) for tx in txs])
+
+    metrics.reset()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        responses = asyncio.run(asyncio.wait_for(drive(), FORCED_TIMEOUT_S))
+    finally:
+        backend.close()
+    secs = time.perf_counter() - t0
+    launches = _build.launches()
+    got = {r.nonce: r.status for r in responses}
+    wrong = [i for i, (tx, want) in enumerate(zip(txs, expected)) if got.get(tx.nonce) != want]
+    batches = FORCED_TXS // FORCED_BATCH
+    launched = {k: n for k, n in launches.items() if n}
+    errors = []
+    if wrong:
+        errors.append(f"{len(wrong)} statuses differ from the expected ones (transactions {wrong[:8]})")
+    sizes = metrics.histogram("ingress.verify_batch_size", metrics.SIZE_BUCKETS).summary()
+    if sizes["count"] != batches:
+        errors.append(f"{sizes['count']} verification batches, not {batches}")
+    if device == "cuda" and launched != {k: batches for k in PACKED_KERNELS}:
+        errors.append(f"launched {launched}, not K2, K3, K1 and K4 {batches} times each")
+    if backend.stats["device_sigs"] != FORCED_TXS:
+        errors.append(f"{backend.stats['device_sigs']} lanes on the verifier, not {FORCED_TXS}")
+    if errors:
+        fail(f"forced ingress check: {errors}")
+    bad = expected.count(BAD_SIGNATURE)
+    print(f"forced ingress check: {FORCED_TXS} transactions, {bad} with a flipped signature bit, in "
+          f"{batches} batches of {FORCED_BATCH}: statuses exact, launches {launched}, {secs:.2f} s", flush=True)
+    return launches
+
+
+def phase_bench_legs(seed: int, device: str = "cuda", agg_sizes=AGG_SIZES, sched_flags=SCHED_FLAGS,
+                     ingress_runs=INGRESS_RUNS) -> dict:
+    """Phase 12: the bench's `--aggregate-ab --agg-sizes`, `--scheduler-ab`
+    and `--ingress` runs through `run_bench`, each with `--metrics-out` and
+    `--trace-out` to files of its own under `.chip_smoke/` (gated by
+    `aggregate_errors`, `scheduler_errors`, `ingress_errors`; every trace
+    dump must load), then `forced_ingress`. Returns each run's line and
+    launches by label."""
+    from hotstuff_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    results = {}
+
+    label = "aggregate A/B"
+    argv, mpath, tpath = _leg_argv(("--aggregate-ab", "--agg-sizes", ",".join(map(str, agg_sizes))), device, label)
+    line, launches, secs, errors = run_bench(label, argv)
+    errors += aggregate_errors(line, launches, agg_sizes, device) + _trace_errors(tpath)
+    if errors:
+        fail(f"bench {label}: {errors}")
+    _leg_ok(label, secs, launches)
+    for r in line["sizes"]:
+        e, a = r["entry_list"], r["aggregate"]
+        print(f"aggregate A/B n={r['n']}: QC {e['cert_bytes']} B, {e['verify_wall_s']} s ({r['n']} exact checks); "
+              f"AggQC {a['cert_bytes']} B, {a['verify_wall_s']} s (K6 + pairing), table {a['table_build_s']} s",
+              flush=True)
+    results[label] = {"line": line, "launches": launches, "seconds": secs}
+
+    label = "scheduler A/B"
+    argv, mpath, tpath = _leg_argv(("--scheduler-ab", *sched_flags), device, label)
+    line, launches, secs, errors = run_bench(label, argv)
+    errors += scheduler_errors(line, launches, device) + _trace_errors(tpath)
+    if errors:
+        fail(f"bench {label}: {errors}")
+    _leg_ok(label, secs, launches)
+    for leg in ("legacy", "scheduler"):
+        d = line[leg]
+        print(f"scheduler A/B {leg} ({d['flush_loop']}): consensus p50/p99 "
+              f"{d['critical_queue_ms'].get('p50_ms')}/{d['critical_queue_ms'].get('p99_ms')} ms, mempool "
+              f"{d['bulk_queue_ms'].get('p50_ms')}/{d['bulk_queue_ms'].get('p99_ms')} ms, "
+              f"{d['verified_per_sec']:,.1f} sigs/s, {d['flushes']} flushes", flush=True)
+    print(f"scheduler A/B: p99_improvement {line['p99_improvement']}, verified_ratio {line['verified_ratio']}, "
+          f"routes {line['routes']}", flush=True)
+    results[label] = {"line": line, "launches": launches, "seconds": secs}
+
+    for label, flags in ingress_runs:
+        argv, mpath, tpath = _leg_argv(("--ingress", *flags), device, label)
+        line, launches, secs, errors = run_bench(label, argv)
+        dump = json.loads(mpath.read_text())
+        errors += ingress_errors(line, launches, dump, device) + _trace_errors(tpath)
+        if errors:
+            fail(f"bench {label}: {errors}")
+        _leg_ok(label, secs, launches)
+        duration = bench.parser().parse_args(argv).ingress_duration
+        c = dump["counters"]
+        print(f"{label}: offered {line['offered']} ({line['offered_tps']} tx/s) against the curve's "
+              f"{curve_offered(line['curve'], duration):.0f}; committed {line['committed']} "
+              f"({line['committed_tps']} tx/s), shed {line['shed']}, latency p50/p99 "
+              f"{line['latency_ms']['p50']}/{line['latency_ms']['p99']} ms; signer {line['signer']} at "
+              f"{line['signer_sigs_per_s']} sigs/s; routes: card {c['crypto.tpu_batches']} batches / "
+              f"{c['crypto.tpu_sigs']} sigs, host ({line['routes']['host_route']}) {c['crypto.cpu_batches']} / "
+              f"{c['crypto.cpu_sigs']}", flush=True)
+        results[label] = {"line": line, "launches": launches, "seconds": secs}
+
+    results["forced ingress"] = {"line": None, "launches": forced_ingress(seed, device), "seconds": None}
+    print(f"phase 12 (the bench's AggQC, scheduler and ingress legs): {len(results)} runs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return results
 
 
@@ -3556,6 +3847,7 @@ def main() -> int:
     if bls_late:
         fail(f"BLS kernels launched in phases 9-10: {bls_late}")
     bench_runs = phase_bench()
+    bench_runs.update(phase_bench_legs(args.seed))
     bench_launches = {label: r["launches"] for label, r in bench_runs.items()}
 
     rows = []

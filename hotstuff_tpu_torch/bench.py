@@ -2,7 +2,9 @@
 OpenSSL on the host.
 
     python -m hotstuff_tpu_torch.bench [--committee-cache on|off] [--kernel w4|bits|pallas]
-        [--mesh [N]] [--pipeline-ab] [--committee-scale] [--metrics-out PATH] [--device cuda|cpu]
+        [--mesh [N]] [--pipeline-ab] [--committee-scale] [--ingress] [--scheduler-ab]
+        [--aggregate-ab [--agg-sizes 4,16,64]] [--metrics-out PATH] [--trace-out PATH]
+        [--device cuda|cpu]
 
 A port of the device legs of the root `bench.py` (`bench.py:36-311`,
 `:803-1266`), with the same flags and defaults except where a departure
@@ -24,9 +26,34 @@ below says otherwise. It prints one JSON line last:
     number on the line is read beside the card it was taken on.
 `--metrics-out PATH` writes the metrics registry (`utils/metrics.py`, the
 reference's layout): the verifier's spans and counters and `TorchBackend`'s
-routing counters. `--pipeline-ab` prints the reference's A/B payload
-instead (depth 1 against depth 2 on `pipeline_workload`, three attempts
-a leg, no early stop, masks bit-identical).
+routing counters. `--trace-out PATH` writes the flight recorder
+(`utils/tracing.py`, the reference's layout) after any leg.
+
+Legs that print their own payload instead of the default line, with the
+reference's keys:
+  * `--pipeline-ab`: depth 1 against depth 2 on `pipeline_workload`, three
+    attempts a leg, no early stop, masks bit-identical;
+  * `--ingress` (`bench.py:416-499`): open-loop flash-crowd signed client
+    traffic (`--ingress-rate` tx/s, x5 in the middle third of
+    `--ingress-duration` s, `--ingress-clients` identities) through an
+    `IngressPipeline` (batches of `--ingress-batch`) and a
+    `BatchVerificationService` over `TorchBackend`: offered against
+    committed tx/s, shed, client latency percentiles. The port adds the
+    committed count, the signer (`signer`, `signer_sigs_per_s`), the
+    pipeline's counts and the backend's routes (`routes`: host and card
+    batches and lanes);
+  * `--scheduler-ab` (`bench.py:502-655`): the legacy single-queue flush
+    loop against the device scheduler, each for `--sched-duration` s, on
+    `--sched-feeders` closed-loop bulk feeders of `--sched-bulk` and one
+    consensus feeder of `--sched-critical` every `--sched-interval` s:
+    each lane's queueing delay, verified/s, `p99_improvement`,
+    `verified_ratio`. The port adds each leg's `flush_loop` (the service
+    task's coroutine) and `masks_all_true`, and the backend's `routes`;
+  * `--aggregate-ab` (`bench.py:658-800`): per committee size of
+    `--agg-sizes`, the wire bytes of an encoded n-vote `QC` against an
+    `AggQC`, and the verify wall of each form (n exact ed25519 checks on
+    the host against one `ops/bls.py` `CommitteeTable.verify_aggregate`:
+    K6's affine entry on `--device`, then one pairing on the host).
 
 Deliberate departures from the reference:
   * `--device {cuda,cpu}`, default `cuda`. Without a card and without
@@ -45,16 +72,29 @@ Deliberate departures from the reference:
     route) take the host route, which the table's `route` column names.
     It ends with a JSON line too (`value`: the committee of 64's rate),
     where the reference prints only the table.
-  * Not ported, and refused with an error: `--aggregate-ab` (it needs the
-    QC and AggQC wire encoding of `consensus.messages`), `--scheduler-ab`
-    (the legacy flush loop), `--ingress`, `--trace-out` and
-    `--telemetry-port` (the ingress package, `utils/tracing`,
-    `utils/telemetry`).
+  * `--ingress` and `--scheduler-ab` run `TorchBackend` on `--device` at
+    its default crossovers. The reference's probe that degrades to its
+    pure-Python verifier is not carried over, and `--ingress-backend pure`
+    and `--sched-backend pure` are refused. The scheduler A/B's downscale
+    (bulk 8, critical 3, 3 feeders) applies only under `--device cpu`.
+  * The ingress load generator signs through OpenSSL where `cryptography`
+    imports (`ingress/loadgen.py` `make_signer`), else the port's exact
+    signer; the reference signs with its exact pure-Python signer, which
+    caps the offered rate. The signatures are the same bytes. A leg whose
+    pipeline rejected a signature raises: every offered one is valid, so
+    a rejection is a failed dispatch.
+  * `--aggregate-ab` builds its `CommitteeTable` on `--device`; the
+    reference's substitution of the exact host scheme when its kernel is
+    absent is not carried over.
+  * Not ported, and refused with an error: `--telemetry-port` (it needs
+    `utils/telemetry`, the scrape endpoint).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import hashlib
 import json
 import os
 import random
@@ -67,23 +107,28 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .crypto import pysigner
-from .crypto.primitives import PublicKey, Signature
+from .consensus.messages import QC, AggQC
+from .crypto import aggsig, pysigner
+from .crypto.batch_service import BatchVerificationService
+from .crypto.primitives import Digest, PublicKey, Signature
 from .crypto.torch_backend import TorchBackend
+from .ingress import ArrivalCurve, IngressConfig, IngressPipeline, OpenLoopLoadGen
+from .ops import bls
 from .ops import ed25519 as ed
 from .ops import ladder, timeline
 from .ops.verifier import Ed25519TorchVerifier
 from .parallel.mesh import ShardedEd25519TorchVerifier, default_mesh
-from .utils import metrics
+from .utils import metrics, tracing
+from .utils.serde import Writer
 
-# Flags of the reference's legs that the port does not carry, and what each needs.
+# What the port does not carry of the reference's flags: each flag's dest, the
+# flag, the value refused (None: any value) and what it would need.
 REFUSED = {
-    "aggregate_ab": ("--aggregate-ab", "the QC and AggQC wire encoding of consensus.messages"),
-    "scheduler_ab": ("--scheduler-ab", "the reference's legacy flush loop"),
-    "ingress": ("--ingress", "the ingress package"),
-    "trace_out": ("--trace-out", "utils/tracing"),
-    "telemetry_port": ("--telemetry-port", "utils/telemetry"),
+    "telemetry_port": ("--telemetry-port", None, "utils/telemetry"),
+    "ingress_backend": ("--ingress-backend", "pure", "the reference's pure-Python verifier"),
+    "sched_backend": ("--sched-backend", "pure", "the reference's pure-Python verifier"),
 }
+ROUTE_KEYS = ("host_batches", "host_sigs", "device_batches", "device_sigs")
 COMMITTEE_SIZES = (4, 10, 16, 64, 100)
 AB_ATTEMPTS = 3  # fixed, no early stop (`bench.py:885-896`)
 
@@ -400,6 +445,245 @@ def bench_pipeline_ab(args, device: torch.device) -> dict:
     }
 
 
+# --- the client plane, the scheduler A/B and the AggQC A/B ------------------------
+
+
+def _routes(backend: TorchBackend) -> dict:
+    """The backend's host and card batches and lanes, and its host route."""
+    return {**{k: backend.stats[k] for k in ROUTE_KEYS}, "host_route": backend.host_route}
+
+
+def bench_ingress(args, device: torch.device) -> dict:
+    """`--ingress` (`bench.py:416-499`): the open-loop flash curve of
+    signed client transactions (`random.Random(7)`) through an
+    `IngressPipeline` and a `BatchVerificationService` over `TorchBackend`
+    on `device`, the committed transactions counted off the sink. Prints
+    the signer and its rate on a line of its own. Raises if the pipeline
+    rejected a signature. Returns the reference's payload."""
+    duration = args.ingress_duration
+    curve = ArrivalCurve(kind="flash", rate=args.ingress_rate, peak=args.ingress_rate * 5.0,
+                         t_start=duration / 3.0, t_end=2.0 * duration / 3.0)
+    backend = TorchBackend(device=device)
+    rejected0 = metrics.counter("ingress.rejected_sigs").value
+
+    async def drive():
+        service = BatchVerificationService(backend)
+        sink: asyncio.Queue = asyncio.Queue(1_000_000)
+        committed = {"n": 0}
+
+        async def drain() -> None:
+            while True:
+                await sink.get()
+                committed["n"] += 1
+
+        drainer = asyncio.ensure_future(drain())
+        pipeline = IngressPipeline(service, sink, IngressConfig(verify_batch=args.ingress_batch))
+        gen = OpenLoopLoadGen(pipeline.submit, curve=curve, duration=duration, clients=args.ingress_clients,
+                              tx_bytes=64, rng=random.Random(7))
+        summary = await gen.run()
+        drainer.cancel()
+        # Forwarded = counted off the sink + still in it; read with the
+        # pipeline's counts, with no await between.
+        return summary, committed["n"] + sink.qsize(), gen, dict(pipeline.stats)
+
+    try:
+        summary, committed, gen, stats = asyncio.run(drive())
+    finally:
+        backend.close()
+    rejected = metrics.counter("ingress.rejected_sigs").value - rejected0
+    sign_rate = gen.signed / gen.sign_s if gen.sign_s > 0 else None
+    print(f"# ingress signer: {gen.signer}, {gen.signed} signatures in {gen.sign_s:.3f} s"
+          f"{f' ({sign_rate:,.0f} sigs/s)' if sign_rate else ''}", flush=True)
+    if rejected:
+        raise RuntimeError(f"ingress: {rejected} valid signatures rejected (a verification dispatch failed)")
+    return {
+        "metric": "ingress_committed_tx_per_sec",
+        "value": round(committed / duration, 1),
+        "unit": "tx/s",
+        "offered_tps": round(summary["offered"] / duration, 1),
+        "committed_tps": round(committed / duration, 1),
+        "committed": committed,
+        "offered": summary["offered"],
+        "accepted": summary["accepted"],
+        "shed": summary["shed"],
+        "retry_hints": summary["retry_hints"],
+        "shed_rate": round(summary["shed_rate"], 4),
+        "latency_ms": summary["latency_ms"],
+        "curve": summary["curve"],
+        "clients": args.ingress_clients,
+        "signer": gen.signer,
+        "signer_sigs_per_s": round(sign_rate, 1) if sign_rate else None,
+        "pipeline": stats,
+        "routes": _routes(backend),
+    }
+
+
+async def _sched_leg(backend, use_scheduler: bool, duration: float, bulk_size: int, bulk_feeders: int,
+                     critical_size: int, critical_interval: float) -> dict:
+    """One A/B leg (`bench.py:509-582`): closed-loop bulk feeders (mempool
+    source) flood the service while a paced feeder (consensus source)
+    submits quorum-sized groups, every group `dedup=False`. Returns each
+    lane's queueing delay, verified/s and the flush loop that ran."""
+    svc = BatchVerificationService(backend, use_scheduler=use_scheduler)
+    # Four exact RFC 8032 triples tiled to each group's size; dedup=False
+    # sends every repeat to the backend.
+    pool = []
+    for i in range(4):
+        seed = bytes([i]) * 32
+        pk, _ = pysigner.keypair_from_seed(seed)
+        msg = (b"sched-ab-%d" % i).ljust(32, b"\0")
+        pool.append((msg, PublicKey(pk), Signature(pysigner.sign(seed, msg, public_key=pk))))
+
+    def batch(n: int):
+        msgs = [pool[i % len(pool)][0] for i in range(n)]
+        pairs = [(pool[i % len(pool)][1], pool[i % len(pool)][2]) for i in range(n)]
+        return msgs, pairs
+
+    loop = asyncio.get_running_loop()
+    end = loop.time() + duration
+    done = {"bulk_groups": 0, "critical_groups": 0, "sigs": 0}
+    masks_ok = [True]
+
+    async def bulk_feeder():
+        msgs, pairs = batch(bulk_size)
+        while loop.time() < end:
+            mask = await svc.verify_group(msgs, pairs, source="mempool", dedup=False)
+            done["bulk_groups"] += 1
+            done["sigs"] += len(mask)
+            masks_ok[0] &= all(mask)
+
+    async def critical_feeder():
+        msgs, pairs = batch(critical_size)
+        while loop.time() < end:
+            mask = await svc.verify_group(msgs, pairs, source="consensus", dedup=False)
+            done["critical_groups"] += 1
+            done["sigs"] += len(mask)
+            masks_ok[0] &= all(mask)
+            await asyncio.sleep(critical_interval)
+
+    t0 = loop.time()
+    await asyncio.gather(critical_feeder(), *[bulk_feeder() for _ in range(bulk_feeders)])
+    elapsed = loop.time() - t0
+    lanes = svc.lane_stats.summary()
+    return {
+        "mode": "scheduler" if use_scheduler else "legacy",
+        "critical_queue_ms": lanes.get("consensus", {}),
+        "bulk_queue_ms": lanes.get("mempool", {}),
+        "verified_per_sec": round(done["sigs"] / max(elapsed, 1e-9), 1),
+        "bulk_groups": done["bulk_groups"],
+        "critical_groups": done["critical_groups"],
+        "flushes": svc.stats["flushes"],
+        "flush_loop": svc._task.get_coro().__qualname__,
+        "masks_all_true": masks_ok[0],
+    }
+
+
+def bench_scheduler_ab(args, device: torch.device) -> dict:
+    """`--scheduler-ab` (`bench.py:585-655`): the legacy leg, then the
+    scheduler leg, on one `TorchBackend`; downscaled only under `--device
+    cpu`. Raises unless every mask was all True. Returns the reference's
+    payload."""
+    bulk, critical = args.sched_bulk, args.sched_critical
+    feeders, interval = args.sched_feeders, args.sched_interval
+    duration = args.sched_duration
+    if device.type == "cpu":
+        # The plain versions and the host route: shrink the groups so each
+        # leg still turns over dozens of flushes in seconds.
+        bulk, critical, feeders = min(bulk, 8), min(critical, 3), min(feeders, 3)
+    backend = TorchBackend(device=device)
+
+    async def drive():
+        legacy = await _sched_leg(backend, False, duration, bulk, feeders, critical, interval)
+        sched = await _sched_leg(backend, True, duration, bulk, feeders, critical, interval)
+        return legacy, sched
+
+    try:
+        legacy, sched = asyncio.run(drive())
+    finally:
+        backend.close()
+    if not (legacy["masks_all_true"] and sched["masks_all_true"]):
+        raise RuntimeError("scheduler A/B: a mask of the valid pool was not all True")
+    p99_sched = sched["critical_queue_ms"].get("p99_ms", 0.0)
+    p99_legacy = legacy["critical_queue_ms"].get("p99_ms", 0.0)
+    vps_sched, vps_legacy = sched["verified_per_sec"], legacy["verified_per_sec"]
+    return {
+        "metric": "critical_lane_p99_queue_ms",
+        "value": p99_sched,
+        "unit": "ms",
+        "legacy": legacy,
+        "scheduler": sched,
+        # > 1: the scheduler cut the consensus lane's p99.
+        "p99_improvement": round(p99_legacy / p99_sched, 3) if p99_sched > 0 else None,
+        "verified_ratio": round(vps_sched / vps_legacy, 4) if vps_legacy > 0 else None,
+        "workload": {"duration_s": duration, "bulk_size": bulk, "bulk_feeders": feeders,
+                     "critical_size": critical, "critical_interval_s": interval},
+        "routes": _routes(backend),
+    }
+
+
+def _encoded_len(cert) -> int:
+    w = Writer()
+    cert.encode(w)
+    return len(w.bytes())
+
+
+def bench_aggregate_ab(args, device: torch.device) -> dict:
+    """`--aggregate-ab` (`bench.py:658-800`): per committee size n, a real
+    n-vote `QC` (exact ed25519 votes) and an n-member `AggQC` (the
+    signature under the summed secret scalar, which equals the aggregate
+    of n partials over one message), their encoded bytes, and the verify
+    wall of each form: n exact checks on the host, against one
+    `CommitteeTable(keys, device).verify_aggregate` (K6's affine entry,
+    then the pairing on the host). Returns the reference's payload."""
+    scheme = aggsig.ExactBlsScheme()
+    rows = []
+    for n in [int(x) for x in args.agg_sizes.split(",") if x.strip()]:
+        digest = Digest(hashlib.sha512(b"agg-ab:%d" % n).digest()[:32])
+        round_ = 7
+        seeds = [hashlib.sha512(b"ed:%d:%d" % (n, i)).digest()[:32] for i in range(n)]
+        ed_pks = [pysigner.keypair_from_seed(sd)[0] for sd in seeds]
+        msg = QC(digest, round_, ()).signed_digest().data
+        votes = tuple((PublicKey(pk), Signature(pysigner.sign(sd, msg, public_key=pk)))
+                      for pk, sd in zip(ed_pks, seeds))
+        qc = QC(digest, round_, votes)
+        entry_bytes = _encoded_len(qc)
+        t0 = time.perf_counter()
+        entry_ok = all(pysigner.verify(pk.data, msg, sig.data) for pk, sig in qc.votes)
+        entry_wall = time.perf_counter() - t0
+
+        pairs = [scheme.keypair_from_seed(sd) for sd in seeds]
+        sk_sum = sum(sk for _pk, sk in pairs) % aggsig.R_ORDER
+        bitmap = (1 << n) - 1
+        agg_sig = scheme.sign(sk_sum, msg)
+        agg_bytes = _encoded_len(AggQC(digest, round_, bitmap, agg_sig))
+        t0 = time.perf_counter()
+        table = bls.CommitteeTable([pk for pk, _sk in pairs], device=device)
+        table_build_s = round(time.perf_counter() - t0, 4)
+        t0 = time.perf_counter()
+        agg_ok = table.verify_aggregate(bitmap, msg, agg_sig)
+        agg_wall = time.perf_counter() - t0
+        rows.append({
+            "n": n,
+            "entry_list": {"cert_bytes": entry_bytes, "verify_ok": bool(entry_ok),
+                           "verify_wall_s": round(entry_wall, 4),
+                           "certs_per_s": round(1.0 / entry_wall, 3) if entry_wall > 0 else None},
+            "aggregate": {"cert_bytes": agg_bytes, "verify_ok": bool(agg_ok), "verify_wall_s": round(agg_wall, 4),
+                          "certs_per_s": round(1.0 / agg_wall, 3) if agg_wall > 0 else None,
+                          "table_build_s": table_build_s},
+            "bytes_ratio": round(entry_bytes / agg_bytes, 3),
+        })
+    agg_sizes_seen = [r["aggregate"]["cert_bytes"] for r in rows]
+    return {
+        "metric": "aggregate_cert_bytes",
+        "value": float(agg_sizes_seen[-1]),
+        "unit": "bytes",
+        "sizes": rows,
+        # The aggregate's byte spread over the sizes (1.0 = flat).
+        "agg_bytes_spread": round(max(agg_sizes_seen) / min(agg_sizes_seen), 4),
+        "all_verified": all(r["entry_list"]["verify_ok"] and r["aggregate"]["verify_ok"] for r in rows),
+    }
+
+
 # --- the JSON line ----------------------------------------------------------------
 
 
@@ -432,8 +716,15 @@ def write_metrics(path: str | None) -> None:
         metrics.write_json(path)
 
 
-def emit(payload: dict, metrics_out: str | None) -> dict:
+def write_trace(path: str | None) -> None:
+    """`--trace-out`: the flight recorder's dump (`bench.py:275-286`)."""
+    if path:
+        tracing.write_json(path)
+
+
+def emit(payload: dict, metrics_out: str | None, trace_out: str | None = None) -> dict:
     write_metrics(metrics_out)
+    write_trace(trace_out)
     print(json.dumps(payload), flush=True)
     return payload
 
@@ -459,10 +750,31 @@ def parser() -> argparse.ArgumentParser:
                     help="depth 1 against depth 2 of the dispatch pipeline on one workload")
     ap.add_argument("--mesh", type=int, nargs="?", const=0, default=None, metavar="N",
                     help="shard the e2e and committee legs over the first N GPUs (bare: every GPU)")
-    for dest, (flag, needs) in REFUSED.items():
-        takes_value = dest in ("trace_out", "telemetry_port")
-        ap.add_argument(flag, dest=dest, default=None, action=None if takes_value else "store_true",
-                        help=f"not ported (needs {needs})")
+    ap.add_argument("--trace-out", default=None, help="write the flight recorder's dump here")
+    ap.add_argument("--ingress", action="store_true",
+                    help="open-loop flash-crowd signed client traffic through an IngressPipeline: "
+                    "offered against committed tx/s, shed, client latency")
+    ap.add_argument("--ingress-backend", choices=["auto", "pure"], default="auto",
+                    help="auto: TorchBackend on --device ('pure' is the reference's and refused)")
+    ap.add_argument("--ingress-rate", type=float, default=100.0)
+    ap.add_argument("--ingress-duration", type=float, default=10.0)
+    ap.add_argument("--ingress-clients", type=int, default=8)
+    ap.add_argument("--ingress-batch", type=int, default=64)
+    ap.add_argument("--scheduler-ab", action="store_true",
+                    help="the legacy flush loop against the device scheduler on bulk + consensus groups")
+    ap.add_argument("--sched-backend", choices=["auto", "pure"], default="auto",
+                    help="auto: TorchBackend on --device ('pure' is the reference's and refused)")
+    ap.add_argument("--sched-duration", type=float, default=6.0)
+    ap.add_argument("--sched-bulk", type=int, default=512)
+    ap.add_argument("--sched-critical", type=int, default=44)
+    ap.add_argument("--sched-feeders", type=int, default=3)
+    ap.add_argument("--sched-interval", type=float, default=0.02)
+    ap.add_argument("--aggregate-ab", action="store_true",
+                    help="entry-list QC against AggQC per committee size: wire bytes and verify wall")
+    ap.add_argument("--agg-sizes", default="4,16,64", help="comma-separated committee sizes for --aggregate-ab")
+    for dest, (flag, value, needs) in REFUSED.items():
+        if value is None:
+            ap.add_argument(flag, dest=dest, default=None, help=f"not ported (needs {needs})")
     return ap
 
 
@@ -470,17 +782,23 @@ def main(argv: list[str] | None = None) -> dict:
     """Run the legs `argv` asks for, print the JSON line and return it."""
     ap = parser()
     args = ap.parse_args(argv)
-    for dest, (flag, needs) in REFUSED.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} is not ported: it needs {needs}")
+    for dest, (flag, value, needs) in REFUSED.items():
+        given = getattr(args, dest)
+        if given is not None and value in (None, given):
+            ap.error(f"{flag if value is None else f'{flag} {value}'} is not ported: it needs {needs}")
     device = resolve_device(args.device)
     info = card(device)
+
+    for wanted, leg in ((args.ingress, bench_ingress), (args.scheduler_ab, bench_scheduler_ab),
+                        (args.aggregate_ab, bench_aggregate_ab)):
+        if wanted:
+            return emit({**leg(args, device), **info}, args.metrics_out, args.trace_out)
 
     if args.pipeline_ab:
         payload = bench_pipeline_ab(args, device)
         payload.update(info)
         attach_timeline(payload)  # the depth 2 leg ran last
-        return emit(payload, args.metrics_out)
+        return emit(payload, args.metrics_out, args.trace_out)
 
     if args.committee_scale:
         rows = bench_committee_scale(args.chunk, args.cpu_budget, args.batch, args.e2e_iters, device)
@@ -488,7 +806,7 @@ def main(argv: list[str] | None = None) -> dict:
         payload = {"metric": "votes_verified_per_sec", "value": c64["e2e_sigs_per_s"], "unit": "sigs/s",
                    "vs_baseline": c64["speedup"], **info, "committee_scale": rows}
         attach_timeline(payload)
-        return emit(payload, args.metrics_out)
+        return emit(payload, args.metrics_out, args.trace_out)
 
     msgs, pks, sigs = signed_batch(args.batch)
     dn = min(args.device_batch, args.batch)
@@ -525,7 +843,7 @@ def main(argv: list[str] | None = None) -> dict:
         out["committee_cache"] = args.committee_cache
         out["committee_value"] = round(committee_rate, 1)
     attach_timeline(out)
-    return emit(out, args.metrics_out)
+    return emit(out, args.metrics_out, args.trace_out)
 
 
 if __name__ == "__main__":

@@ -3,13 +3,12 @@ scheduler.
 
 A copy of `hotstuff_tpu/crypto/batch_service.py` for the port. Callers
 submit groups of (message, key, signature) triples (one QC's votes, one
-payload batch, one wire request), declare their source class (`source=`,
-or the `urgent` bit; `crypto/scheduler.py`) and await a per-item validity
-mask. Batching policy lives in `DeviceScheduler`; this class is the
-dispatch executor: the verified-signature cache, committee tagging, the
-backend call in a worker thread (`asyncio.to_thread`, so a dispatch never
-blocks the event loop) and future resolution. The scheduler's bulk window
-(`BULK_CONCURRENCY`) is the only bound on concurrent bulk dispatches.
+payload batch, one wire request, one ingress batch), declare their source
+class (`source=`, or the `urgent` bit; `crypto/scheduler.py`) and await a
+per-item validity mask. Batching policy lives in `DeviceScheduler`; this
+class is the dispatch executor: the verified-signature cache, committee
+tagging, the backend call in a worker thread (`asyncio.to_thread`, so a
+dispatch never blocks the event loop) and future resolution.
 
 Committee tagging follows the reference exactly: a flush passes
 `committee=True` to the backend only when every group in it was submitted
@@ -17,16 +16,22 @@ with `committee=True` and the backend supports committee routing. The
 sidecar's wire carries no committee tag, so its flushes never take the
 committee kernels.
 
-The reference records a flight-recorder `verify.batch` event for each
-group that carries a causal trace id. The sidecar's wire carries no trace
-id, so those events never fire there; they are not ported. Neither is
-what the sidecar never reaches: the reference's single-queue flush loop
-(`use_scheduler=False`, the baseline of its scheduler A/B bench) with
-its `max_delay` and dispatch semaphore, cross-backend stealing, the
-inline (virtual-time) dispatch mode, the per-group cache opt-out
-(`dedup=False`, which the wire cannot express), `verify`,
-`seed_verified`, and the cache size the reference's sidecar leaves at
-its default (65,536 triples).
+Per group, as in the reference: `dedup=False` keeps the group's triples
+out of the verified-signature cache (ingress traffic, synthetic bench
+load), and `trace=` records a flight-recorder `verify.batch` event for
+the group in each flush that reaches the backend (`utils/tracing.py`).
+
+`use_scheduler=False` runs the reference's legacy single-queue flush
+loop (`_run_legacy`) instead of the scheduler, the baseline of the
+bench's `--scheduler-ab`: a flush closes at `max_batch`, at an urgent
+group, or `LEGACY_MAX_DELAY_S` (2 ms) after its first group; urgent
+groups dispatch in a flush of their own, and at most
+`MAX_CONCURRENT_DISPATCHES` (4) non-urgent flushes run at once. Both
+values are the reference's defaults.
+
+Not ported: cross-backend stealing, the inline (virtual-time) dispatch
+mode, `verify`, `seed_verified`, the anomaly watchdog's verify samples,
+and a cache size other than the reference's default (65,536 triples).
 """
 
 from __future__ import annotations
@@ -34,15 +39,16 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Sequence
 
-from ..utils import metrics
+from ..utils import metrics, tracing
 from ..utils.actors import spawn
 from .backend import CryptoBackend
 from .primitives import PublicKey, Signature
-from .scheduler import DeviceScheduler, LaneStats, resolve_source
+from .scheduler import DeviceScheduler, LaneStats, note_queue_delay, resolve_source
 
 log = logging.getLogger("hotstuff.crypto")
 
@@ -53,6 +59,10 @@ _M_DEDUP_EVICTIONS = metrics.counter("verifier.dedup_evictions")
 
 # The reference service's default, which its sidecar runs with.
 DEDUP_CACHE_SIZE = 65536
+# The reference's legacy flush loop: its flush deadline and its bound on
+# concurrent non-urgent dispatches (`max_delay`, `max_concurrent_dispatches`).
+LEGACY_MAX_DELAY_S = 0.002
+MAX_CONCURRENT_DISPATCHES = 4
 
 
 class VerifiedSigCache:
@@ -109,8 +119,12 @@ class _Group:
     signatures: list[Signature]
     urgent: bool
     committee: bool = False
+    # dedup=False keeps the group out of the verified-signature cache.
+    dedup: bool = True
+    # Trace id (utils/tracing.py): a traced group gets a verify.batch event.
+    trace: str | None = None
     # Scheduler source class; t_submit is stamped at admission, t_dequeue
-    # when a bucket takes the group.
+    # when a bucket (or a legacy flush) takes the group.
     source: str = "mempool"
     t_submit: float = 0.0
     t_dequeue: float = 0.0
@@ -125,17 +139,23 @@ class BatchVerificationService:
         self,
         backend: CryptoBackend,
         max_batch: int = 8192,
+        use_scheduler: bool = True,
     ) -> None:
         self.backend = backend
         self.max_batch = max_batch
         self.dedup = VerifiedSigCache(DEDUP_CACHE_SIZE)
+        self._queue: asyncio.Queue[_Group] = asyncio.Queue()  # the legacy loop's
         self._task: asyncio.Task | None = None
-        self.lane_stats = LaneStats()  # per-lane queueing delay
-        self.scheduler = DeviceScheduler(
-            self._spawn_dispatch,
-            max_batch=max_batch,
-            alignment_fn=self._bucket_alignment,
-            lane_stats=self.lane_stats,
+        self.lane_stats = LaneStats()  # per-lane queueing delay, fed by both loops
+        self.scheduler: DeviceScheduler | None = (
+            DeviceScheduler(
+                self._spawn_dispatch,
+                max_batch=max_batch,
+                alignment_fn=self._bucket_alignment,
+                lane_stats=self.lane_stats,
+            )
+            if use_scheduler
+            else None
         )
         self.stats = {
             "flushes": 0,
@@ -146,7 +166,8 @@ class BatchVerificationService:
 
     def _ensure_task(self) -> None:
         if self._task is None or self._task.done():
-            self._task = spawn(self.scheduler.run(), name="batch-verification-service")
+            loop = self.scheduler.run() if self.scheduler is not None else self._run_legacy()
+            self._task = spawn(loop, name="batch-verification-service")
 
     def _bucket_alignment(self) -> int:
         """The bucket grid the scheduler sizes bulk buckets against (0 for
@@ -161,13 +182,17 @@ class BatchVerificationService:
         pairs: Sequence[tuple[PublicKey, Signature]],
         urgent: bool = False,
         committee: bool = False,
+        dedup: bool = True,
+        trace: str | None = None,
         source: str | None = None,
     ) -> list[bool]:
         """Submit a correlated group; resolves to its per-item validity
         mask once the group's flush completes. `source` declares the
         scheduler class; when omitted, `urgent` maps to consensus-critical
         vs mempool bulk. `committee=True` tags the group as signed by
-        registered validator keys."""
+        registered validator keys; `dedup=False` keeps it out of the
+        verified-signature cache; `trace` tags it with a trace id for the
+        flight recorder."""
         if not messages:
             return []
         self._ensure_task()
@@ -178,11 +203,76 @@ class BatchVerificationService:
             [sig for _, sig in pairs],
             cls.preemptive,
             committee,
+            dedup,
+            trace,
             cls.name,
             asyncio.get_running_loop().time(),
         )
-        self.scheduler.submit(group)
+        if self.scheduler is not None:
+            self.scheduler.submit(group)
+        else:
+            await self._queue.put(group)
         return await group.future
+
+    # -- the legacy flush loop -----------------------------------------------
+
+    async def _run_legacy(self) -> None:
+        """The reference's single-queue flush heuristics
+        (`hotstuff_tpu/crypto/batch_service.py:331-383`): size, deadline
+        and urgent flushing, no lanes, no alignment sizing, no refill."""
+        loop = asyncio.get_running_loop()
+        # Non-urgent flushes run concurrently up to this bound; urgent ones
+        # never wait for a slot.
+        slots = asyncio.Semaphore(MAX_CONCURRENT_DISPATCHES)
+        while True:
+            first = await self._queue.get()
+            groups = [first]
+            total = len(first)
+            urgent = first.urgent
+            deadline = loop.time() + LEGACY_MAX_DELAY_S
+            while total < self.max_batch:
+                # Take whatever is already enqueued.
+                while not self._queue.empty() and total < self.max_batch:
+                    g = self._queue.get_nowait()
+                    groups.append(g)
+                    total += len(g)
+                    urgent |= g.urgent
+                if urgent or total >= self.max_batch:
+                    break
+                timeout = deadline - loop.time()
+                if timeout <= 0:
+                    break
+                try:
+                    g = await asyncio.wait_for(self._queue.get(), timeout)
+                except asyncio.TimeoutError:
+                    break
+                groups.append(g)
+                total += len(g)
+                urgent |= g.urgent
+
+            # Dequeue time is stamped at the flush decision, so the lanes'
+            # queueing delays read as the scheduler's do (submit -> dequeue).
+            now = loop.time()
+            for g in groups:
+                g.t_dequeue = now
+                note_queue_delay(self.lane_stats, g.source, max(0.0, now - g.t_submit))
+
+            # Urgent groups dispatch in a flush of their own, at once; the
+            # other groups of the same pass flush separately, behind the
+            # dispatch bound (taken inside the spawned task, so this loop
+            # keeps draining while every slot is busy).
+            if urgent:
+                hot = [g for g in groups if g.urgent]
+                cold = [g for g in groups if not g.urgent]
+                self._spawn_dispatch(hot, sum(len(g) for g in hot), True)
+                if cold:
+                    spawn(self._dispatch_in_slot(slots, cold, sum(len(g) for g in cold)), name="verify-dispatch")
+            else:
+                spawn(self._dispatch_in_slot(slots, groups, total), name="verify-dispatch")
+
+    async def _dispatch_in_slot(self, slots: asyncio.Semaphore, groups: list[_Group], total: int) -> None:
+        async with slots:
+            await self._dispatch(groups, total, False)
 
     # -- dispatch ------------------------------------------------------------
 
@@ -194,7 +284,13 @@ class BatchVerificationService:
         keys = [k for g in groups for k in g.keys]
         sigs = [s for g in groups for s in g.signatures]
         backend = self.backend
-        mask, miss = self._lookup(msgs, keys, sigs)
+        # Lanes of dedup=False groups neither hit nor enter the cache; a
+        # flush with no cached group skips the scan.
+        eligible = None if all(g.dedup for g in groups) else [g.dedup for g in groups for _ in range(len(g))]
+        if any(g.dedup for g in groups):
+            mask, miss = self._lookup(msgs, keys, sigs, eligible)
+        else:
+            mask, miss = [False] * len(msgs), range(len(msgs))
         if miss:
             full = len(miss) == len(msgs)
             kwargs = {}
@@ -203,6 +299,7 @@ class BatchVerificationService:
             m = msgs if full else [msgs[i] for i in miss]
             k = keys if full else [keys[i] for i in miss]
             s = sigs if full else [sigs[i] for i in miss]
+            t0 = time.perf_counter()
             try:
                 sub = await asyncio.to_thread(backend.verify_batch_mask, m, k, s, **kwargs)
             except Exception as exc:  # a backend failure must not hang callers
@@ -210,7 +307,15 @@ class BatchVerificationService:
                     if not g.future.done():
                         g.future.set_exception(exc)
                 return
-            self._remember(mask, miss, sub, msgs, keys, sigs)
+            if tracing.enabled():
+                # One verify.batch event per traced group in the flush: the
+                # flush's time, the group's lane and its queueing delay.
+                dur = time.perf_counter() - t0
+                for g in groups:
+                    if g.trace is not None:
+                        tracing.event("verify.batch", g.trace, dur, n=len(g), flush=len(miss), lane=g.source,
+                                      queue_s=round(max(0.0, g.t_dequeue - g.t_submit), 6))
+            self._remember(mask, miss, sub, msgs, keys, sigs, eligible)
         self.stats["flushes"] += 1
         self.stats["size_flushes"] += total >= self.max_batch
         self.stats["urgent_flushes"] += urgent
@@ -222,22 +327,23 @@ class BatchVerificationService:
                 g.future.set_result([bool(b) for b in mask[lo:hi]])
             lo = hi
 
-    def _lookup(self, msgs, keys, sigs) -> tuple[list[bool], list[int]]:
-        """The dedup scan: a mask with every triple that verified before
-        set True, and the indices of the misses, which go to the backend."""
+    def _lookup(self, msgs, keys, sigs, eligible=None) -> tuple[list[bool], list[int]]:
+        """The dedup scan: a mask with every eligible triple that verified
+        before set True, and the indices of the rest, which go to the
+        backend. `eligible` None means every lane."""
         mask = [False] * len(msgs)
         miss = []
         for i, (m, k, s) in enumerate(zip(msgs, keys, sigs)):
-            if self.dedup.hit(m, k, s):
+            if (eligible is None or eligible[i]) and self.dedup.hit(m, k, s):
                 mask[i] = True
             else:
                 miss.append(i)
         return mask, miss
 
-    def _remember(self, mask, miss, sub, msgs, keys, sigs) -> None:
+    def _remember(self, mask, miss, sub, msgs, keys, sigs, eligible=None) -> None:
         """Write the backend's verdicts on the misses into `mask` and cache
-        the triples that verified."""
+        the eligible triples that verified."""
         for i, ok in zip(miss, sub):
             mask[i] = bool(ok)
-            if ok:
+            if ok and (eligible is None or eligible[i]):
                 self.dedup.add(msgs[i], keys[i], sigs[i])

@@ -56,6 +56,7 @@ __all__ = [
     "MEMPOOL",
     "LaneStats",
     "DeviceScheduler",
+    "note_queue_delay",
     "resolve_source",
 ]
 
@@ -126,6 +127,16 @@ _M_BUCKET_SIZE = metrics.histogram("scheduler.bucket_size", metrics.SIZE_BUCKETS
 _QUEUE_HIST = {
     name: metrics.histogram(f"scheduler.queue_{name}_s") for name in SOURCE_CLASSES
 }
+
+
+def note_queue_delay(lane_stats: "LaneStats", source: str, queue_s: float) -> None:
+    """Record one group's queueing delay into the lane's histogram and the
+    service's reservoir. Shared by the scheduler's dequeue and the
+    service's legacy flush loop, so both loops' delays read alike."""
+    hist = _QUEUE_HIST.get(source)
+    if hist is not None:
+        hist.record(queue_s)
+    lane_stats.note(source, queue_s)
 
 
 class LaneStats:
@@ -233,9 +244,7 @@ class DeviceScheduler:
     def _take(self, group, now: float, bucket: list) -> None:
         group.t_dequeue = now
         self.lanes[group.source].dispatched += 1
-        queue_s = max(0.0, now - group.t_submit)
-        _QUEUE_HIST[group.source].record(queue_s)
-        self.lane_stats.note(group.source, queue_s)
+        note_queue_delay(self.lane_stats, group.source, max(0.0, now - group.t_submit))
         bucket.append(group)
 
     def drain_critical(self, now: float) -> list:

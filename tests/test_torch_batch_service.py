@@ -21,9 +21,10 @@ from hotstuff_tpu.crypto import scheduler as ref_sched
 from hotstuff_tpu.crypto.primitives import PublicKey as RefPublicKey
 from hotstuff_tpu.crypto.primitives import Signature as RefSignature
 from hotstuff_tpu.utils import metrics as ref_metrics
+from hotstuff_tpu.utils import tracing as ref_tracing
 from hotstuff_tpu_torch.crypto import batch_service, scheduler
 from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
-from hotstuff_tpu_torch.utils import metrics
+from hotstuff_tpu_torch.utils import metrics, tracing
 from tests.common_torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -101,10 +102,11 @@ SCENARIOS = {
 }
 
 
-def _drive(pkg: str, scenario: str):
-    """Run one scenario through one package's service. Returns (sorted
-    backend calls, masks by round, service stats, scheduler stats, lane
-    counts, counter values, histogram counts)."""
+def _drive(pkg: str, scenario: str, use_scheduler: bool = True, dedup=lambda tag: True):
+    """Run one scenario through one package's service (its scheduler, or
+    the legacy flush loop), each group's cache opt-in from `dedup(tag)`.
+    Returns (sorted backend calls, masks by round, service stats, scheduler
+    stats, lane counts, counter values, histogram counts)."""
     if pkg == "port":
         bs, m, pk, sg = batch_service, metrics, PublicKey, Signature
     else:
@@ -114,17 +116,19 @@ def _drive(pkg: str, scenario: str):
 
     async def body():
         m.reset()
-        svc = bs.BatchVerificationService(backend, max_batch=max_batch)
+        svc = bs.BatchVerificationService(backend, max_batch=max_batch, use_scheduler=use_scheduler)
         masks = []
         for specs in rounds:
             calls = []
             for tag, n, urgent, committee, source in specs:
                 msgs, keys, sigs = _group(tag, n)
                 calls.append(svc.verify_group(msgs, [(pk(k), sg(s)) for k, s in zip(keys, sigs)],
-                                              urgent=urgent, committee=committee, source=source))
+                                              urgent=urgent, committee=committee, source=source,
+                                              dedup=dedup(tag)))
             masks.append(await asyncio.gather(*calls))
         lanes = {lane: v["count"] for lane, v in svc.lane_stats.summary().items()}
-        return masks, dict(svc.stats), dict(svc.scheduler.stats), lanes
+        sched = dict(svc.scheduler.stats) if use_scheduler else {"cache": len(svc.dedup)}
+        return masks, dict(svc.stats), sched, lanes
 
     masks, stats, sched_stats, lanes = asyncio.run(asyncio.wait_for(body(), 30))
     dump = m.dump()
@@ -274,3 +278,101 @@ def test_scheduler_holds_two_bulk_buckets_in_flight(pkg):
     assert shipped[3:] == [(["b2", "b3"], False)]
     assert stats["buckets"] == counters["scheduler.buckets"] == 3
     assert stats["critical_dispatches"] == counters["scheduler.critical_dispatches"] == 1
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_legacy_flush_loop_flushes_as_the_reference(scenario):
+    """`use_scheduler=False` (`_run_legacy`) makes the reference's legacy
+    flushes, stats, lane counts and cache counters, and answers every
+    group with the mask the scheduler path gives it."""
+    port = _drive("port", scenario, use_scheduler=False)
+    ref = _drive("reference", scenario, use_scheduler=False)
+    calls, masks, stats, cache, lanes, counters, hists = port
+    assert calls == ref[0]
+    assert masks == ref[1] == _drive("port", scenario)[1]
+    assert stats == ref[2] and lanes == ref[4]
+    assert cache == ref[3]  # the cache's size
+    assert counters == {k: ref[5][k] for k in counters}
+    assert hists == {k: ref[6][k] for k in hists}
+    assert counters["scheduler.buckets"] == 0  # the scheduler never ran
+
+
+@pytest.mark.parametrize("use_scheduler", [True, False])
+def test_dedup_false_groups_never_touch_the_cache(use_scheduler):
+    """Groups submitted with `dedup=False` neither hit nor enter the
+    verified-signature cache, in a flush of their own or beside cached
+    groups, on both loops; the counters are the reference's."""
+    only = _drive("port", "dedup_rounds", use_scheduler, dedup=lambda tag: False)
+    assert only[5]["verifier.dedup_hits"] == only[5]["verifier.dedup_misses"] == 0
+    assert only[5]["verifier.dedup_inserts"] == 0
+    sent = [m for msgs, _ in only[0] for m in msgs]
+    assert sent.count(b"d0-0") == 2  # the repeated group went to the backend twice
+    mixed = lambda tag: tag != "d0"
+    port = _drive("port", "dedup_rounds", use_scheduler, dedup=mixed)
+    ref = _drive("reference", "dedup_rounds", use_scheduler, dedup=mixed)
+    assert port[0] == ref[0] and port[1] == ref[1]
+    assert {k: v for k, v in port[5].items() if k.startswith("verifier.dedup")} == {
+        k: ref[5][k] for k in port[5] if k.startswith("verifier.dedup")}
+    assert port[5]["verifier.dedup_hits"] > 0 and b"d0-0" in [m for msgs, _ in port[0] for m in msgs]
+
+
+def test_legacy_loop_waits_max_delay_then_flushes_at_size(monkeypatch):
+    """The legacy loop holds a lone bulk group until its flush deadline
+    expires, coalesces what arrives meanwhile, and closes a flush at
+    `max_batch`. The deadline is stretched to 50 ms so that the check
+    inside it does not race the clock."""
+    backend = RecordingBackend(0)
+    monkeypatch.setattr(batch_service, "LEGACY_MAX_DELAY_S", 0.05)
+
+    async def body():
+        svc = batch_service.BatchVerificationService(backend, max_batch=16, use_scheduler=False)
+        msgs, keys, sigs = _group("a", 4)
+        pairs = [(PublicKey(k), Signature(s)) for k, s in zip(keys, sigs)]
+        first = asyncio.ensure_future(svc.verify_group(msgs, pairs))
+        await asyncio.sleep(0.01)
+        assert backend.calls == []  # still inside the deadline
+        msgs_b, keys_b, sigs_b = _group("b", 14)
+        second = svc.verify_group(msgs_b, [(PublicKey(k), Signature(s)) for k, s in zip(keys_b, sigs_b)])
+        await asyncio.gather(first, second)
+        return dict(svc.stats)
+
+    stats = asyncio.run(asyncio.wait_for(body(), 30))
+    assert len(backend.calls) == 1 and len(backend.calls[0][0]) == 18
+    assert stats["size_flushes"] == 1 and stats["flushes"] == 1
+
+
+def _traced_events(pkg: str, use_scheduler: bool):
+    """verify.batch events of a round with traced and untraced groups."""
+    if pkg == "port":
+        bs, tr, pk, sg = batch_service, tracing, PublicKey, Signature
+    else:
+        bs, tr, pk, sg = ref_bs, ref_tracing, RefPublicKey, RefSignature
+    backend = RecordingBackend(8)
+
+    async def body():
+        tr.reset()
+        svc = bs.BatchVerificationService(backend, max_batch=32, use_scheduler=use_scheduler)
+        calls = []
+        for tag, n, urgent, trace, source in (("t0", 5, False, "r1-aa", "ingress"), ("u0", 3, True, "r2-bb", None),
+                                              ("n0", 6, False, None, "mempool"), ("t1", 4, False, "r3-cc", None)):
+            msgs, keys, sigs = _group(tag, n)
+            calls.append(svc.verify_group(msgs, [(pk(k), sg(s)) for k, s in zip(keys, sigs)], urgent=urgent,
+                                          trace=trace, source=source, dedup=False))
+        await asyncio.gather(*calls)
+        return [e for e in tr.RECORDER.events() if e["kind"] == "verify.batch"]
+
+    return asyncio.run(asyncio.wait_for(body(), 30))
+
+
+@pytest.mark.parametrize("use_scheduler", [True, False])
+def test_traced_groups_emit_verify_batch_as_the_reference(use_scheduler):
+    """One `verify.batch` event per traced group in each flush that reaches
+    the backend, with the reference's fields (`n`, `flush`, `lane`,
+    `queue_s`) and the flush's time as its duration."""
+    ours, theirs = _traced_events("port", use_scheduler), _traced_events("reference", use_scheduler)
+    strip = lambda evs: sorted((e["trace"], tuple(sorted((k, v) for k, v in e["data"].items() if k != "queue_s")))
+                               for e in evs)
+    assert strip(ours) == strip(theirs)
+    assert sorted(e["trace"] for e in ours) == ["r1-aa", "r2-bb", "r3-cc"]
+    for e in ours:
+        assert set(e["data"]) == {"n", "flush", "lane", "queue_s"} and e["dur"] >= 0 and e["data"]["queue_s"] >= 0

@@ -1,9 +1,10 @@
 """The port's bench (`python -m hotstuff_tpu_torch.bench`) on the CPU, each
 leg in-process at 128 lanes on the kernels' plain versions: its workloads
 are the reference bench's byte for byte, its legs pass their mask gates,
-its JSON line has the reference's keys and the card's, its metrics dump
-reads back in the registry's layout, and what it does not port it
-refuses."""
+its JSON line has the reference's keys and the card's, its metrics and
+trace dumps read back in the registries' layouts, and what it does not
+port it refuses. The ingress, scheduler A/B and AggQC legs
+(`tests/test_torch_aggregate_ab.py`) run at wall-clock legs of 0.5 s."""
 
 from __future__ import annotations
 
@@ -123,10 +124,99 @@ def test_without_a_card_and_without_device_cpu_main_raises(monkeypatch):
         bench.main(["--batch", "8"])
 
 
-@pytest.mark.parametrize("flag", [["--aggregate-ab"], ["--scheduler-ab"], ["--ingress"],
-                                  ["--trace-out", "t.json"], ["--telemetry-port", "0"]])
+@pytest.mark.parametrize("flag", [["--telemetry-port", "0"]])
 def test_legs_left_out_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
         bench.main(["--device", "cpu"] + flag)
     assert e.value.code == 2
     assert f"{flag[0]} is not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--ingress-backend", "--sched-backend"])
+def test_pure_python_backends_are_refused(flag, capsys):
+    leg = "--ingress" if flag == "--ingress-backend" else "--scheduler-ab"
+    with pytest.raises(SystemExit) as e:
+        bench.main(["--device", "cpu", leg, flag, "pure"])
+    assert e.value.code == 2
+    assert f"{flag} pure is not ported" in capsys.readouterr().err
+
+
+# The reference's keys of the --ingress payload (`bench.py:480-495`) and of
+# the --scheduler-ab payload and its legs (`bench.py:573-581`, `:624-648`).
+INGRESS_KEYS = {"metric", "value", "unit", "offered_tps", "committed_tps", "offered", "accepted", "shed",
+                "retry_hints", "shed_rate", "latency_ms", "curve", "clients", "backend"}
+SCHED_KEYS = {"metric", "value", "unit", "legacy", "scheduler", "p99_improvement", "verified_ratio", "workload",
+              "backend"}
+SCHED_LEG_KEYS = {"mode", "critical_queue_ms", "bulk_queue_ms", "verified_per_sec", "bulk_groups",
+                  "critical_groups", "flushes"}
+
+
+def test_ingress_leg_on_the_cpu(tmp_path, capsys):
+    """`--ingress` for 0.5 s at 20 tx/s on the CPU: the reference's keys,
+    every offered transaction committed, the signer's line, and metrics and
+    trace dumps that load."""
+    metrics.reset()
+    mpath, tpath = tmp_path / "metrics.json", tmp_path / "trace.json"
+    line = bench.main(["--device", "cpu", "--ingress", "--ingress-duration", "0.5", "--ingress-rate", "20",
+                       "--metrics-out", str(mpath), "--trace-out", str(tpath)])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == line and out[-2].startswith("# ingress signer: ")
+    assert INGRESS_KEYS <= set(line)
+    assert set(line) - INGRESS_KEYS == {"committed", "signer", "signer_sigs_per_s", "pipeline", "routes",
+                                        "device", "power_limit_w"}
+    assert line["metric"] == "ingress_committed_tx_per_sec" and line["backend"] == "cpu"
+    assert line["offered"] > 0 and line["committed"] == line["accepted"] == line["offered"] == \
+        line["pipeline"]["accepted"]
+    assert line["curve"]["kind"] == "flash" and line["curve"]["peak"] == 100.0
+    counters = json.loads(mpath.read_text())["counters"]
+    assert counters["ingress.verified_sigs"] == line["committed"] and counters["ingress.rejected_sigs"] == 0
+    assert line["routes"]["host_sigs"] + line["routes"]["device_sigs"] == line["committed"]
+    kinds = {e["kind"] for e in json.loads(tpath.read_text())["events"]}
+    assert {"ingress.recv", "ingress.admit", "ingress.verify", "ingress.forward", "verify.batch"} <= kinds
+
+
+def test_ingress_leg_raises_when_a_dispatch_fails(monkeypatch):
+    """A failed dispatch is caught by the pipeline, as in the reference, but
+    the bench offers only valid signatures: the leg raises."""
+    from hotstuff_tpu_torch.crypto import torch_backend
+
+    def broken(self, *a, **kw):
+        raise RuntimeError("kernel failed")
+
+    monkeypatch.setattr(torch_backend.TorchBackend, "verify_batch_mask", broken)
+    with pytest.raises(RuntimeError, match="valid signatures rejected"):
+        bench.main(["--device", "cpu", "--ingress", "--ingress-duration", "0.2", "--ingress-rate", "20"])
+
+
+def test_scheduler_ab_leg_on_the_cpu(tmp_path):
+    """`--scheduler-ab` for 0.5 s a leg on the CPU: the reference's keys,
+    both legs verified with every mask True, each through its own loop."""
+    tpath = tmp_path / "trace.json"
+    line = bench.main(["--device", "cpu", "--scheduler-ab", "--sched-duration", "0.5", "--sched-bulk", "4",
+                       "--trace-out", str(tpath)])
+    assert SCHED_KEYS <= set(line) and set(line) - SCHED_KEYS == {"routes", "device", "power_limit_w"}
+    assert line["metric"] == "critical_lane_p99_queue_ms"
+    assert line["workload"] == {"duration_s": 0.5, "bulk_size": 4, "bulk_feeders": 3, "critical_size": 3,
+                                "critical_interval_s": 0.02}
+    for leg, loop in (("legacy", "BatchVerificationService._run_legacy"), ("scheduler", "DeviceScheduler.run")):
+        d = line[leg]
+        assert SCHED_LEG_KEYS <= set(d) and set(d) - SCHED_LEG_KEYS == {"flush_loop", "masks_all_true"}
+        assert d["mode"] == leg and d["flush_loop"] == loop and d["masks_all_true"]
+        assert d["verified_per_sec"] > 0 and d["critical_groups"] > 0 and d["bulk_groups"] > 0
+        assert d["critical_queue_ms"]["count"] == d["critical_groups"]
+    assert line["verified_ratio"] > 0 and line["value"] == line["scheduler"]["critical_queue_ms"]["p99_ms"]
+    assert json.loads(tpath.read_text())["v"] == 1
+
+
+def test_every_leg_writes_its_trace_out_after_its_metrics(tmp_path, capsys):
+    """Every leg ends in `emit`: the metrics dump, then the flight
+    recorder's dump (`trace.dumps` counts it after the metrics were
+    written, as in the reference), then the JSON line."""
+    metrics.reset()
+    mpath, tpath = tmp_path / "metrics.json", tmp_path / "trace.json"
+    assert bench.emit({"value": 1.0}, str(mpath), str(tpath)) == {"value": 1.0}
+    assert json.loads(capsys.readouterr().out) == {"value": 1.0}
+    trace = json.loads(tpath.read_text())
+    assert set(trace) == {"v", "enabled", "node", "capacity", "recorded", "dropped", "anchor", "events"}
+    assert json.loads(mpath.read_text())["counters"]["trace.dumps"] == 0
+    assert metrics.counter("trace.dumps").value == 1

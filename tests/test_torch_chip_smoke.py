@@ -687,3 +687,65 @@ def test_phase_bench_on_cpu(monkeypatch, capsys):
     assert [r["route"] for r in rows] == ["openssl", "openssl", "card"]
     text = capsys.readouterr().out
     assert "bench committee scale| committee  quorum" in text and "phase 11 (the port's bench): 2 runs" in text
+
+
+def test_phase_12_gates():
+    """What phase 12's gates hold, on made-up lines and launch counts."""
+    rows = [{"n": n, "entry_list": {"cert_bytes": 44 + 96 * n}, "aggregate": {"cert_bytes": 204}}
+            for n in chip_smoke.AGG_SIZES]
+    agg = {"all_verified": True, "sizes": rows, "agg_bytes_spread": 1.0}
+    k6 = {"g1_aggregate_affine": 4, "ladder": 0}
+    assert [r["entry_list"]["cert_bytes"] for r in rows[:3]] == [428, 1580, 6188]
+    assert chip_smoke.aggregate_errors(agg, k6, chip_smoke.AGG_SIZES) == []
+    bad = {**agg, "all_verified": False, "agg_bytes_spread": 1.2,
+           "sizes": [{**rows[0], "aggregate": {"cert_bytes": 205}}, *rows[1:]]}
+    errors = chip_smoke.aggregate_errors(bad, {**k6, "ladder": 1}, chip_smoke.AGG_SIZES)
+    assert len(errors) == 4 and "launched" in errors[-1]
+    assert chip_smoke.aggregate_errors(agg, {}, (4, 16), device="cpu")[0].startswith("sizes")
+
+    leg = lambda loop: {"verified_per_sec": 10.0, "flushes": 3, "masks_all_true": True, "flush_loop": loop}
+    sched = {"legacy": leg("BatchVerificationService._run_legacy"), "scheduler": leg("DeviceScheduler.run")}
+    packed = {k: 7 for k in chip_smoke.PACKED_KERNELS}
+    assert chip_smoke.scheduler_errors(sched, packed) == []
+    swapped = {"legacy": sched["scheduler"], "scheduler": {**sched["legacy"], "masks_all_true": False}}
+    assert len(chip_smoke.scheduler_errors(swapped, {**packed, "committee_ladder": 1})) == 4
+
+    line = {"offered": 10, "committed": 8, "pipeline": {"accepted": 8}}
+    dump = {"counters": {"ingress.rejected_sigs": 0, "ingress.forwarded": 8}}
+    assert chip_smoke.ingress_errors(line, {"ladder": 1}, dump) == []
+    assert chip_smoke.ingress_errors(line, {}, dump) == []  # at 100 tx/s the host route may take every batch
+    errors = chip_smoke.ingress_errors({**line, "committed": 7}, {"g1_aggregate_affine": 1},
+                                       {"counters": {"ingress.rejected_sigs": 2, "ingress.forwarded": 8}})
+    assert len(errors) == 3
+    curve = {"rate": 100.0, "peak": 500.0, "t_start": 10 / 3, "t_end": 20 / 3}
+    assert round(chip_smoke.curve_offered(curve, 10.0)) == 2333
+
+
+def test_trace_errors(tmp_path):
+    from hotstuff_tpu_torch.utils import tracing
+
+    good = tmp_path / "good.json"
+    tracing.write_json(str(good))
+    assert chip_smoke._trace_errors(good) == []
+    (tmp_path / "bad.json").write_text("{")
+    assert "does not load" in chip_smoke._trace_errors(tmp_path / "bad.json")[0]
+    (tmp_path / "other.json").write_text("{}")
+    assert "keys" in chip_smoke._trace_errors(tmp_path / "other.json")[0]
+    assert "does not load" in chip_smoke._trace_errors(tmp_path / "missing.json")[0]
+
+
+def test_phase_bench_legs_on_cpu(monkeypatch, capsys):
+    """Phase 12 on the CPU: the AggQC leg at 4 validators, the scheduler
+    A/B at 0.5 s a leg, one ingress run of 0.5 s, and the forced ingress
+    check at 32 transactions in two batches of 16 (the plain kernels)."""
+    monkeypatch.setattr(chip_smoke, "FORCED_TXS", 32)
+    monkeypatch.setattr(chip_smoke, "FORCED_BATCH", 16)
+    out = chip_smoke.phase_bench_legs(
+        0, "cpu", agg_sizes=(4,), sched_flags=("--sched-duration", "0.5", "--sched-bulk", "4"),
+        ingress_runs=(("ingress 20 tx/s", ("--ingress-rate", "20", "--ingress-duration", "0.5")),))
+    assert set(out) == {"aggregate A/B", "scheduler A/B", "ingress 20 tx/s", "forced ingress"}
+    assert out["forced ingress"]["launches"] == {}.fromkeys(out["forced ingress"]["launches"], 0)
+    text = capsys.readouterr().out
+    assert "aggregate A/B n=4: QC 428 B" in text and "scheduler A/B legacy (BatchVerificationService._run_legacy)" in text
+    assert "forced ingress check: 32 transactions, 2 with a flipped signature bit, in 2 batches of 16" in text
+    assert "phase 12 (the bench's AggQC, scheduler and ingress legs): 4 runs" in text

@@ -53,7 +53,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.crypto.native_staging", "hotstuff_tpu_torch.ops.bls",
                 "hotstuff_tpu_torch.crypto.aggsig", "hotstuff_tpu_torch.ops.bit_ladder",
                 "hotstuff_tpu_torch.ops.field12", "hotstuff_tpu_torch.tune_device",
-                "hotstuff_tpu_torch.bench"):
+                "hotstuff_tpu_torch.bench", "hotstuff_tpu_torch.utils.serde", "hotstuff_tpu_torch.utils.tracing",
+                "hotstuff_tpu_torch.consensus", "hotstuff_tpu_torch.consensus.messages",
+                "hotstuff_tpu_torch.ingress", "hotstuff_tpu_torch.ingress.messages",
+                "hotstuff_tpu_torch.ingress.admission", "hotstuff_tpu_torch.ingress.loadgen",
+                "hotstuff_tpu_torch.ingress.pipeline"):
         assert mod in res["modules"]
 
 
