@@ -238,8 +238,29 @@ caught:
      `TorchBackend(device="cuda")` before its drain first runs: every
      status must be the expected one, and K2, K3, K1 and K4 must each
      launch 4 times (four 64-transaction batches), nothing else.
+ 13. the port's own committee on the card: four `python -m
+     hotstuff_tpu_torch.node.main -vv run --crypto torch
+     --crypto-crossover 1 --metrics-out ...` processes, each with its own
+     `TorchBackend` on cuda:0 and the committee registered (keys from the
+     port's `node.main keys`, phase 7's committee layout and
+     `LOCAL_NODE_PARAMS`, `benchmark_mode` on), and four `python -m
+     hotstuff_tpu_torch.node.client` processes at `LOCAL_BENCH` (1,000
+     tx/s in all, 512 B, 20 s). Every node must commit, with equal digests
+     wherever two commit a round (`check_commits`); no node may log a
+     synthetic verification failure; each node's dump (written at its
+     SIGTERM) must show lanes on the card on both the generic and the
+     committee route, none on the host, K2, K3, K1, K4, K2g and K5
+     launched at least once and every other kernel (K6, K7, K8, the tool's)
+     0 times. Prints the boot time, committed blocks a second within the
+     client traffic (`committed_between`), committed transactions a
+     second (`committed_txs`), rounds, the lanes of each route, each
+     node's launches (the rows' `node_launches`) and where its time went
+     (`node_dump_timings`: commit latency, proposal to vote, the
+     consensus and mempool lanes' queueing, the card's dispatch and
+     readback, p50 and p99; its batches and their mean size).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
-or of `hotstuff_tpu` (phase 7 runs the reference's node as processes).
+or of `hotstuff_tpu` (phase 7 runs the reference's node as processes;
+phase 13 the port's).
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script.
 """
@@ -248,6 +269,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import calendar
 import gc
 import hashlib
 import json
@@ -2397,6 +2419,17 @@ def committed_blocks(log_text: str) -> dict[int, str]:
     return {int(r): d for r, d in re.findall(r"Committed B(\d+)\(([^)]*)\)\s*$", log_text, re.M)}
 
 
+def committed_between(log_text: str, start: float, end: float) -> int:
+    """How many `Committed B<r>(<digest>)` lines of a node log are stamped
+    (UTC, the log's `[YYYY-mm-ddTHH:MM:SS.mmmZ ...` prefix) at or after
+    `start` and before `end`, both in seconds since the epoch."""
+    n = 0
+    for stamp in re.findall(r"^\[(\S+)Z \S+ \S+\] Committed B\d+\([^)]*\)\s*$", log_text, re.M):
+        t = calendar.timegm(time.strptime(stamp[:19], "%Y-%m-%dT%H:%M:%S")) + float("0" + stamp[19:])
+        n += start <= t < end
+    return n
+
+
 def check_commits(logs: dict[str, str]) -> dict[str, dict[int, str]]:
     """Every node committed a block, and where two nodes committed the same
     round, the digests are equal. Returns the commits by node."""
@@ -2551,6 +2584,171 @@ def phase_committee_run(backend, qcs, run_dir: Path) -> dict:
           f"traffic, {node_s:.1f} s from the nodes' start: blocks committed {blocks} (digests agree), "
           f"{result['commits_per_s']:.2f} commits/s per node, synthetic workload {synthetic} signatures, "
           f"{device} lanes on the card, launches {launches}", flush=True)
+    return result
+
+
+# --- phase 13: the port's own committee on the card -------------------------
+
+NODE_KERNELS = frozenset(GENERIC_KERNELS) | frozenset(COMMITTEE_KERNELS)
+
+
+def port_node_cmd(py: str, i: int, committee: str, parameters: str, metrics_out: str) -> list[str]:
+    """Node i of the port's committee: `--crypto torch` on the card (the
+    default device), every batch of one signature or more on the card."""
+    return [py, "-m", "hotstuff_tpu_torch.node.main", "-vv", "run", "--keys", f".node-{i}.json",
+            "--committee", committee, "--store", f".db-{i}/log", "--parameters", parameters,
+            "--crypto", "torch", "--crypto-crossover", "1", "--metrics-out", metrics_out]
+
+
+def port_client_cmd(py: str, front: int, consensus: list[str], n: int) -> list[str]:
+    """A client of the port at LOCAL_BENCH's size and its rate's n-th part,
+    waiting for every node's consensus address first."""
+    return [py, "-m", "hotstuff_tpu_torch.node.client", "-vv", f"127.0.0.1:{front}",
+            "--size", str(LOCAL_BENCH["tx_size"]), "--rate", str(LOCAL_BENCH["rate"] // n), "--nodes", *consensus]
+
+
+def node_dump_lanes(dump: dict) -> dict:
+    """A node's lanes from its metrics dump: on the card on the generic and
+    the committee route, and on the host."""
+    c = dump.get("counters", {})
+    device, committee = c.get("crypto.tpu_sigs", 0), c.get("verifier.committee_sigs", 0)
+    return {"generic": device - committee, "committee": committee, "host": c.get("crypto.cpu_sigs", 0)}
+
+
+NODE_TIMINGS = ("consensus.commit_latency_s", "consensus.proposal_to_vote_s", "scheduler.queue_consensus_s",
+                "scheduler.queue_mempool_s", "verifier.dispatch_s", "verifier.readback_s")
+
+
+def node_dump_timings(dump: dict) -> dict:
+    """Where a node's time went, from its dump: p50 and p99 in ms of each
+    histogram of NODE_TIMINGS, and the card's batches and their mean size."""
+    h = dump.get("histograms", {})
+    out = {name: (round(1e3 * h[name]["p50"], 3), round(1e3 * h[name]["p99"], 3)) for name in NODE_TIMINGS if name in h}
+    size = h.get("crypto.batch_size", {})
+    out["card_batches"] = dump.get("counters", {}).get("crypto.tpu_batches", 0)
+    out["mean_batch"] = round(size.get("mean", 0.0), 2)
+    return out
+
+
+def node_dump_errors(name: str, dump: dict) -> list[str]:
+    """What a node's dump got wrong: no lanes on the card on a route, lanes
+    on the host, a kernel of the node's path never launched, or another
+    kernel launched."""
+    errors = []
+    lanes = node_dump_lanes(dump)
+    if lanes["generic"] <= 0 or lanes["committee"] <= 0 or lanes["host"]:
+        errors.append(f"{name}: lanes {lanes}")
+    launches = dump.get("launches")
+    if not isinstance(launches, dict) or not launches:
+        return errors + [f"{name}: the dump holds no launch counts"]
+    idle = sorted(k for k in NODE_KERNELS if not launches.get(k))
+    if idle:
+        errors.append(f"{name}: {idle} never launched")
+    off = sorted(k for k, v in launches.items() if v and k not in NODE_KERNELS)
+    if off:
+        errors.append(f"{name}: {off} launched off the node's path: {launches}")
+    return errors
+
+
+def committed_txs(logs: dict[str, str], tx_size: int) -> dict[str, int]:
+    """Transactions each node committed: the bytes of the distinct payloads
+    its `Committed B<r>(...) -> <payload>` lines name, over `tx_size`, as the
+    reference's log parser counts them (`benchmark/logs.py`). A payload's
+    size is its author's `Payload <digest> contains <n> B` line, in any
+    node's log."""
+    sizes = {d: int(n) for text in logs.values()
+             for d, n in re.findall(r"Payload (\S+) contains (\d+) B$", text, re.M)}
+    out = {}
+    for name, text in logs.items():
+        committed = set(re.findall(r"Committed B\d+\([^)]*\) -> (\S+)$", text, re.M))
+        out[name] = sum(sizes.get(d, 0) for d in committed) // tx_size
+    return out
+
+
+def phase_port_committee(run_dir: Path) -> dict:
+    """Phase 13: four of the port's nodes commit on the card (see the
+    module docstring)."""
+    from hotstuff_tpu_torch.store import store as port_store
+
+    n = LOCAL_BENCH["nodes"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    py = sys.executable
+    t0 = time.perf_counter()
+    port_store._load_library()  # the store engine, built once before four nodes open it
+    keygen = [_spawn([py, "-m", "hotstuff_tpu_torch.node.main", "keys", "--filename", f".node-{i}.json"],
+                     run_dir / f"keys-{i}.log", run_dir) for i in range(n)]
+    if any(p.wait(BOOT_TIMEOUT_S) for p in keygen):
+        fail(f"the port's key generation failed; see {run_dir}")
+    names = [json.loads((run_dir / f".node-{i}.json").read_text())["name"] for i in range(n)]
+    ports = _free_ports(3 * n)
+    committee, parameters = write_node_configs(run_dir, names, ports)
+    dumps = [run_dir / f"metrics-{i}.json" for i in range(n)]
+    procs = []
+    try:
+        nodes = []
+        for i in range(n):
+            log = run_dir / f"node-{i}.log"
+            nodes.append((log, _spawn(port_node_cmd(py, i, committee.name, parameters.name, dumps[i].name),
+                                      log, run_dir)))
+        procs += [p for _, p in nodes]
+        t_nodes = time.monotonic()
+        _await_logs(nodes, "successfully booted", "port node")
+        boot_s = time.monotonic() - t_nodes
+        consensus = [f"127.0.0.1:{p}" for p in ports[:n]]
+        clients = []
+        for i in range(n):
+            log = run_dir / f"client-{i}.log"
+            clients.append((log, _spawn(port_client_cmd(py, ports[2 * n + i], consensus, n), log, run_dir)))
+        procs += [p for _, p in clients]
+        _await_logs(clients, "Start sending transactions", "client")
+        t_run, t_run_utc = time.monotonic(), time.time()
+        print(f"port committee: keys, {n} nodes (booted in {boot_s:.1f} s) and {n} clients up in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        time.sleep(LOCAL_BENCH["duration"])
+        wall, node_s = time.monotonic() - t_run, time.monotonic() - t_nodes
+    finally:
+        _kill(procs)  # SIGTERM: each node writes its dump
+        for store in run_dir.glob(".db-*"):
+            shutil.rmtree(store, ignore_errors=True)
+    logs = {f"node-{i}": (run_dir / f"node-{i}.log").read_text(errors="replace") for i in range(n)}
+    for name, text in logs.items():
+        if "synthetic batch verification failed" in text:
+            fail(f"{name} logged a synthetic verification failure; see {run_dir}")
+    commits = check_commits(logs)
+    errors, lanes, launches, timings = [], {}, {}, {}
+    for i, path in enumerate(dumps):
+        name = f"node-{i}"
+        try:
+            dump = json.loads(path.read_text())
+        except (OSError, json.JSONDecodeError) as e:
+            fail(f"{name} left no metrics dump ({e!r}); see {run_dir}")
+        errors += node_dump_errors(name, dump)
+        lanes[name], launches[name] = node_dump_lanes(dump), dump.get("launches", {})
+        timings[name] = node_dump_timings(dump)
+    if errors:
+        fail(f"the port's committee: {errors}")
+    synthetic = {name: sum(int(x) for x in re.findall(r"transaction batch\. Size: (\d+)", text))
+                 for name, text in logs.items()}
+    blocks = {name: len(c) for name, c in commits.items()}
+    in_window = {name: committed_between(text, t_run_utc, t_run_utc + wall) for name, text in logs.items()}
+    rounds = max(max(c) for c in commits.values())
+    txs = committed_txs(logs, LOCAL_BENCH["tx_size"])
+    result = dict(blocks=blocks, blocks_in_traffic=in_window, max_round=rounds,
+                  commits_per_s=min(in_window.values()) / wall, committed_txs=txs, tx_per_s=min(txs.values()) / wall,
+                  synthetic_sigs=synthetic, lanes=lanes, launches=launches, timings=timings, wall_s=wall,
+                  node_s=node_s, boot_s=boot_s)
+    print(f"port committee: {n} port nodes, --crypto torch --crypto-crossover 1, booted in {boot_s:.1f} s, "
+          f"{wall:.1f} s of client traffic: blocks committed {blocks} in all (digests agree), "
+          f"{in_window} within the traffic, round {rounds}, "
+          f"{result['commits_per_s']:.2f} commits/s per node over the traffic (the slowest node's); "
+          f"transactions committed {txs}, "
+          f"{result['tx_per_s']:.1f} tx/s over the client traffic (the slowest node's); synthetic workload "
+          f"{synthetic} signatures", flush=True)
+    for name in logs:
+        print(f"port committee {name}: lanes {lanes[name]}, launches "
+              f"{ {k: v for k, v in launches[name].items() if v} }, p50 / p99 ms and card batches "
+              f"{timings[name]}", flush=True)
     return result
 
 
@@ -3849,6 +4047,8 @@ def main() -> int:
     bench_runs = phase_bench()
     bench_runs.update(phase_bench_legs(args.seed))
     bench_launches = {label: r["launches"] for label, r in bench_runs.items()}
+    port_committee = phase_port_committee(REPO / ".chip_smoke" / "port_committee")
+    node_launches = lambda name: {node: d.get(name, 0) for node, d in port_committee["launches"].items()}  # noqa: E731
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -3861,6 +4061,7 @@ def main() -> int:
                 bench_launches={label: n[name] for label, n in bench_launches.items()},
                 mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                                for label, m in mesh["meshes"].items()},
+                node_launches=node_launches(name),
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,
@@ -3876,6 +4077,7 @@ def main() -> int:
             bench_launches={label: n[name] for label, n in bench_launches.items()},
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
+            node_launches=node_launches(name),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res.get("extra", {}),
@@ -3887,6 +4089,7 @@ def main() -> int:
         sidecar_launches=sidecar["launches"]["bit_ladder"],
         bench_launches={label: n["bit_ladder"] for label, n in bench_launches.items()},
         mesh_launches=f32["mesh_launches"],  # phase 9's ShardedEd25519TorchVerifier(packed=False) runs
+        node_launches=node_launches("bit_ladder"),
         matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
         bound_by=res["bound_by"], library_ms=None, **res["extra"],
@@ -3902,6 +4105,7 @@ def main() -> int:
             bench_launches={label: n[name] for label, n in bench_launches.items()},
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
+            node_launches=node_launches(name),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res["extra"],

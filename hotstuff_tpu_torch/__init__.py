@@ -4,7 +4,8 @@ The JAX package (`hotstuff_tpu`) runs batched ed25519 verification on a TPU;
 this package runs the same verification, and the BLS12-381 key sums of
 aggregate certificates, on an NVIDIA Hopper card with CUDA kernels written
 by hand (`ops/csrc/`), each held against a plain PyTorch version of the
-same arithmetic. It imports neither jax nor any module of
+same arithmetic, and carries its own copy of the HotStuff node around
+them (`node/`, `consensus/`, `mempool/`, `network/`, `store/`). It imports neither jax nor any module of
 `hotstuff_tpu`: what it needs from there it keeps as its own trimmed copy.
 
 Entry points run on the card unless the caller asks for the CPU

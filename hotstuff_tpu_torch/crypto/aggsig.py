@@ -9,10 +9,16 @@ the reference's bit for bit. `ops/bls.py` sums committee keys on the card
 and checks the one pairing of an aggregate certificate here;
 `chip_smoke.py` makes its keys and signatures with `ExactBlsScheme`.
 
-Not copied: the trusted stub scheme and its installer, the aggregate-key
-registry, `AggSigner`, the certificate bitmap helpers, `combine` /
-`aggregate`, `_g1_in_subgroup`, `_fp2_conj` and `B_G2`, which nothing of
-the port reads.
+What the consensus codec reads to check an inbound AggQC / AggTC is
+copied too: `exact_scheme`, the aggregate-key registry
+(`register_agg_key`, `agg_key_of`) and the certificate bitmap helpers
+(`AGG_BITMAP_BYTES`, `MAX_AGG_COMMITTEE`, `members_of`,
+`bitmap_to_bytes`, `bitmap_from_bytes`).
+
+Not copied: the scheme and registry installers, the chaos runner's
+trusted stub scheme, `AggSigner`, `combine` / `aggregate`, `bitmap_of`,
+`_g1_in_subgroup`, `_fp2_conj` and `B_G2`. A node forms no aggregate
+certificate: `Parameters.aggregate_certs` is refused.
 
 Curve layout (min-pk, the Ethereum/ZCash convention):
   * secret keys are scalars mod r;
@@ -750,3 +756,60 @@ class ExactBlsScheme:
         except ValueError:
             return False
 
+
+# --------------------------------------------------------------------------
+# The scheme that checks aggregate certificates: the exact curve.
+
+_EXACT: ExactBlsScheme | None = None
+
+
+def exact_scheme() -> ExactBlsScheme:
+    global _EXACT
+    if _EXACT is None:
+        _EXACT = ExactBlsScheme()
+    return _EXACT
+
+
+# --------------------------------------------------------------------------
+# Aggregate-key registry: consensus identity (Ed25519 pk bytes) ->
+# aggregate pk bytes. Certificates carry NO keys on the wire (that is
+# the point); verifiers resolve bitmap members here. Registration is
+# the proof-of-possession boundary.
+
+_REGISTRY: dict[bytes, bytes] = {}
+
+
+def register_agg_key(identity: bytes, agg_pk: bytes) -> None:
+    _REGISTRY[bytes(identity)] = bytes(agg_pk)
+
+
+def agg_key_of(identity: bytes) -> bytes | None:
+    return _REGISTRY.get(bytes(identity))
+
+
+# --------------------------------------------------------------------------
+# Committee bitmaps: bit i = sorted_keys()[i] of the round's committee.
+
+AGG_BITMAP_BYTES = 64
+MAX_AGG_COMMITTEE = AGG_BITMAP_BYTES * 8
+
+
+def members_of(bitmap: int, sorted_keys) -> list:
+    """Resolve a bitmap against a sorted committee; raises ValueError on
+    bits beyond the committee (a malformed or wrong-epoch bitmap)."""
+    if bitmap < 0:
+        raise ValueError("negative bitmap")
+    if bitmap >> len(sorted_keys):
+        raise ValueError(
+            f"bitmap claims member {bitmap.bit_length() - 1} of a "
+            f"{len(sorted_keys)}-member committee"
+        )
+    return [pk for i, pk in enumerate(sorted_keys) if bitmap >> i & 1]
+
+
+def bitmap_to_bytes(bitmap: int) -> bytes:
+    return bitmap.to_bytes(AGG_BITMAP_BYTES, "little")
+
+
+def bitmap_from_bytes(data: bytes) -> int:
+    return int.from_bytes(data, "little")

@@ -29,8 +29,15 @@ groups dispatch in a flush of their own, and at most
 `MAX_CONCURRENT_DISPATCHES` (4) non-urgent flushes run at once. Both
 values are the reference's defaults.
 
+The node's consensus and mempool also call `verify` (one triple),
+`seed_verified` (the aggregator records a vote it checked, so the QC
+built from it verifies nothing twice) and read `backend` (the active
+`CryptoBackend` of `backend.get_backend` when none was given, as in the
+reference) and `lane_stats`.
+
 Not ported: cross-backend stealing, the inline (virtual-time) dispatch
-mode, `verify`, `seed_verified`, the anomaly watchdog's verify samples,
+mode, the anomaly watchdog's verify samples (its per-signature baseline
+misreads a sidecar's mix of large and small flushes as a regression),
 and a cache size other than the reference's default (65,536 triples).
 """
 
@@ -46,7 +53,7 @@ from typing import Sequence
 
 from ..utils import metrics, tracing
 from ..utils.actors import spawn
-from .backend import CryptoBackend
+from .backend import CryptoBackend, get_backend
 from .primitives import PublicKey, Signature
 from .scheduler import DeviceScheduler, LaneStats, note_queue_delay, resolve_source
 
@@ -137,11 +144,11 @@ class _Group:
 class BatchVerificationService:
     def __init__(
         self,
-        backend: CryptoBackend,
+        backend: CryptoBackend | None = None,
         max_batch: int = 8192,
         use_scheduler: bool = True,
     ) -> None:
-        self.backend = backend
+        self._backend = backend
         self.max_batch = max_batch
         self.dedup = VerifiedSigCache(DEDUP_CACHE_SIZE)
         self._queue: asyncio.Queue[_Group] = asyncio.Queue()  # the legacy loop's
@@ -168,6 +175,11 @@ class BatchVerificationService:
         if self._task is None or self._task.done():
             loop = self.scheduler.run() if self.scheduler is not None else self._run_legacy()
             self._task = spawn(loop, name="batch-verification-service")
+
+    @property
+    def backend(self) -> CryptoBackend:
+        """The backend given at construction, else the active one."""
+        return self._backend or get_backend()
 
     def _bucket_alignment(self) -> int:
         """The bucket grid the scheduler sizes bulk buckets against (0 for
@@ -213,6 +225,26 @@ class BatchVerificationService:
         else:
             await self._queue.put(group)
         return await group.future
+
+    async def verify(
+        self,
+        message: bytes,
+        key: PublicKey,
+        signature: Signature,
+        urgent: bool = True,
+        committee: bool = False,
+        trace: str | None = None,
+        source: str | None = None,
+    ) -> bool:
+        """Await a single verification (batched under the hood)."""
+        mask = await self.verify_group([message], [(key, signature)], urgent, committee, trace=trace, source=source)
+        return mask[0]
+
+    def seed_verified(self, message: bytes, key: PublicKey, signature: Signature) -> None:
+        """Record an already verified triple into the dedup cache (the
+        aggregator seeds vote and timeout signatures on arrival, so the QC
+        or TC assembled from them re-verifies none here)."""
+        self.dedup.add(message, key, signature)
 
     # -- the legacy flush loop -----------------------------------------------
 

@@ -56,36 +56,41 @@ _lib: ctypes.CDLL | None = None
 _calls = dict.fromkeys(SIGNATURES, 0)
 
 
-def source_hash() -> str:
+def source_hash(source: Path | None = None) -> str:
+    source = source or SOURCE
     h = hashlib.sha256(" ".join((CXX, *CXX_FLAGS)).encode())
-    h.update(SOURCE.read_bytes())
+    h.update(source.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD / source_hash() / "libstaging.so"
+def library_path(source: Path | None = None) -> Path:
+    source = source or SOURCE
+    return BUILD / source_hash(source) / f"lib{source.stem}.so"
 
 
-def build() -> Path:
-    """Build the library of the current source unless it is built; return
-    its path. Raises RuntimeError with the compiler's output when the build
-    fails or the compiler is missing."""
-    lib = library_path()
+def build(source: Path | None = None, what: str = "native staging") -> Path:
+    """Build the library of the current `source` (a C++ file of
+    `native/`: this module's staging plane by default, or the store engine
+    of `store/store.py`) unless it is built; return its path. Raises
+    RuntimeError with the compiler's output when the build fails or the
+    compiler is missing, naming the library `what`."""
+    source = source or SOURCE
+    lib = library_path(source)
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / "build.lock", "w") as lock:
-        # Test workers and sidecar processes may all start here at once.
+        # Test workers, sidecar and node processes may all start here at once.
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib.exists():
             return lib
         tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+        cmd = [CXX, *CXX_FLAGS, str(source), "-o", str(tmp)]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except FileNotFoundError as e:
-            raise RuntimeError(f"native staging cannot be built: {CXX} not found ({e})") from e
+            raise RuntimeError(f"{what} cannot be built: {CXX} not found ({e})") from e
         if proc.returncode != 0:
             raise RuntimeError(
-                f"native staging build failed ({' '.join(cmd)}, exit {proc.returncode}):\n"
+                f"{what} build failed ({' '.join(cmd)}, exit {proc.returncode}):\n"
                 f"{proc.stderr}{proc.stdout}"
             )
         os.replace(tmp, lib)

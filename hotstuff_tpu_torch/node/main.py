@@ -1,0 +1,252 @@
+"""The port's `node` binary (reference node/src/main.rs:16-92).
+
+Subcommands:
+  * keys --filename F                       -- generate a keypair file
+  * run --keys K --committee C --store S [--parameters P]
+        [--crypto torch|cpu|remote] [--device cuda|cpu]
+
+The port's copy of `hotstuff_tpu/node/main.py`. `--crypto` selects the
+`CryptoBackend` every batch verification of the node goes through:
+  * `torch` (the default): an in-process `TorchBackend` on the card
+    (`--device cuda`, the default) or on the plain PyTorch kernels
+    (`--device cpu`). Asking for the card on a host without one exits with
+    an error; the node never falls back to the CPU. `--crypto-crossover N`
+    sets its `crossover` and `committee_crossover` (default:
+    `DEFAULT_CROSSOVERS`), `--crypto-sharded` splits batches over every
+    visible GPU. The backend is warmed and the committee registered before
+    the node boots, so no early round waits on a first launch; the metrics
+    and the kernel launch counts are then zeroed, so they count the node's
+    own run.
+  * `cpu`: OpenSSL on the host (`CpuBackend`).
+  * `remote`: a crypto sidecar at `--crypto-addr` (`RemoteBackend`),
+    batches under `--crypto-crossover` (default 64) on the host.
+
+`--metrics-out` writes the metrics registry's dump at exit (SIGTERM
+included), with the kernel launch counts of `ops/_build.launches()` under
+`launches`; `--trace-out` writes the flight recorder's dump, and arms the
+anomaly watchdog's dumps beside it. A `METRICS {json}` line is logged
+every `HOTSTUFF_METRICS_INTERVAL` seconds (default 5; 0 disables).
+
+Refused with an error, not ported: the reference's `--crypto tpu` (use
+`torch`), `--ingress` (and `ingress_enabled` in the parameters: the
+ingress server and commit proofs), `--telemetry-port` (the telemetry
+plane), the `deploy` subcommand and `HOTSTUFF_PROFILE`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import atexit
+import json
+import logging
+import os
+import signal
+import sys
+
+from ..utils.logging import setup_logging
+
+log = logging.getLogger("hotstuff.node")
+
+# The reference's sidecar crossover default (`hotstuff_tpu/node/main.py`).
+REMOTE_CROSSOVER = 64
+
+
+def _cmd_keys(args) -> None:
+    from .config import Secret
+
+    Secret.new().write(args.filename)
+    print(f"Wrote keypair to {args.filename}")
+
+
+def make_node_backend(args):
+    """The backend of `--crypto`, with its flags."""
+    from ..crypto.backend import make_backend
+
+    if args.crypto == "torch":
+        kwargs = {}
+        if args.crypto_crossover is not None:
+            kwargs.update(crossover=args.crypto_crossover, committee_crossover=args.crypto_crossover)
+        if args.crypto_sharded:
+            kwargs["sharded"] = True
+        else:
+            kwargs["device"] = args.device
+        return make_backend("torch", **kwargs)
+    if args.crypto == "remote":
+        host, port = args.crypto_addr.rsplit(":", 1)
+        crossover = REMOTE_CROSSOVER if args.crypto_crossover is None else args.crypto_crossover
+        return make_backend("remote", addr=(host, int(port)), crossover=crossover)
+    return make_backend("cpu")
+
+
+async def _run_node(args) -> None:
+    from ..crypto.backend import set_backend
+    from ..ops import _build
+    from ..utils import metrics
+    from .node import Node
+
+    backend = make_node_backend(args)
+    set_backend(backend)
+    if not args.no_warmup:
+        # Build the kernels and run every bucket width BEFORE the pacemaker
+        # can arm: a first launch stalls early rounds past timeout_delay.
+        from ..crypto.remote import warmup_backend
+
+        warmup_backend(backend)
+    node = Node(args.committee, args.keys, args.store, args.parameters)
+    # Committee registration at startup: validator keys become device-
+    # resident tables, with the committee kernels run before the node
+    # joins consensus. boot() re-asserts it (a no-op for the same keys).
+    node.register_committee(warmup=not args.no_warmup)
+    # The dump's metrics and launch counts (--metrics-out) are the node's
+    # own run, not the warmup's.
+    metrics.reset()
+    _build.reset_launches()
+    node.boot()
+    await node.analyze_block()
+
+
+def metrics_dump() -> dict:
+    """The `--metrics-out` dump: the registry's, with the kernel launch
+    counts under `launches`."""
+    from ..ops import _build
+    from ..utils import metrics
+
+    return {**metrics.dump(), "launches": _build.launches()}
+
+
+def write_metrics(path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(metrics_dump(), f, indent=2, sort_keys=True)
+        f.write("\n")
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The command line, with what is not ported refused (exit 2)."""
+    parser = argparse.ArgumentParser(prog="node", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("-v", "--verbose", action="count", default=2)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_keys = sub.add_parser("keys", help="generate a keypair file")
+    p_keys.add_argument("--filename", required=True)
+
+    p_run = sub.add_parser("run", help="run a node")
+    p_run.add_argument("--keys", required=True)
+    p_run.add_argument("--committee", required=True)
+    p_run.add_argument("--parameters", default=None)
+    p_run.add_argument("--store", required=True)
+    p_run.add_argument("--crypto", default="torch", choices=["torch", "cpu", "remote"])
+    p_run.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="with --crypto torch: the card (default) or the plain PyTorch kernels")
+    p_run.add_argument("--crypto-addr", default="127.0.0.1:9700",
+                       help="sidecar address for --crypto remote (host:port)")
+    p_run.add_argument("--crypto-crossover", type=int, default=None,
+                       help="batches below this size verify on the host CPU (torch: default "
+                       "DEFAULT_CROSSOVERS, for committee batches too; remote: default 64)")
+    p_run.add_argument("--crypto-sharded", action="store_true",
+                       help="with --crypto torch: split verification over every visible GPU; "
+                       "committee registration replicates the tables onto each")
+    p_run.add_argument("--ingress", action="store_true", help="not ported: refused")
+    p_run.add_argument("--no-warmup", action="store_true",
+                       help="skip running the kernels before joining consensus")
+    p_run.add_argument("--telemetry-port", type=int, default=None, metavar="PORT", help="not ported: refused")
+    p_run.add_argument("--metrics-out", default=None,
+                       help="write the metrics dump, with the kernel launch counts, to this path on exit/SIGTERM")
+    p_run.add_argument("--trace-out", default=None,
+                       help="write the flight-recorder dump to this path on exit/SIGTERM; watchdog dumps "
+                       "land next to it as <path>.watchdog-<reason>-<n>.json")
+
+    sub.add_parser("deploy", help="not ported: refused").add_argument("--nodes", type=int)
+
+    args = parser.parse_args(argv)
+    if args.command == "deploy":
+        parser.error("the deploy subcommand is not ported; start each node with `run`")
+    if args.command == "run":
+        if args.ingress:
+            parser.error("--ingress is not ported (the ingress server and commit proofs)")
+        if args.telemetry_port is not None:
+            parser.error("--telemetry-port is not ported (the telemetry plane)")
+        if args.crypto_sharded and (args.crypto != "torch" or args.device != "cuda"):
+            parser.error("--crypto-sharded requires --crypto torch on --device cuda")
+        if args.device != "cuda" and args.crypto != "torch":
+            parser.error("--device applies to --crypto torch only")
+        if os.environ.get("HOTSTUFF_PROFILE"):
+            parser.error("HOTSTUFF_PROFILE is not ported")
+    return args
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
+    setup_logging(args.verbose)
+
+    # GIL switch interval: a short one cuts the handoff between the event
+    # loop and the verification worker threads (the reference's default).
+    try:
+        sys.setswitchinterval(float(os.environ.get("HOTSTUFF_SWITCH_INTERVAL", "0.001")))
+    except ValueError:
+        log.warning("ignoring malformed HOTSTUFF_SWITCH_INTERVAL")
+
+    if args.command == "keys":
+        _cmd_keys(args)
+        return
+
+    from ..utils import metrics
+
+    try:
+        interval = float(os.environ.get("HOTSTUFF_METRICS_INTERVAL", "5"))
+    except ValueError:
+        logging.getLogger("hotstuff.metrics").warning("ignoring malformed HOTSTUFF_METRICS_INTERVAL")
+        interval = 5.0
+    metrics.start_periodic_emitter(interval)
+
+    # Exit-time flushers: the benchmark harness stops nodes with SIGTERM,
+    # which skips atexit by default, so the hooks ride one SIGTERM handler
+    # and one atexit.
+    flushers = []
+    if args.metrics_out:
+
+        def _write_metrics():
+            try:
+                write_metrics(args.metrics_out)
+            except OSError as e:
+                logging.getLogger("hotstuff.metrics").warning("failed to write metrics dump: %r", e)
+
+        flushers.append(_write_metrics)
+    if args.trace_out:
+        from ..utils import tracing
+
+        # Label this process's events with the keys-file stem, so dumps of
+        # several nodes stitch with stable names, and arm the watchdog's
+        # dumps next to the exit dump.
+        tracing.NODE_LABEL.set(os.path.splitext(os.path.basename(args.keys))[0])
+        tracing.WATCHDOG.set_auto_dump(args.trace_out)
+
+        def _write_trace():
+            try:
+                tracing.write_json(args.trace_out)
+            except OSError as e:
+                logging.getLogger("hotstuff.tracing").warning("failed to write trace dump: %r", e)
+
+        flushers.append(_write_trace)
+    # Drain the dispatch pipelines' workers on SIGTERM too: the handler
+    # exits by os._exit, which skips the pipeline's own atexit hook.
+    from ..ops.pipeline import close_all
+
+    flushers.append(close_all)
+
+    def _flush_all():
+        for flush in flushers:
+            flush()
+
+    def _on_term(*_a):
+        _flush_all()
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, _on_term)
+    atexit.register(_flush_all)
+    asyncio.run(_run_node(args))
+
+
+if __name__ == "__main__":
+    main()

@@ -217,6 +217,7 @@ class DeviceTimeline:
             "capacity": self.capacity,
             "recorded": self._count,
             "dropped": self.dropped,
+            # graftlint: allow[determinism] dump-alignment stamp, mirrors the flight recorder's (mono, wall) anchor
             "anchor": {"mono": time.monotonic(), "wall": time.time()},
             "intervals": self.intervals(),
             "summary": self.summary(),

@@ -27,21 +27,29 @@ same. Every metric guards its state with its own lock: the service's
 dispatch threads, the pipeline's workers and the event loop record
 concurrently.
 
-The reference's periodic emitter (`emit_snapshot`,
-`start_periodic_emitter`; its one caller is the reference node's `main`,
-which the port does not carry), `timed`, the recording switch and the
-eagerly registered namespace are not ported: a dump's `enabled` is always
-true.
+`start_periodic_emitter(interval_s)` logs the dump without bucket counts
+as one `METRICS {json}` line on `hotstuff.metrics` every `interval_s`
+from a daemon thread (`emit_snapshot`), as the reference node does
+(`hotstuff_tpu/utils/metrics.py:456-483`); the port's node starts it.
+Metric locks are re-entrant, as the reference's: the node writes its dump
+from a SIGTERM handler on the main thread, which may be parked inside a
+`record()`.
+
+`timed`, the recording switch and the eagerly registered namespace are
+not ported: a dump's `enabled` is always true.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import threading
 import time
 from bisect import bisect_left
 from typing import Sequence
+
+log = logging.getLogger("hotstuff.metrics")
 
 __all__ = [
     "Counter",
@@ -54,12 +62,18 @@ __all__ = [
     "gauge",
     "histogram",
     "dump",
+    "emit_snapshot",
     "percentile",
     "snapshot_json",
     "write_json",
     "reset",
     "span",
+    "start_periodic_emitter",
 ]
+
+# Re-entrant: a SIGTERM handler that dumps on the main thread must not
+# deadlock on a lock that thread holds mid-record.
+_new_lock = threading.RLock
 
 # Wall-seconds buckets (1-2-5 series, 10 us .. 60 s).
 TIME_BUCKETS_S: tuple[float, ...] = (
@@ -107,7 +121,7 @@ class Counter:
     def __init__(self, name: str) -> None:
         self.name = name
         self._value = 0
-        self._lock = threading.Lock()
+        self._lock = _new_lock()
 
     def inc(self, n: int = 1) -> None:
         with self._lock:
@@ -130,7 +144,7 @@ class Gauge:
     def __init__(self, name: str) -> None:
         self.name = name
         self._value = 0.0
-        self._lock = threading.Lock()
+        self._lock = _new_lock()
 
     def set(self, v: float) -> None:
         with self._lock:
@@ -157,7 +171,7 @@ class Histogram:
             raise ValueError(f"histogram {name}: buckets must be sorted and non-empty")
         self.name = name
         self.bounds = tuple(float(b) for b in buckets)
-        self._lock = threading.Lock()
+        self._lock = _new_lock()
         self._reset()
 
     def record(self, v: float) -> None:
@@ -200,7 +214,7 @@ class Registry:
 
     def __init__(self) -> None:
         self._metrics: dict[str, Counter | Gauge | Histogram] = {}
-        self._lock = threading.Lock()
+        self._lock = _new_lock()
 
     def _get_or_create(self, name: str, kind, factory):
         with self._lock:
@@ -311,3 +325,32 @@ def write_json(path: str) -> None:
 
 def reset() -> None:
     REGISTRY.reset()
+
+
+def emit_snapshot() -> None:
+    """Log one `METRICS {json}` line (the benchmark log parser's contract)."""
+    log.info("METRICS %s", snapshot_json())
+
+
+_emitter_stop: threading.Event | None = None
+_emitter_lock = threading.Lock()
+
+
+def start_periodic_emitter(interval_s: float = 5.0) -> threading.Event | None:
+    """Emit a snapshot line every `interval_s` from a daemon thread; returns
+    the stop event (set() to halt), or None when interval <= 0 or an emitter
+    is already running."""
+    global _emitter_stop
+    if interval_s <= 0:
+        return None
+    with _emitter_lock:
+        if _emitter_stop is not None and not _emitter_stop.is_set():
+            return None
+        stop = _emitter_stop = threading.Event()
+
+    def _loop() -> None:
+        while not stop.wait(interval_s):
+            emit_snapshot()
+
+    threading.Thread(target=_loop, name="metrics-emitter", daemon=True).start()
+    return stop

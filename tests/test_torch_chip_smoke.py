@@ -12,6 +12,7 @@ timers are stubbed.
 from __future__ import annotations
 
 import hashlib
+import json
 
 import pytest
 
@@ -749,3 +750,101 @@ def test_phase_bench_legs_on_cpu(monkeypatch, capsys):
     assert "aggregate A/B n=4: QC 428 B" in text and "scheduler A/B legacy (BatchVerificationService._run_legacy)" in text
     assert "forced ingress check: 32 transactions, 2 with a flipped signature bit, in 2 batches of 16" in text
     assert "phase 12 (the bench's AggQC, scheduler and ingress legs): 4 runs" in text
+
+
+def test_port_committee_command_lines():
+    """Phase 13's node and client command lines parse under the port's
+    CLIs: `--crypto torch` on the card, crossover 1, a metrics dump each."""
+    import argparse
+    from unittest import mock
+
+    from hotstuff_tpu_torch.node import client as node_client
+    from hotstuff_tpu_torch.node import main as node_main
+
+    cmd = chip_smoke.port_node_cmd("py", 2, ".committee.json", ".parameters.json", "metrics-2.json")
+    assert cmd[:4] == ["py", "-m", "hotstuff_tpu_torch.node.main", "-vv"]
+    args = node_main.parse_args(cmd[4:])
+    assert (args.crypto, args.device, args.crypto_crossover, args.metrics_out) == ("torch", "cuda", 1,
+                                                                                    "metrics-2.json")
+    assert (args.keys, args.store, args.committee) == (".node-2.json", ".db-2/log", ".committee.json")
+    assert not (args.crypto_sharded or args.no_warmup or args.ingress)
+    backend_args = argparse.Namespace(crypto="torch", crypto_crossover=1, crypto_sharded=False, device="cpu")
+    backend = node_main.make_node_backend(backend_args)
+    assert (backend.crossover, backend.committee_crossover, backend.device.type) == (1, 1, "cpu")
+
+    client = chip_smoke.port_client_cmd("py", 9001, ["127.0.0.1:9000", "127.0.0.1:9002"], 4)
+    assert client[:3] == ["py", "-m", "hotstuff_tpu_torch.node.client"]
+    seen = {}
+    with mock.patch.object(node_client.asyncio, "run", lambda coro: (seen.update(client=coro.cr_frame.f_locals),
+                                                                    coro.close())), \
+            mock.patch.object(node_client, "setup_logging"):
+        node_client.main(client[3:])
+    local = seen["client"]
+    assert local["target"] == ("127.0.0.1", 9001)
+    assert (local["size"], local["rate"]) == (chip_smoke.LOCAL_BENCH["tx_size"], chip_smoke.LOCAL_BENCH["rate"] // 4)
+    assert local["nodes"] == [("127.0.0.1", 9000), ("127.0.0.1", 9002)]
+
+
+def _node_dump(tpu_sigs=120, committee_sigs=40, cpu_sigs=0, **launches):
+    base = dict.fromkeys(chip_smoke.NODE_KERNELS, 3)
+    base.update(dict.fromkeys(("g1_aggregate", "bit_ladder", "field12", "alu_chain"), 0))
+    base.update(launches)
+    return {"counters": {"crypto.tpu_sigs": tpu_sigs, "verifier.committee_sigs": committee_sigs,
+                         "crypto.cpu_sigs": cpu_sigs}, "launches": base}
+
+
+def test_port_committee_reads_each_nodes_dump(tmp_path):
+    """Phase 13 reads each node's `--metrics-out` dump: the lanes of each
+    route, and the launches of the node's kernels and of no other."""
+    from hotstuff_tpu_torch.node import main as node_main
+    from hotstuff_tpu_torch.crypto import batch_service  # noqa: F401  (registers what a node's registry holds)
+    from hotstuff_tpu_torch.ops import _build
+
+    assert chip_smoke.NODE_KERNELS == {"h_digits", "decompress_table", "ladder", "compress_eq",
+                                       "h_digits_idx", "committee_ladder"}
+    assert chip_smoke.node_dump_lanes(_node_dump()) == {"generic": 80, "committee": 40, "host": 0}
+    assert chip_smoke.node_dump_errors("node-0", _node_dump()) == []
+    assert chip_smoke.node_dump_errors("node-1", _node_dump(committee_sigs=0)) == [
+        "node-1: lanes {'generic': 120, 'committee': 0, 'host': 0}"]
+    assert chip_smoke.node_dump_errors("node-1", _node_dump(cpu_sigs=2))[0].startswith("node-1: lanes")
+    assert chip_smoke.node_dump_errors("node-2", _node_dump(h_digits_idx=0)) == [
+        "node-2: ['h_digits_idx'] never launched"]
+    bad = chip_smoke.node_dump_errors("node-3", _node_dump(bit_ladder=1, g1_aggregate_affine=2))
+    assert len(bad) == 1 and "['bit_ladder', 'g1_aggregate_affine'] launched off the node's path" in bad[0]
+    assert chip_smoke.node_dump_errors("node-3", {"counters": {}}) == [
+        "node-3: lanes {'generic': 0, 'committee': 0, 'host': 0}", "node-3: the dump holds no launch counts"]
+    timings = chip_smoke.node_dump_timings({
+        "counters": {"crypto.tpu_batches": 9},
+        "histograms": {"consensus.commit_latency_s": {"p50": 0.0125, "p99": 0.5},
+                       "crypto.batch_size": {"mean": 12.345}}})
+    assert timings == {"consensus.commit_latency_s": (12.5, 500.0), "card_batches": 9, "mean_batch": 12.35}
+    # The node's own dump holds what the phase reads.
+    path = tmp_path / "metrics.json"
+    node_main.write_metrics(str(path))
+    dump = json.loads(path.read_text())
+    assert set(dump["launches"]) == set(_build.KERNELS)
+    assert {"crypto.tpu_sigs", "crypto.cpu_sigs", "verifier.committee_sigs"} <= set(dump["counters"])
+    assert set(chip_smoke.NODE_TIMINGS) | {"crypto.batch_size"} <= set(dump["histograms"])
+
+
+def test_committed_between_counts_commit_lines_in_the_window():
+    import calendar
+
+    start = calendar.timegm((2026, 10, 17, 5, 40, 56, 0, 0, 0))
+    assert chip_smoke.committed_between(_LOG, start, start + 1) == 2  # the per-payload line is not a block
+    assert chip_smoke.committed_between(_LOG, start + 0.15, start + 1) == 1
+    assert chip_smoke.committed_between(_LOG, start, start + 0.2) == 1
+    assert chip_smoke.committed_between(_LOG, start + 1, start + 2) == 0
+
+
+def test_committed_txs_counts_each_committed_payload_once():
+    ts = "[2026-10-18T03:02:05.324Z INFO hotstuff.{}] "
+    author = "\n".join([ts.format("mempool") + "Payload P1= contains 1024 B",
+                        ts.format("mempool") + "Payload P2= contains 512 B",
+                        ts.format("mempool") + "Payload P1= contains sample tx 3"]) + "\n"
+    node0 = author + "\n".join([ts.format("consensus") + "Committed B1(AAAA)",
+                                ts.format("consensus") + "Committed B1(AAAA) -> P1=",
+                                ts.format("consensus") + "Committed B2(BBBB) -> P1=",
+                                ts.format("consensus") + "Committed B2(BBBB) -> P2="]) + "\n"
+    node1 = ts.format("consensus") + "Committed B1(AAAA) -> P1=\n" + ts.format("consensus") + "Committed B3(CC) -> P9=\n"
+    assert chip_smoke.committed_txs({"node-0": node0, "node-1": node1}, 512) == {"node-0": 3, "node-1": 2}

@@ -28,6 +28,10 @@ names = [m.name for m in pkgutil.walk_packages(hotstuff_tpu_torch.__path__, "hot
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tempfile
+from hotstuff_tpu_torch.node import main as node_main
+with tempfile.TemporaryDirectory() as tmp:
+    node_main.main(["keys", "--filename", tmp + "/key.json"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "hotstuff_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -57,7 +61,17 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.consensus", "hotstuff_tpu_torch.consensus.messages",
                 "hotstuff_tpu_torch.ingress", "hotstuff_tpu_torch.ingress.messages",
                 "hotstuff_tpu_torch.ingress.admission", "hotstuff_tpu_torch.ingress.loadgen",
-                "hotstuff_tpu_torch.ingress.pipeline"):
+                "hotstuff_tpu_torch.ingress.pipeline", "hotstuff_tpu_torch.crypto.primitives",
+                "hotstuff_tpu_torch.crypto.service", "hotstuff_tpu_torch.network",
+                "hotstuff_tpu_torch.network.net", "hotstuff_tpu_torch.store", "hotstuff_tpu_torch.store.store",
+                *(f"hotstuff_tpu_torch.consensus.{m}" for m in (
+                    "config", "errors", "reconfig", "leader", "mempool_driver", "aggregator", "overlay",
+                    "synchronizer", "core", "consensus")),
+                "hotstuff_tpu_torch.mempool",
+                *(f"hotstuff_tpu_torch.mempool.{m}" for m in (
+                    "config", "errors", "messages", "payload_maker", "front", "synchronizer", "core", "mempool")),
+                "hotstuff_tpu_torch.node", "hotstuff_tpu_torch.node.node", "hotstuff_tpu_torch.node.client",
+                "hotstuff_tpu_torch.node.main"):
         assert mod in res["modules"]
 
 
