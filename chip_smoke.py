@@ -213,7 +213,11 @@ caught:
      (`bench_kernels`: no K6, K8 or the tool's kernels) and leave a metrics
      dump that holds `TorchBackend`'s routing counters; the
      committee-scale table's QCs must each have been routed once, each
-     committee's on one route. Prints each run's time and the phase's.
+     committee's on one route. The `--committee-cache on` run also serves
+     `--telemetry-port 0`: its endpoint is scraped once with the port's
+     `telemetry.scrape_sync` (a telemetry dump labelled `bench` with the
+     reference's SLO set and the device timeline) and then closed. Prints
+     each run's time and the phase's.
  12. the bench's AggQC, scheduler and client-plane legs, through
      `bench.main(argv)` in this process as phase 11's runs (metrics, the
      flight recorder, the timeline and the launch counts reset before
@@ -257,10 +261,32 @@ caught:
      node's launches (the rows' `node_launches`) and where its time went
      (`node_dump_timings`: commit latency, proposal to vote, the
      consensus and mempool lanes' queueing, the card's dispatch and
-     readback, p50 and p99; its batches and their mean size).
+     readback, p50 and p99; its batches and their mean size). Each node
+     also serves its telemetry plane (`--telemetry-port`), scraped twice
+     during the traffic (SCRAPE_AT_S) with the port's `scrape_sync`: each
+     scrape must be the node's telemetry dump, the snapshot ring must grow
+     between the two, the consensus and mempool lanes must have events and
+     the ring must hold verifier batches (the verify.e2e SLO's events); the
+     node's dump must hold one `verifier.e2e_s` sample per verifier batch,
+     but for those in flight at SIGTERM (at most NODE_IN_FLIGHT).
+     Prints each node's snapshots, lanes, active and fired alerts and
+     `verifier.e2e_s` p50 / p99;
+ 14. the port's tools and stealing: `python -m hotstuff_tpu_torch.latch_probe`
+     (its `main`, in this process) on the card must report
+     `contracts_held` (organic masks right with K2 launched and no
+     fallback, a forced K2 failure propagating, a transient one too, the
+     latch on); `python -m hotstuff_tpu_torch.roofline --rate <phase 3's
+     sigs/s> --committee <phase 5's table>` must print, for each kernel of
+     both paths, the bound of its row in the kernels line; and a
+     `BatchVerificationService` with a home and one steal `TorchBackend`,
+     both on cuda:0, takes a 4,096-lane bulk flood: `pipeline.steals`
+     must move, every mask must be the expected one, and the backends'
+     card lanes must add up to the lanes sent (one card: the accounting
+     only).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes;
-phase 13 the port's).
+phase 13 the port's). The bound column's model and constants come from
+`hotstuff_tpu_torch/roofline.py`.
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script.
 """
@@ -291,43 +317,17 @@ BATCH = 16384
 CHUNK = 4096
 MAX_BUCKET = 8192
 
-# H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
-# INT32 issue 64 lanes/clk/SM x 132 SMs x 1.98 GHz boost. A field product
-# is one 32x32->64 IMAD.WIDE, counted as one INT32 operation: the least
-# issue work, so `bound_ms` is a floor.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-
-# K2's integer operations per lane as first counted: 64 schedule words x 13
-# 64-bit ops and 80 rounds x 24 64-bit ops, two INT32 operations per 64-bit
-# op; TweetNaCl's byte modL, 32 x 20 64-bit multiply-adds. Kept as it is so
-# that K2's and K2g's bound reads the same work whatever implements it; the
-# radix-2^28 kernel issues fewer instructions than this (PERF.md, section 6).
-H_DIGITS_OPS_PER_LANE = 2 * (64 * 13 + 80 * 24) + 2 * 32 * 20
-# csrc/h_digits.cu reduce_mod_l, run alone by the test entry: 50 + 25 + 5
-# limb products (one IMAD.WIDE each) and 13 + 9 + 9 + 9 carry steps, each
-# counted as one operation, the least issue work.
-REDUCE_OPS_PER_LANE = (50 + 25 + 5) + (13 + 9 + 9 + 9)
-# K6 (csrc/g1_aggregate.cu): a Montgomery product on 12 x 32-bit limbs is
-# 12 x 12 products of a x b, 12 x 12 of m x p and 12 digit factors, 300
-# IMAD.WIDE; a squaring needs only the 12 x 13 / 2 distinct products of
-# a x a (234); a product by the integer 1, which leaves Montgomery form, only
-# the reduction (156). Each member of a row beyond its first costs one mixed
-# add, 7M + 4S. Counted from the mask, whatever the kernel issues, so a
-# redesign is read against the same work. The affine entry adds, at its
-# least, a batch inversion over the rows whose sum is not the identity:
-# 3 products a row (Montgomery's trick) and one chain Z^(p - 2) a launch,
-# the ops/bls.py INV_WINDOWS chain (its odd powers, 1 squaring and 15
-# products; 377 squarings and 67 products); then a row's zi^2, zi^3,
-# x zi^2, y zi^3 and two products by 1. The kernel runs the chain on every
-# row instead (466 products a row), more work than this count.
-BLS_OPS_PER_PRODUCT = 12 * 12 + 12 * 12 + 12
-BLS_OPS_PER_SQUARE = 12 * 13 // 2 + 12 * 12 + 12
-BLS_OPS_PER_REDUCTION = 12 * 12 + 12
-BLS_OPS_PER_MEMBER = 7 * BLS_OPS_PER_PRODUCT + 4 * BLS_OPS_PER_SQUARE
-BLS_CHAIN_SQUARES, BLS_CHAIN_PRODUCTS = 1 + 377, 15 + 67
-BLS_OPS_PER_CHAIN = BLS_CHAIN_SQUARES * BLS_OPS_PER_SQUARE + BLS_CHAIN_PRODUCTS * BLS_OPS_PER_PRODUCT
-BLS_OPS_PER_AFFINE = (3 + 3) * BLS_OPS_PER_PRODUCT + BLS_OPS_PER_SQUARE + 2 * BLS_OPS_PER_REDUCTION
+# The bound column's model and constants have one source, the port's
+# roofline module (`python -m hotstuff_tpu_torch.roofline`); main() reports
+# a missing package before anything reads them.
+try:
+    from hotstuff_tpu_torch.roofline import (  # noqa: F401
+        BIT_DBL_PRODUCTS, BIT_MADD_PRODUCTS, BLS_CHAIN_PRODUCTS, BLS_CHAIN_SQUARES, BLS_OPS_PER_AFFINE,
+        BLS_OPS_PER_CHAIN, BLS_OPS_PER_MEMBER, BLS_OPS_PER_PRODUCT, BLS_OPS_PER_REDUCTION, BLS_OPS_PER_SQUARE,
+        H_DIGITS_OPS_PER_LANE, HBM_BYTES_PER_S, INT32_OPS_PER_S, REDUCE_OPS_PER_LANE, kernel_bytes)
+    from hotstuff_tpu_torch.roofline import bound_ms as _bound_ms
+except ImportError:
+    pass
 
 RFC8032_VECTORS = [  # (public key, message, signature), RFC 8032 section 7.1
     ("d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a", "",
@@ -438,12 +438,6 @@ def _max_abs(a, b) -> int:
     return (a.long() - b.long()).abs().max().item()
 
 
-def _bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
-
-
 def _special_keys():
     """Key encodings the decompression must get right: y >= p, x = 0 with
     the sign bit set, y = 0 and y = 1, the all-ones encoding."""
@@ -528,7 +522,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
     results["h_digits"] = dict(
         ms=ms, plain_ms=plain_ms,
         max_abs_err=_max_abs(hd_full, want),
-        bytes=LANES * (96 + 64), ops=LANES * H_DIGITS_OPS_PER_LANE,
+        bytes=kernel_bytes("h_digits", LANES), ops=LANES * H_DIGITS_OPS_PER_LANE,
     )
 
     # K3: random keys (about half decompress) and the special encodings; the
@@ -557,7 +551,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
           flush=True)
     results["decompress_table"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        bytes=LANES * (32 + 4 * 16 * field.NL * 4 + 1), ops=LANES * products,
+        bytes=kernel_bytes("decompress_table", LANES), ops=LANES * products,
     )
 
     # K1: random digits with K3's tables, raw limbs against the plain
@@ -582,8 +576,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
           f"{ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["ladder"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
-        bytes=LANES * (2 * 64 + 4 * 16 * field.NL * 4 + 4 * field.NL * 4) + 3 * 16 * field.NL * 4,
-        ops=LANES * products,
+        bytes=kernel_bytes("ladder", LANES), ops=LANES * products,
     )
 
     # K4: the mask must equal the plain version's at every width of WIDTHS,
@@ -609,8 +602,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
           flush=True)
     results["compress_eq"] = dict(
         ms=ms, plain_ms=plain_ms,
-        max_abs_err=_max_abs(got, want), bytes=LANES * (3 * field.NL * 4 + 32 + 1 + 1),
-        ops=LANES * products,
+        max_abs_err=_max_abs(got, want), bytes=kernel_bytes("compress_eq", LANES), ops=LANES * products,
     )
     # A ragged width (not a multiple of any block size) through every kernel:
     # each lane is independent, so it must equal the full run's first lanes.
@@ -678,7 +670,7 @@ def phase_reduce_compare(device: str = "cuda") -> dict:
         err = max(err, _max_abs(got, want))
     n = len(values[1])
     res = dict(ms=queued_ms(lambda: sha512.reduce_mod_l_device(x), 20), plain_ms=plain_ms, max_abs_err=err,
-               bytes=n * (64 + 32), ops=n * REDUCE_OPS_PER_LANE)
+               bytes=kernel_bytes("reduce_mod_l", n), ops=n * REDUCE_OPS_PER_LANE)
     res["bound_ms"], res["bound_by"] = _bound_ms(res["bytes"], res["ops"])
     print(f"reduce_mod_l: kernel equals reduce_mod_l and Python ints on {len(values[0])} edge values and the "
           f"{n}-value sweep; {res['ms']:.4f} ms per {n}-value call", flush=True)
@@ -1225,9 +1217,7 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
     results["committee_ladder"] = dict(
         ms=ms, plain_ms=plain_ms,
         max_abs_err=err,
-        bytes=LANES * (2 * 64 + 4 + 4 * field.NL * 4 + 1) + n * (16 * 3 * field.NL * 4 + 1)
-        + 3 * 16 * field.NL * 4,
-        ops=LANES * products,
+        bytes=kernel_bytes("committee_ladder", LANES, n), ops=LANES * products,
     )
 
     # K2g: h digits with A read by index; a sample against hashlib.
@@ -1256,7 +1246,7 @@ def phase_committee_compare(seed: int, table_keys: list[bytes], device: str = "c
           f"indices in range); {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["h_digits_idx"] = dict(
         ms=ms, plain_ms=plain_ms,
-        max_abs_err=_max_abs(hk, want), bytes=LANES * (32 + 32 + 4 + 64) + 32 * n,
+        max_abs_err=_max_abs(hk, want), bytes=kernel_bytes("h_digits_idx", LANES, n),
         ops=LANES * H_DIGITS_OPS_PER_LANE,
     )
 
@@ -2592,12 +2582,15 @@ def phase_committee_run(backend, qcs, run_dir: Path) -> dict:
 NODE_KERNELS = frozenset(GENERIC_KERNELS) | frozenset(COMMITTEE_KERNELS)
 
 
-def port_node_cmd(py: str, i: int, committee: str, parameters: str, metrics_out: str) -> list[str]:
+def port_node_cmd(py: str, i: int, committee: str, parameters: str, metrics_out: str,
+                  telemetry_port: int | None = None) -> list[str]:
     """Node i of the port's committee: `--crypto torch` on the card (the
-    default device), every batch of one signature or more on the card."""
-    return [py, "-m", "hotstuff_tpu_torch.node.main", "-vv", "run", "--keys", f".node-{i}.json",
-            "--committee", committee, "--store", f".db-{i}/log", "--parameters", parameters,
-            "--crypto", "torch", "--crypto-crossover", "1", "--metrics-out", metrics_out]
+    default device), every batch of one signature or more on the card; its
+    telemetry plane on `telemetry_port` when given."""
+    cmd = [py, "-m", "hotstuff_tpu_torch.node.main", "-vv", "run", "--keys", f".node-{i}.json",
+           "--committee", committee, "--store", f".db-{i}/log", "--parameters", parameters,
+           "--crypto", "torch", "--crypto-crossover", "1", "--metrics-out", metrics_out]
+    return cmd if telemetry_port is None else [*cmd, "--telemetry-port", str(telemetry_port)]
 
 
 def port_client_cmd(py: str, front: int, consensus: list[str], n: int) -> list[str]:
@@ -2650,6 +2643,41 @@ def node_dump_errors(name: str, dump: dict) -> list[str]:
     return errors
 
 
+SCRAPE_AT_S = (8.0, 18.0)  # phase 13's scrapes of each node, seconds into the client traffic
+# Verifier batches a node may have in flight when SIGTERM writes its dump:
+# counted into verifier.batches, their verifier.e2e_s sample not yet
+# recorded (the scheduler's bulk slots and a few critical dispatches).
+NODE_IN_FLIGHT = 8
+
+
+def node_scrape_errors(label: str, scrapes: list[dict]) -> list[str]:
+    """What a node's scrapes during the traffic got wrong: a scrape that is
+    not the node's telemetry dump, a snapshot ring that did not grow
+    between the first and the last, no events on the consensus or the
+    mempool lane, or no verifier batch in the snapshots (each records one
+    `verifier.e2e_s` sample, the events of the verify.e2e SLO)."""
+    errors = [e for d in scrapes for e in telemetry_errors(d, label)]
+    if errors:
+        return errors
+    first, last = scrapes[0], scrapes[-1]
+    if len(last["snapshots"]) <= len(first["snapshots"]):
+        errors.append(f"{label}: the snapshot ring did not grow ({len(first['snapshots'])} -> "
+                      f"{len(last['snapshots'])})")
+    lanes = last.get("lanes") or {}
+    idle = [lane for lane in ("consensus", "mempool") if lanes.get(lane, {}).get("count", 0) <= 0]
+    if idle:
+        errors.append(f"{label}: no events on the {idle} lanes: {lanes}")
+    if not scrape_batches(last):
+        errors.append(f"{label}: no verifier batch in the snapshots, so the verify.e2e SLO saw no event")
+    return errors
+
+
+def scrape_batches(dump: dict) -> int:
+    """Verifier batches over a dump's snapshot ring: the events its
+    verify.e2e SLO read."""
+    return sum(snap.get("counters", {}).get("verifier.batches", 0) for snap in dump.get("snapshots") or ())
+
+
 def committed_txs(logs: dict[str, str], tx_size: int) -> dict[str, int]:
     """Transactions each node committed: the bytes of the distinct payloads
     its `Committed B<r>(...) -> <payload>` lines name, over `tx_size`, as the
@@ -2669,6 +2697,7 @@ def phase_port_committee(run_dir: Path) -> dict:
     """Phase 13: four of the port's nodes commit on the card (see the
     module docstring)."""
     from hotstuff_tpu_torch.store import store as port_store
+    from hotstuff_tpu_torch.utils import telemetry
 
     n = LOCAL_BENCH["nodes"]
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -2681,16 +2710,19 @@ def phase_port_committee(run_dir: Path) -> dict:
     if any(p.wait(BOOT_TIMEOUT_S) for p in keygen):
         fail(f"the port's key generation failed; see {run_dir}")
     names = [json.loads((run_dir / f".node-{i}.json").read_text())["name"] for i in range(n)]
-    ports = _free_ports(3 * n)
+    ports = _free_ports(4 * n)
     committee, parameters = write_node_configs(run_dir, names, ports)
+    telemetry_ports = ports[3 * n:]
     dumps = [run_dir / f"metrics-{i}.json" for i in range(n)]
+    labels = [f".node-{i}" for i in range(n)]  # the keys-file stems
+    scrapes: dict[str, list[dict]] = {label: [] for label in labels}
     procs = []
     try:
         nodes = []
         for i in range(n):
             log = run_dir / f"node-{i}.log"
-            nodes.append((log, _spawn(port_node_cmd(py, i, committee.name, parameters.name, dumps[i].name),
-                                      log, run_dir)))
+            cmd = port_node_cmd(py, i, committee.name, parameters.name, dumps[i].name, telemetry_ports[i])
+            nodes.append((log, _spawn(cmd, log, run_dir)))
         procs += [p for _, p in nodes]
         t_nodes = time.monotonic()
         _await_logs(nodes, "successfully booted", "port node")
@@ -2705,7 +2737,11 @@ def phase_port_committee(run_dir: Path) -> dict:
         t_run, t_run_utc = time.monotonic(), time.time()
         print(f"port committee: keys, {n} nodes (booted in {boot_s:.1f} s) and {n} clients up in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        time.sleep(LOCAL_BENCH["duration"])
+        for at in SCRAPE_AT_S:  # each node's telemetry endpoint, twice during the traffic
+            time.sleep(max(0.0, t_run + at - time.monotonic()))
+            for label, port in zip(labels, telemetry_ports):
+                scrapes[label].append(telemetry.scrape_sync(("127.0.0.1", port)))
+        time.sleep(max(0.0, t_run + LOCAL_BENCH["duration"] - time.monotonic()))
         wall, node_s = time.monotonic() - t_run, time.monotonic() - t_nodes
     finally:
         _kill(procs)  # SIGTERM: each node writes its dump
@@ -2716,7 +2752,7 @@ def phase_port_committee(run_dir: Path) -> dict:
         if "synthetic batch verification failed" in text:
             fail(f"{name} logged a synthetic verification failure; see {run_dir}")
     commits = check_commits(logs)
-    errors, lanes, launches, timings = [], {}, {}, {}
+    errors, lanes, launches, timings, e2e = [], {}, {}, {}, {}
     for i, path in enumerate(dumps):
         name = f"node-{i}"
         try:
@@ -2724,8 +2760,14 @@ def phase_port_committee(run_dir: Path) -> dict:
         except (OSError, json.JSONDecodeError) as e:
             fail(f"{name} left no metrics dump ({e!r}); see {run_dir}")
         errors += node_dump_errors(name, dump)
+        errors += node_scrape_errors(labels[i], scrapes[labels[i]])
         lanes[name], launches[name] = node_dump_lanes(dump), dump.get("launches", {})
         timings[name] = node_dump_timings(dump)
+        hist = dump.get("histograms", {}).get("verifier.e2e_s", {})
+        e2e[name] = (hist.get("count", 0), round(1e3 * hist.get("p50", 0.0), 3), round(1e3 * hist.get("p99", 0.0), 3))
+        batches = dump.get("counters", {}).get("verifier.batches", 0)
+        if not e2e[name][0] or not 0 <= batches - e2e[name][0] <= NODE_IN_FLIGHT:
+            errors.append(f"{name}: verifier.e2e_s holds {e2e[name][0]} samples for {batches} verifier batches")
     if errors:
         fail(f"the port's committee: {errors}")
     synthetic = {name: sum(int(x) for x in re.findall(r"transaction batch\. Size: (\d+)", text))
@@ -2749,6 +2791,15 @@ def phase_port_committee(run_dir: Path) -> dict:
         print(f"port committee {name}: lanes {lanes[name]}, launches "
               f"{ {k: v for k, v in launches[name].items() if v} }, p50 / p99 ms and card batches "
               f"{timings[name]}", flush=True)
+    for i, label in enumerate(labels):
+        last = scrapes[label][-1]
+        print(f"port committee node-{i} telemetry ({label}): snapshots "
+              f"{[len(d['snapshots']) for d in scrapes[label]]} at {list(SCRAPE_AT_S)} s, lanes "
+              f"{ {k: v['count'] for k, v in last['lanes'].items()} }, verifier batches in the ring "
+              f"{scrape_batches(last)}, active alerts {last['active_alerts']}, alerts fired "
+              f"{[a['slo'] for a in last['alerts'] if a['event'] == 'fired']}; verifier.e2e_s (the "
+              f"node's run) samples, p50 / p99 ms {e2e[f'node-{i}']}", flush=True)
+    result.update(scrapes=scrapes, e2e=e2e)
     return result
 
 
@@ -3026,14 +3077,6 @@ F32_LEG_KERNELS = {
     "w4": ("decompress_table", "ladder", "compress_eq"),
     "pallas": ("decompress_table", "ladder", "compress_eq"),
 }
-# K7's limb products (csrc/bit_ladder.cu), one IMAD.WIDE each: a doubling
-# is 4 squares (55 products) and 4 products (100); a mixed add 7 products.
-# Every lane doubles 253 times; the function adds B or -A only where a bit
-# is set, so the bound counts this run's set bits (the kernel runs both
-# adds on every step and selects, as the reference does).
-BIT_DBL_PRODUCTS = 4 * 55 + 4 * 100
-BIT_MADD_PRODUCTS = 7 * 100
-
 
 def bit_ladder_bound(s_bits, h_bits) -> tuple[int, int]:
     """(bytes, operations) K7's function needs on these bits: both bit rows,
@@ -3552,7 +3595,7 @@ def phase_tune(device: str = "cuda") -> dict:
 
 BENCH_BASE = ("--batch", "16384", "--chunk", "4096", "--iters", "8", "--e2e-iters", "3")
 BENCH_RUNS = (  # label, the run's flags after BENCH_BASE
-    ("committee cache on", ("--committee-cache", "on")),
+    ("committee cache on", ("--committee-cache", "on", "--telemetry-port", "0")),
     ("committee cache off", ("--committee-cache", "off")),
     ("bits", ("--kernel", "bits", "--device-batch", "8192")),
     ("mesh", ("--mesh",)),
@@ -3653,6 +3696,41 @@ def run_bench(label: str, argv: list[str]) -> tuple[dict, dict, float, list[str]
     return line, launches, secs, errors
 
 
+def telemetry_errors(dump: dict, label: str) -> list[str]:
+    """What a scrape of a telemetry endpoint got wrong: not a telemetry
+    dump of `label`, or without the reference's SLO set."""
+    from hotstuff_tpu_torch.utils import telemetry
+
+    if not isinstance(dump, dict) or dump.get("kind") != "telemetry" or dump.get("node") != label:
+        return [f"the scrape is not a telemetry dump of {label!r}: {str(dump)[:200]}"]
+    slos = [s.get("name") for s in dump.get("slos") or ()]
+    if slos != [s.name for s in telemetry.default_slos()]:
+        return [f"{label}: the scrape's SLOs are {slos}"]
+    return []
+
+
+def bench_telemetry(label: str) -> list[str]:
+    """One scrape of the endpoint a bench run opened with `--telemetry-port
+    0` (`bench.TELEMETRY_PORT`), which is then closed. Returns its
+    errors."""
+    from hotstuff_tpu_torch import bench
+    from hotstuff_tpu_torch.utils import telemetry
+
+    try:
+        dump = telemetry.scrape_sync(("127.0.0.1", bench.TELEMETRY_PORT))
+    finally:
+        bench.stop_telemetry()
+    errors = telemetry_errors(dump, "bench")
+    if not errors and not isinstance(dump.get("device"), dict):
+        errors.append("the bench's scrape holds no device timeline")
+    if not errors:
+        dev = dump["device"]
+        print(f"bench {label}: telemetry scrape of 127.0.0.1 ok: {len(dump['snapshots'])} snapshots, "
+              f"active alerts {dump['active_alerts']}, device timeline {dev.get('chunks')} chunks, "
+              f"occupancy {dev.get('occupancy')}", flush=True)
+    return errors
+
+
 def phase_bench(device: str = "cuda", base=BENCH_BASE, runs=BENCH_RUNS) -> dict:
     """Phase 11: `hotstuff_tpu_torch.bench.main(argv)` in this process for
     each run of `runs`, with the registry, the device timeline and the
@@ -3672,6 +3750,8 @@ def phase_bench(device: str = "cuda", base=BENCH_BASE, runs=BENCH_RUNS) -> dict:
         path = _leg_paths(label)[0]
         argv = [*base, *flags, "--device", device, "--metrics-out", str(path)]
         line, launches, secs, errors = run_bench(label, argv)
+        if "--telemetry-port" in flags:
+            errors += bench_telemetry(label)
         errors += bench_errors(line, launches, bench_kernels(argv), json.loads(path.read_text()), device)
         if "committee_scale" in line:
             counters = json.loads(path.read_text())["counters"]
@@ -3945,6 +4025,110 @@ def phase_bench_legs(seed: int, device: str = "cuda", agg_sizes=AGG_SIZES, sched
     return results
 
 
+# --- phase 14: latch_probe, roofline and work stealing ----------------------------
+
+STEAL_LANES = 4096  # the flood's lanes: phase 3's distinct signatures
+STEAL_GROUP = 256  # lanes a verify_group call
+STEAL_BUCKET = 512  # the service's max_batch, so that the flood makes several buckets
+
+
+def _echo_main(label: str, fn, argv: list[str]):
+    """`fn(argv)` in this process with its standard output echoed under
+    `label`; returns (what it returned, its output lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"{label}| {ln}", flush=True)
+    return ret, lines
+
+
+def phase_latch_probe(device: str = "cuda", lanes: int | None = None) -> dict:
+    """`python -m hotstuff_tpu_torch.latch_probe` (its `main`) on `device`:
+    it must exit 0 with `contracts_held`, and on the card K2 must launch in
+    its organic phase."""
+    from hotstuff_tpu_torch import latch_probe
+
+    argv = ["--device", device] + ([] if lanes is None else ["--lanes", str(lanes)])
+    rc, lines = _echo_main("latch_probe", latch_probe.main, argv)
+    summary = json.loads(lines[-1])
+    if rc != 0 or not summary.get("contracts_held"):
+        fail(f"latch_probe on {device}: rc {rc}, {summary}")
+    if device == "cuda" and summary["organic_k2_launches"] <= 0:
+        fail(f"latch_probe: K2 never launched in the organic phase: {summary}")
+    return summary
+
+
+def phase_roofline(rate: float, committee: int, rows: dict) -> dict:
+    """`python -m hotstuff_tpu_torch.roofline --rate RATE --committee N`
+    (its `main`): each kernel's bound it prints must equal the `bound_ms`
+    of the kernel's row in this run's `rows` (the kernels line's)."""
+    from hotstuff_tpu_torch import roofline
+
+    out, _ = _echo_main("roofline", roofline.main, ["--rate", repr(rate), "--committee", str(committee)])
+    diff = {name: (r["bound_ms"], rows[name]["bound_ms"]) for name, r in out["kernels"].items()
+            if r["bound_ms"] != rows[name]["bound_ms"]}
+    if diff:
+        fail(f"roofline bounds differ from the kernels line's (roofline, line): {diff}")
+    print(f"roofline: every bound equals the kernels line's ({sorted(out['kernels'])})", flush=True)
+    return out
+
+
+def phase_steal(batch, device: str = "cuda") -> dict:
+    """Cross-backend work stealing: a `BatchVerificationService` over a home
+    and one steal `TorchBackend` (crossover 1, both on `device`) takes a
+    bulk flood of STEAL_LANES lanes in STEAL_GROUP-lane groups, max_batch
+    STEAL_BUCKET. `pipeline.steals` must move, every mask must be the one
+    known by construction, and the two backends' card lanes must add up to
+    the lanes sent, with none on the host."""
+    import asyncio
+
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto.batch_service import BatchVerificationService
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.utils import metrics
+
+    M, K, S, expected = batch
+    n = min(STEAL_LANES, len(M))
+    backends = [TorchBackend(device=device, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK) for _ in range(2)]
+    steals = metrics.counter("pipeline.steals")
+    before = steals.value
+
+    async def flood():
+        svc = BatchVerificationService(backends[0], max_batch=STEAL_BUCKET, steal_backends=backends[1:])
+        calls = [svc.verify_group(M[lo:lo + STEAL_GROUP], [(PublicKey(k), Signature(s)) for k, s in
+                                                            zip(K[lo:lo + STEAL_GROUP], S[lo:lo + STEAL_GROUP])],
+                                  source="mempool", dedup=False)
+                 for lo in range(0, n, STEAL_GROUP)]
+        masks = await asyncio.gather(*calls)
+        return [b for m in masks for b in m], dict(svc.scheduler.stats)
+
+    t0 = time.perf_counter()
+    mask, stats = asyncio.run(flood())
+    secs = time.perf_counter() - t0
+    lanes = [b.stats["device_sigs"] for b in backends]
+    host = sum(b.stats["host_sigs"] for b in backends)
+    errors = []
+    if stats["steals"] <= 0 or steals.value - before != stats["steals"]:
+        errors.append(f"steals {stats['steals']}, pipeline.steals moved {steals.value - before}")
+    if mask != np.asarray(expected[:n]).tolist():
+        errors.append("a mask differs from the expected one")
+    if sum(lanes) != n or host:
+        errors.append(f"card lanes {lanes} (home, steal) for {n} sent, {host} on the host")
+    if errors:
+        fail(f"work stealing: {errors}")
+    print(f"work stealing: {n} lanes in {n // STEAL_GROUP} groups, {stats['buckets']} buckets, "
+          f"{stats['steals']} steals (pipeline.steals), card lanes home / steal {lanes}, masks as expected, "
+          f"{secs:.2f} s; both backends are on one card, so this checks the accounting only", flush=True)
+    return dict(stats=stats, lanes=lanes, seconds=secs)
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
@@ -4048,6 +4232,11 @@ def main() -> int:
     bench_runs.update(phase_bench_legs(args.seed))
     bench_launches = {label: r["launches"] for label, r in bench_runs.items()}
     port_committee = phase_port_committee(REPO / ".chip_smoke" / "port_committee")
+    t14 = time.perf_counter()
+    phase_latch_probe()
+    phase_roofline(main_path["sigs_per_s"], len(committee_path["table_keys"]), {**kernels, **committee_kernels})
+    phase_steal(main_path["batch"])
+    print(f"phase 14 (latch_probe, roofline, work stealing): {time.perf_counter() - t14:.1f} s", flush=True)
     node_launches = lambda name: {node: d.get(name, 0) for node, d in port_committee["launches"].items()}  # noqa: E731
 
     rows = []

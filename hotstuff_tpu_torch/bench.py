@@ -86,8 +86,13 @@ Deliberate departures from the reference:
   * `--aggregate-ab` builds its `CommitteeTable` on `--device`; the
     reference's substitution of the exact host scheme when its kernel is
     absent is not carried over.
-  * Not ported, and refused with an error: `--telemetry-port` (it needs
-    `utils/telemetry`, the scrape endpoint).
+  * `--telemetry-port PORT` serves the telemetry plane
+    (`utils/telemetry.py`, labelled `bench`, with the device timeline's
+    summary, a snapshot every 2 s) on 127.0.0.1:PORT from a thread of its
+    own for the life of the process, as the reference does, or until
+    `stop_telemetry()`; 0 picks a free port, which is printed on standard
+    error and kept in `TELEMETRY_PORT`. Unlike the reference, an endpoint
+    that fails to start raises.
 """
 
 from __future__ import annotations
@@ -100,6 +105,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -124,13 +130,14 @@ from .utils.serde import Writer
 # What the port does not carry of the reference's flags: each flag's dest, the
 # flag, the value refused (None: any value) and what it would need.
 REFUSED = {
-    "telemetry_port": ("--telemetry-port", None, "utils/telemetry"),
     "ingress_backend": ("--ingress-backend", "pure", "the reference's pure-Python verifier"),
     "sched_backend": ("--sched-backend", "pure", "the reference's pure-Python verifier"),
 }
 ROUTE_KEYS = ("host_batches", "host_sigs", "device_batches", "device_sigs")
 COMMITTEE_SIZES = (4, 10, 16, 64, 100)
 AB_ATTEMPTS = 3  # fixed, no early stop (`bench.py:885-896`)
+TELEMETRY_PORT: int | None = None  # the bound port of --telemetry-port
+_TELEMETRY_STOP = threading.Event()
 
 
 # --- workloads: byte for byte the reference's triples ---------------------------
@@ -696,6 +703,32 @@ def attach_timeline(payload: dict) -> None:
     payload["device_timeline"] = {k: s[k] for k in ("batches", "chunks", "span_s", "phase_s", "idle")}
 
 
+def start_telemetry(port: int) -> int:
+    """Serve the framed-JSON telemetry scrape endpoint on 127.0.0.1:`port`
+    for the life of the process (the protocol of `node.main run
+    --telemetry-port`), snapshotting every 2 s; returns the bound port."""
+    global TELEMETRY_PORT
+    from .utils import telemetry
+
+    _TELEMETRY_STOP.clear()
+    plane = telemetry.TelemetryPlane(label="bench", timeline_fn=timeline.summary)
+    TELEMETRY_PORT = telemetry.serve_in_thread(plane, port, snapshot_interval_s=2.0, stop=_TELEMETRY_STOP)
+    print(f"# telemetry scrape endpoint on 127.0.0.1:{TELEMETRY_PORT}", file=sys.stderr)
+    return TELEMETRY_PORT
+
+
+def stop_telemetry() -> None:
+    """Close the endpoint of `start_telemetry` and end its thread (a host
+    that runs `main` in process and goes on, as chip_smoke.py and the
+    tests do)."""
+    global TELEMETRY_PORT
+    _TELEMETRY_STOP.set()
+    for t in threading.enumerate():
+        if t.name == "telemetry-server":
+            t.join(5)
+    TELEMETRY_PORT = None
+
+
 def card(device: torch.device) -> dict:
     """`backend`, `device` and `power_limit_w` of the JSON line: the card's
     name and power limit (`nvidia-smi --query-gpu=name,power.limit`), or
@@ -772,9 +805,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--aggregate-ab", action="store_true",
                     help="entry-list QC against AggQC per committee size: wire bytes and verify wall")
     ap.add_argument("--agg-sizes", default="4,16,64", help="comma-separated committee sizes for --aggregate-ab")
-    for dest, (flag, value, needs) in REFUSED.items():
-        if value is None:
-            ap.add_argument(flag, dest=dest, default=None, help=f"not ported (needs {needs})")
+    ap.add_argument("--telemetry-port", type=int, default=None, metavar="PORT",
+                    help="serve the live telemetry scrape endpoint (framed JSON, the protocol of "
+                    "`node.main run --telemetry-port`) for the life of the process; 0 picks a free port")
     return ap
 
 
@@ -786,6 +819,8 @@ def main(argv: list[str] | None = None) -> dict:
         given = getattr(args, dest)
         if given is not None and value in (None, given):
             ap.error(f"{flag if value is None else f'{flag} {value}'} is not ported: it needs {needs}")
+    if args.telemetry_port is not None:
+        start_telemetry(args.telemetry_port)
     device = resolve_device(args.device)
     info = card(device)
 

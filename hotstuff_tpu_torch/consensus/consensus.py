@@ -3,7 +3,8 @@ wires the net receiver/sender, leader elector, mempool driver, synchronizer,
 and spawns the core state-machine actor.
 
 The port's copy of `hotstuff_tpu/consensus/consensus.py`, its imports
-rewritten to this package; round-robin election only.
+rewritten to this package; round-robin or region-aware election
+(`Parameters.region_aware_election`, consensus/leader.py).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..store import Store
 from ..utils.actors import channel, spawn
 from .config import Committee, Parameters
 from .core import Core
-from .leader import LeaderElector
+from .leader import LeaderElector, RegionAwareElector
 from .mempool_driver import MempoolDriver
 from .messages import decode_consensus_message
 from .reconfig import EpochManager, as_manager
@@ -64,14 +65,14 @@ class Consensus:
         certifying certificate, feeding the commit-proof serving plane
         (§5.5q).
 
-        Not ported, and refused: `Parameters.region_aware_election` (the
-        reference's elector reads the telemetry plane's region inference)
-        and `Parameters.aggregate_certs` (aggregate votes and timeouts need
-        an aggregate signer, which no node process supplies; inbound
-        AggQC/AggTC frames still decode, and fail verification, since no
-        aggregate key is registered)."""
-        if parameters.region_aware_election:
-            raise ValueError("region_aware_election is not ported (it needs the telemetry plane)")
+        `Parameters.region_aware_election` selects `RegionAwareElector`
+        over `overlay_regions` (consensus/leader.py); with no map, as in a
+        node process, its schedule is round-robin.
+
+        Not ported, and refused: `Parameters.aggregate_certs` (aggregate
+        votes and timeouts need an aggregate signer, which no node process
+        supplies; inbound AggQC/AggTC frames still decode, and fail
+        verification, since no aggregate key is registered)."""
         if parameters.aggregate_certs:
             raise ValueError("aggregate_certs is not ported (no aggregate signer in a node)")
         # NOTE: boot-time config echo; parsed by the benchmark harness.
@@ -94,7 +95,14 @@ class Consensus:
         )
         NetSender(network_tx, name="consensus-sender")
 
-        leader_elector = LeaderElector(epochs)
+        # Elector seam: region-aware placement reads the SAME region map
+        # the aggregation overlay trees by, so the vote-plane collector
+        # (rooted at get_leader(round+1)) and the leader co-locate.
+        leader_elector = (
+            RegionAwareElector(epochs, region_of=overlay_regions)
+            if parameters.region_aware_election
+            else LeaderElector(epochs)
+        )
         mempool_driver = MempoolDriver(mempool_channel)
         synchronizer = Synchronizer(
             name,

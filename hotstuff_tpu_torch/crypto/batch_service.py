@@ -35,10 +35,20 @@ built from it verifies nothing twice) and read `backend` (the active
 `CryptoBackend` of `backend.get_backend` when none was given, as in the
 reference) and `lane_stats`.
 
-Not ported: cross-backend stealing, the inline (virtual-time) dispatch
-mode, the anomaly watchdog's verify samples (its per-signature baseline
-misreads a sidecar's mix of large and small flushes as a regression),
-and a cache size other than the reference's default (65,536 triples).
+Cross-backend work stealing, as in the reference: `steal_backends` are
+sibling backends that a bulk bucket goes to when the home backend's
+`BULK_CONCURRENCY` slots are all in flight (`crypto/scheduler.py`,
+`pipeline.steals`). Critical dispatches and every flush of the legacy loop
+stay on the home backend. The reference widens its service-wide bound on
+concurrent dispatches to cover every backend's slots, and its inline mode
+turns stealing off; the port's scheduler path has neither that bound nor
+an inline mode, so the scheduler's per-backend accounting is the only
+bound.
+
+Not ported: the inline (virtual-time) dispatch mode, the anomaly
+watchdog's verify samples (its per-signature baseline misreads a
+sidecar's mix of large and small flushes as a regression), and a cache
+size other than the reference's default (65,536 triples).
 """
 
 from __future__ import annotations
@@ -147,9 +157,13 @@ class BatchVerificationService:
         backend: CryptoBackend | None = None,
         max_batch: int = 8192,
         use_scheduler: bool = True,
+        steal_backends: Sequence[CryptoBackend] = (),
     ) -> None:
         self._backend = backend
         self.max_batch = max_batch
+        # Backends 1.. of the scheduler's accounts: where bulk buckets go
+        # while every slot of the home backend (0) is in flight.
+        self._steal_backends: list[CryptoBackend] = list(steal_backends)
         self.dedup = VerifiedSigCache(DEDUP_CACHE_SIZE)
         self._queue: asyncio.Queue[_Group] = asyncio.Queue()  # the legacy loop's
         self._task: asyncio.Task | None = None
@@ -160,6 +174,7 @@ class BatchVerificationService:
                 max_batch=max_batch,
                 alignment_fn=self._bucket_alignment,
                 lane_stats=self.lane_stats,
+                n_backends=1 + len(self._steal_backends),
             )
             if use_scheduler
             else None
@@ -308,14 +323,17 @@ class BatchVerificationService:
 
     # -- dispatch ------------------------------------------------------------
 
-    def _spawn_dispatch(self, groups: list[_Group], total: int, urgent: bool) -> asyncio.Task:
-        return spawn(self._dispatch(groups, total, urgent), name="verify-dispatch")
+    def _spawn_dispatch(self, groups: list[_Group], total: int, urgent: bool, backend_idx: int = 0) -> asyncio.Task:
+        return spawn(self._dispatch(groups, total, urgent, backend_idx), name="verify-dispatch")
 
-    async def _dispatch(self, groups: list[_Group], total: int, urgent: bool) -> None:
+    async def _dispatch(self, groups: list[_Group], total: int, urgent: bool, backend_idx: int = 0) -> None:
         msgs = [m for g in groups for m in g.messages]
         keys = [k for g in groups for k in g.keys]
         sigs = [s for g in groups for s in g.signatures]
-        backend = self.backend
+        # backend_idx > 0 is a steal; committee routing still resolves per
+        # backend (a steal target without the committee takes the generic
+        # kernels).
+        backend = self.backend if backend_idx == 0 else self._steal_backends[backend_idx - 1]
         # Lanes of dedup=False groups neither hit nor enter the cache; a
         # flush with no cached group skips the scan.
         eligible = None if all(g.dedup for g in groups) else [g.dedup for g in groups for _ in range(len(g))]

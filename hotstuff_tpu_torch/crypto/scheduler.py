@@ -16,20 +16,26 @@ admission -> bucket -> dispatch loop:
   * **Continuous refill.** Bucket formation runs beside the bounded
     in-flight dispatches (`BULK_CONCURRENCY`): as one bucket dispatches,
     the next forms.
+  * **Cross-backend work stealing** (`n_backends > 1`). The owning service
+    may register sibling backends: each gets its own `BULK_CONCURRENCY`
+    in-flight account, and a bulk bucket dispatches to the first backend
+    with a free slot, home (0) preferred. A dispatch to any other backend
+    counts into `pipeline.steals`. Critical work always rides home. With
+    `n_backends == 1` the accounting and the dispatch hook's arity are
+    those of a scheduler without stealing.
 
 Only the consensus and mempool lanes are reachable from the sidecar: its
 wire carries the urgent bit alone, which `resolve_source` maps to those
 two. The other three classes are taken through `verify_group(source=...)`
-by in-process callers. The reference's cross-backend stealing
-(`n_backends`, `pipeline.steals`) is not ported: the port serves one
-backend.
+by in-process callers.
 
 The scheduler owns admission, per-lane queueing and bucket formation; the
 owning `BatchVerificationService` is the dispatch executor.
 
 Observability: per-lane queueing-delay histograms
 (`scheduler.queue_<lane>_s`), bucket and flush counters in the
-`scheduler.*` namespace, and a per-service `LaneStats` reservoir.
+`scheduler.*` namespace, `pipeline.steals`, and a per-service `LaneStats`
+reservoir, which the telemetry plane windows (`utils/telemetry.py`).
 
 No wall-clock reads (event-loop time only) and no threads of its own. The
 reference's virtual-time pace model (`pace_s_per_sig`) and its
@@ -114,6 +120,10 @@ def resolve_source(source: str | None, urgent: bool) -> SourceClass:
 RESOLUTION_S = 1e-6
 
 _M_SUBMITTED = metrics.counter("scheduler.submitted")
+# A bulk bucket dispatched to any backend but home (0); the pipeline.*
+# namespace, as the reference, since each backend's slots mirror its
+# dispatch pipeline's window.
+_M_STEALS = metrics.counter("pipeline.steals")
 _M_DISPATCHED = metrics.counter("scheduler.dispatched_groups")
 _M_BUCKETS = metrics.counter("scheduler.buckets")
 _M_CRITICAL = metrics.counter("scheduler.critical_dispatches")
@@ -141,7 +151,9 @@ def note_queue_delay(lane_stats: "LaneStats", source: str, queue_s: float) -> No
 
 class LaneStats:
     """Per-service per-lane queueing-delay reservoir: a rotating ring of
-    the last CAP samples per lane."""
+    the last CAP samples per lane, and a monotonic count of every sample
+    noted (`total`), which the telemetry plane's windows key on, so that a
+    window keeps seeing fresh samples after the ring rotates."""
 
     CAP = 65_536
 
@@ -149,12 +161,32 @@ class LaneStats:
         self._samples: dict[str, deque] = {
             name: deque(maxlen=self.CAP) for name in SOURCE_CLASSES
         }
+        self._total: dict[str, int] = {name: 0 for name in SOURCE_CLASSES}
 
     def note(self, lane: str, queue_s: float) -> None:
         ring = self._samples.get(lane)
         if ring is None:
             ring = self._samples.setdefault(lane, deque(maxlen=self.CAP))
         ring.append(queue_s)
+        self._total[lane] = self._total.get(lane, 0) + 1
+
+    def lanes(self) -> list[str]:
+        return list(self._samples)
+
+    def total(self, lane: str) -> int:
+        """Samples ever noted for the lane, immune to ring rotation."""
+        return self._total.get(lane, 0)
+
+    def tail(self, lane: str, n: int) -> list[float]:
+        """The most recent min(n, retained) samples, oldest first."""
+        ring = self._samples.get(lane)
+        if not ring or n <= 0:
+            return []
+        if n >= len(ring):
+            return list(ring)
+        out = [x for _, x in zip(range(n), reversed(ring))]
+        out.reverse()
+        return out
 
     def summary(self) -> dict[str, dict]:
         """{lane: {count, p50_ms, p99_ms, max_ms}} for lanes that saw work."""
@@ -192,16 +224,19 @@ class DeviceScheduler:
 
     `dispatch(groups, total, critical)` is the owning service's executor
     hook (`BatchVerificationService._spawn_dispatch`): it returns the
-    spawned task, whose completion frees a bulk slot. Groups need only
-    `.source`, `.t_submit`, `.t_dequeue` and `__len__`."""
+    spawned task, whose completion frees a bulk slot. With `n_backends >
+    1` a bulk bucket's call carries a fourth argument, the index of the
+    backend it goes to. Groups need only `.source`, `.t_submit`,
+    `.t_dequeue` and `__len__`."""
 
     def __init__(
         self,
-        dispatch: Callable[[list, int, bool], "asyncio.Task"],
+        dispatch: Callable[..., "asyncio.Task"],
         *,
         max_batch: int = 8192,
         alignment_fn: Callable[[], int] | None = None,
         lane_stats: LaneStats | None = None,
+        n_backends: int = 1,
     ) -> None:
         self._dispatch = dispatch
         self.max_batch = max_batch
@@ -211,17 +246,25 @@ class DeviceScheduler:
         self._critical = [c.name for c in ordered if c.preemptive]
         self._batched = [c.name for c in ordered if not c.preemptive]
         self.lanes: dict[str, _Lane] = {c.name: _Lane(c) for c in ordered}
-        self._inflight = 0  # bulk buckets dispatched and not yet done
+        # One in-flight account of bulk buckets per backend; 0 is home.
+        self.n_backends = max(1, n_backends)
+        self._inflight = [0] * self.n_backends
         self._wake: asyncio.Event | None = None  # bound lazily to the loop
         self.stats = {
             "submitted": 0,
             "buckets": 0,
             "critical_dispatches": 0,
             "preempt_closes": 0,
+            "steals": 0,
         }
 
-    def _bulk_slot_free(self) -> bool:
-        return self._inflight < BULK_CONCURRENCY
+    def _pick_backend(self) -> int | None:
+        """The first backend with a free bulk slot, home (0) preferred;
+        None while every backend's slots are taken."""
+        for idx in range(self.n_backends):
+            if self._inflight[idx] < BULK_CONCURRENCY:
+                return idx
+        return None
 
     # -- admission -----------------------------------------------------------
 
@@ -310,10 +353,10 @@ class DeviceScheduler:
 
     # -- dispatch loop -------------------------------------------------------
 
-    def note_bulk_done(self, _task=None) -> None:
-        """Done-callback of a bulk dispatch: frees its slot and wakes the
-        loop (continuous refill)."""
-        self._inflight -= 1
+    def note_bulk_done(self, _task=None, backend: int = 0) -> None:
+        """Done-callback of a bulk dispatch: frees its backend's slot and
+        wakes the loop (continuous refill)."""
+        self._inflight[backend] -= 1
         if self._wake is not None:
             self._wake.set()
 
@@ -340,9 +383,11 @@ class DeviceScheduler:
             now = loop.time()
             # 1. Critical lane first; remember whether it preempted.
             preempted = self._ship_critical(now)
-            # 2. One batched bucket, if a bulk slot is free and a close
-            #    condition holds.
-            if self._bulk_slot_free():
+            # 2. One batched bucket, if a backend has a free bulk slot and
+            #    a close condition holds; home preferred, any other backend
+            #    is a steal.
+            target = self._pick_backend()
+            if target is not None:
                 formed = self.form_bucket(now, force=preempted)
                 if formed is not None:
                     bucket, reason = formed
@@ -361,9 +406,16 @@ class DeviceScheduler:
                         _M_GRID_FLUSHES.inc()
                     else:
                         _M_DEADLINE_FLUSHES.inc()
-                    self._inflight += 1
-                    task = self._dispatch(bucket, total, False)
-                    task.add_done_callback(self.note_bulk_done)
+                    self._inflight[target] += 1
+                    if target != 0:
+                        self.stats["steals"] += 1
+                        _M_STEALS.inc()
+                    if self.n_backends == 1:
+                        task = self._dispatch(bucket, total, False)
+                        task.add_done_callback(self.note_bulk_done)
+                    else:
+                        task = self._dispatch(bucket, total, False, target)
+                        task.add_done_callback(lambda t, b=target: self.note_bulk_done(t, b))
                     continue
             # 3. Nothing dispatchable: wait for new work, a freed bulk slot,
             #    or the earliest pending deadline.
@@ -372,7 +424,7 @@ class DeviceScheduler:
                 continue  # raced a critical submit against the clear
             deadline = self._next_deadline()
             timeout = None
-            if deadline is not None and self._bulk_slot_free():
+            if deadline is not None and self._pick_backend() is not None:
                 timeout = max(deadline - loop.time(), RESOLUTION_S)
             try:
                 await asyncio.wait_for(self._wake.wait(), timeout)

@@ -3,7 +3,7 @@
 Subcommands:
   * keys --filename F                       -- generate a keypair file
   * run --keys K --committee C --store S [--parameters P]
-        [--crypto torch|cpu|remote] [--device cuda|cpu]
+        [--crypto torch|cpu|remote] [--device cuda|cpu] [--telemetry-port PORT]
 
 The port's copy of `hotstuff_tpu/node/main.py`. `--crypto` selects the
 `CryptoBackend` every batch verification of the node goes through:
@@ -26,11 +26,18 @@ included), with the kernel launch counts of `ops/_build.launches()` under
 `launches`; `--trace-out` writes the flight recorder's dump, and arms the
 anomaly watchdog's dumps beside it. A `METRICS {json}` line is logged
 every `HOTSTUFF_METRICS_INTERVAL` seconds (default 5; 0 disables).
+`--telemetry-port PORT` serves the live telemetry plane
+(`utils/telemetry.py`) on 0.0.0.0:PORT, as the reference node does: a
+delta snapshot of the registry every 5 s, the SLO burn evaluation over
+the node's `LaneStats`, the device timeline's summary and the per-peer
+link ledger, scraped with `telemetry.scrape_sync` or the reference's
+`tools/telemetry_dash.py --poll`; the plane's last snapshots ride every
+watchdog dump.
 
 Refused with an error, not ported: the reference's `--crypto tpu` (use
 `torch`), `--ingress` (and `ingress_enabled` in the parameters: the
-ingress server and commit proofs), `--telemetry-port` (the telemetry
-plane), the `deploy` subcommand and `HOTSTUFF_PROFILE`.
+ingress server and commit proofs), the `deploy` subcommand and
+`HOTSTUFF_PROFILE`.
 """
 
 from __future__ import annotations
@@ -103,7 +110,35 @@ async def _run_node(args) -> None:
     metrics.reset()
     _build.reset_launches()
     node.boot()
+    if args.telemetry_port is not None:
+        start_telemetry(node, args.keys, args.telemetry_port)
     await node.analyze_block()
+
+
+def start_telemetry(node, keys_path: str, port: int):
+    """The node's live telemetry plane and its scrape endpoint on
+    0.0.0.0:`port`, wired as the reference node wires them: the keys-file
+    stem as the label, the node's `LaneStats`, the device timeline's
+    summary, the per-peer link ledger, the watchdog's dump context; the
+    server and the snapshot loop spawned on the running loop. Returns the
+    plane and its server (bound on the loop's next pass)."""
+    from ..network import net
+    from ..ops import timeline
+    from ..utils import telemetry
+    from ..utils.actors import spawn
+
+    plane = telemetry.TelemetryPlane(
+        label=os.path.splitext(os.path.basename(keys_path))[0],
+        lane_stats=node.verification_service.lane_stats,
+        timeline_fn=timeline.summary,
+        # One node a process, so the default vantage is this node's links.
+        peers_fn=net.peer_snapshot,
+    )
+    plane.attach_watchdog()
+    server = telemetry.TelemetryServer(("0.0.0.0", port), plane)
+    server.launch()
+    spawn(plane.run(), name="telemetry-plane")
+    return plane, server
 
 
 def metrics_dump() -> dict:
@@ -150,7 +185,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p_run.add_argument("--ingress", action="store_true", help="not ported: refused")
     p_run.add_argument("--no-warmup", action="store_true",
                        help="skip running the kernels before joining consensus")
-    p_run.add_argument("--telemetry-port", type=int, default=None, metavar="PORT", help="not ported: refused")
+    p_run.add_argument("--telemetry-port", type=int, default=None, metavar="PORT",
+                       help="serve the live telemetry plane (framed JSON scrapes) on this port")
     p_run.add_argument("--metrics-out", default=None,
                        help="write the metrics dump, with the kernel launch counts, to this path on exit/SIGTERM")
     p_run.add_argument("--trace-out", default=None,
@@ -165,8 +201,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.command == "run":
         if args.ingress:
             parser.error("--ingress is not ported (the ingress server and commit proofs)")
-        if args.telemetry_port is not None:
-            parser.error("--telemetry-port is not ported (the telemetry plane)")
         if args.crypto_sharded and (args.crypto != "torch" or args.device != "cuda"):
             parser.error("--crypto-sharded requires --crypto torch on --device cuda")
         if args.device != "cuda" and args.crypto != "torch":

@@ -5,9 +5,10 @@ application layer stub the reference also has, node/src/node.rs:95-99).
 
 The port's copy of `hotstuff_tpu/node/node.py`, its imports rewritten to
 this package. The client ingress (`ingress_enabled`) and its commit-proof
-registry, aggregate certificates (`aggregate_certs`) and region-aware
-election (`region_aware_election`) are not ported: a parameters file that
-enables one of them is refused.
+registry and aggregate certificates (`aggregate_certs`) are not ported: a
+parameters file that enables one of them is refused. Region-aware
+election (`region_aware_election`) is accepted; a node passes no region
+map, so its schedule is round-robin, as the reference's.
 """
 
 from __future__ import annotations
@@ -41,9 +42,8 @@ class Node:
         )
         if self.parameters.mempool.ingress_enabled:
             raise ConfigError("ingress_enabled is not ported (the ingress server and commit proofs)")
-        for option in ("aggregate_certs", "region_aware_election"):
-            if getattr(self.parameters.consensus, option):
-                raise ConfigError(f"{option} is not ported")
+        if self.parameters.consensus.aggregate_certs:
+            raise ConfigError("aggregate_certs is not ported")
         self.store_path = store_path
         self.commit_channel = channel()
         # Set by boot(): the node's shared BatchVerificationService.

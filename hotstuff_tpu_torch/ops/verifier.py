@@ -113,6 +113,12 @@ _M_STAGE = metrics.histogram("verifier.stage_s")
 _M_UPLOAD = metrics.histogram("verifier.upload_s")
 _M_DISPATCH = metrics.histogram("verifier.dispatch_s")
 _M_READBACK = metrics.histogram("verifier.readback_s")
+# One sample per non-empty batch of either path, the latch's retry inside
+# `e2e_s` (the telemetry plane's verify.e2e SLO reads it).
+_M_E2E = metrics.histogram("verifier.e2e_s")
+_M_BATCH_SIZE = metrics.histogram("verifier.batch_size", metrics.SIZE_BUCKETS)
+_M_SIGS = metrics.counter("verifier.sigs")
+_M_BATCHES = metrics.counter("verifier.batches")
 _M_CHUNKS = metrics.counter("verifier.chunks")
 _M_PAD_LANES = metrics.counter("verifier.pad_lanes")
 _M_DH_FALLBACKS = metrics.counter("verifier.device_hash_fallbacks")
@@ -228,9 +234,16 @@ class Ed25519TorchVerifier:
         n = len(messages)
         if n == 0:
             return np.empty(0, bool)
+        _M_BATCHES.inc()
+        _M_SIGS.inc(n)
+        _M_BATCH_SIZE.record(n)
         _M_COMMITTEE_BATCHES.inc()
         _M_COMMITTEE_SIGS.inc(n)
-        indices = list(indices)
+        with metrics.span(_M_E2E):
+            return self._verify_committee(ct, messages, list(indices), signatures)
+
+    def _verify_committee(self, ct: ed.CommitteeTable, messages, indices: list[int], signatures) -> np.ndarray:
+        n = len(messages)
 
         def run(device_hash: bool) -> np.ndarray:
             def stage(lo: int, hi: int, out: np.ndarray) -> dict:
@@ -261,6 +274,14 @@ class Ed25519TorchVerifier:
         n = len(messages)
         if n == 0:
             return np.empty(0, bool)
+        _M_BATCHES.inc()
+        _M_SIGS.inc(n)
+        _M_BATCH_SIZE.record(n)
+        with metrics.span(_M_E2E):
+            return self._verify_generic(messages, keys, signatures)
+
+    def _verify_generic(self, messages, keys, signatures) -> np.ndarray:
+        n = len(messages)
         if not self.packed:
             out = np.empty(n, bool)
             for lo in range(0, n, self.max_bucket):

@@ -7,7 +7,8 @@ loop (`ops/verifier.py`, `ops/pipeline.py`, `ops/timeline.py`) and the
 BLS committee table (`ops/bls.py`: `bls.table_builds`, `bls.aggregations`,
 `bls.points_aggregated`; the reference's `bls.host_fallbacks` has no
 counterpart, since the port has no host fallback) and `TorchBackend`'s
-routing (`crypto.*`, `verifier.crossover_fallbacks`, ...) record into, and
+routing (`crypto.*`, `verifier.crossover_fallbacks`, ...) and the
+telemetry plane (`utils/telemetry.py`: `telemetry.*`) record into, and
 what reads and clears it: `dump`, `snapshot_json` and `write_json` (the
 bench's `--metrics-out`, in the reference's layout,
 `hotstuff_tpu/utils/metrics.py:354-386`) and `reset`.
@@ -19,7 +20,9 @@ bench's `--metrics-out`, in the reference's layout,
   * `span(histogram)` — a context manager timing its block into a
     histogram.
   * `percentile(values, q)` — the nearest-rank percentile over raw samples
-    (the scheduler's `LaneStats`, the timeline's idle gaps).
+    (the scheduler's `LaneStats`, the timeline's idle gaps);
+    `bucket_percentile` — the interpolated one over bucket counts (the
+    histograms' own, and the telemetry plane's windowed percentiles).
 
 Metric names are the reference's (`scheduler.*`, `verifier.*`,
 `pipeline.*`, `timeline.*`, `bls.*`), so a dump of either package reads the
@@ -63,6 +66,7 @@ __all__ = [
     "histogram",
     "dump",
     "emit_snapshot",
+    "bucket_percentile",
     "percentile",
     "snapshot_json",
     "write_json",
@@ -95,7 +99,7 @@ def percentile(values: Sequence[float], q: float) -> float:
     return ordered[idx]
 
 
-def _bucket_percentile(
+def bucket_percentile(
     bounds: Sequence[float], counts: Sequence[int], total: int, lo: float, hi: float, q: float
 ) -> float:
     """Interpolated percentile over bucket counts, clamped to the observed
@@ -191,7 +195,7 @@ class Histogram:
         if total == 0:
             return {"count": 0, "sum": 0.0, "min": 0.0, "max": 0.0,
                     "mean": 0.0, "p50": 0.0, "p95": 0.0, "p99": 0.0}
-        pct = lambda q: _bucket_percentile(self.bounds, counts, total, lo, hi, q)
+        pct = lambda q: bucket_percentile(self.bounds, counts, total, lo, hi, q)
         return {"count": total, "sum": s, "min": lo, "max": hi, "mean": s / total,
                 "p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99)}
 

@@ -18,16 +18,18 @@ trace id and a frame trailer of either package read the same:
     elsewhere).
   * **Anomaly watchdog** (`WATCHDOG`): dumps the ring when a round stalls
     past N timeouts (the consensus core), egress backpressure is
-    sustained (the payload maker), or an epoch handoff breaks its
-    contract (the epoch manager). `node/main.py --trace-out` arms its
-    file-writing hook.
+    sustained (the payload maker), an epoch handoff breaks its contract
+    (the epoch manager), or an SLO burns its error budget (the telemetry
+    plane, `note_slo_burn`). `node/main.py --trace-out` arms its
+    file-writing hook. Context hooks (`add_context_hook`) add sections to
+    every auto-dump: a telemetry plane's `attach_watchdog` registers one,
+    so each dump carries the plane's last snapshots.
 
 Not copied: the ring size from `HOTSTUFF_TRACE_RING`; the watchdog's
-verify-regression trigger (`note_verify`, `HOTSTUFF_TRACE_P99_FACTOR`)
-and the telemetry plane's hooks (`add_context_hook`, `note_slo_burn`),
+verify-regression trigger (`note_verify`, `HOTSTUFF_TRACE_P99_FACTOR`),
 which nothing of the port feeds; and what only the chaos runner calls
 (per-node filters of `events` / `dump` / `write_json`, an explicit
-`record` label, `remove_dump_hook`).
+`record` label).
 """
 
 from __future__ import annotations
@@ -104,6 +106,8 @@ EVENT_KINDS: frozenset[str] = frozenset(STAGES) | {
     "backpressure.off",
     "watchdog.round_stall",
     "watchdog.backpressure",
+    "watchdog.slo_burn",
+    "slo.clear",
     "dump",
 }
 
@@ -383,10 +387,14 @@ class AnomalyWatchdog:
       * `note_handoff_violation(...)` — an epoch handoff that broke its
         contract, from the epoch manager.
 
+      * `note_slo_burn(slo, burn_short, burn_long)` — an SLO burn-rate
+        alert from the telemetry plane (`utils/telemetry.py`).
+
     Each reason fires at most once per `cooldown_s`; firing records a
     `watchdog.<reason>` event and invokes every registered dump hook
     with (reason, detail). `node/main.py` installs a file-writing hook
-    next to `--trace-out`.
+    next to `--trace-out`; its dumps carry the sections of every context
+    hook under `context`.
     """
 
     def __init__(
@@ -406,6 +414,9 @@ class AnomalyWatchdog:
             env("HOTSTUFF_TRACE_COOLDOWN_S", "30")
         )
         self._hooks: list[Callable[[str, dict], None]] = []
+        # Callables returning sections merged into every auto-dump (a
+        # telemetry plane's last snapshots).
+        self._context_hooks: list[Callable[[], dict]] = []
         self._last_fired: dict[str, float] = {}
         self._bp_since: float | None = None
         self.triggers: list[dict] = []
@@ -414,6 +425,39 @@ class AnomalyWatchdog:
 
     def add_dump_hook(self, fn: Callable[[str, dict], None]) -> None:
         self._hooks.append(fn)
+
+    def remove_dump_hook(self, fn: Callable[[str, dict], None]) -> None:
+        try:
+            self._hooks.remove(fn)
+        except ValueError:
+            pass
+
+    def add_context_hook(self, fn: Callable[[], dict]) -> None:
+        self._context_hooks.append(fn)
+
+    def remove_context_hook(self, fn: Callable[[], dict]) -> None:
+        try:
+            self._context_hooks.remove(fn)
+        except ValueError:
+            pass
+
+    def context(self) -> dict:
+        """The sections of every context hook, merged (dict-valued keys
+        merge shallowly, so several planes each add under 'telemetry'); a
+        failing hook is skipped, never the dump."""
+        out: dict = {}
+        for fn in list(self._context_hooks):
+            try:
+                d = fn() or {}
+            except Exception as e:
+                log.warning("watchdog context hook failed: %r", e)
+                continue
+            for k, v in d.items():
+                if isinstance(v, dict) and isinstance(out.get(k), dict):
+                    out[k].update(v)
+                else:
+                    out[k] = v
+        return out
 
     def set_auto_dump(self, path_prefix: str) -> Callable[[str, dict], None]:
         """Install (and return) a hook writing `<prefix>.watchdog-<reason>-<n>.json`
@@ -426,6 +470,9 @@ class AnomalyWatchdog:
             try:
                 d = RECORDER.dump()
                 d["watchdog"] = {"reason": reason, **detail}
+                ctx = self.context()
+                if ctx:
+                    d["context"] = ctx  # e.g. the telemetry plane's last snapshots
                 with open(path, "w") as f:
                     json.dump(d, f, indent=2, sort_keys=True)
                     f.write("\n")
@@ -485,6 +532,14 @@ class AnomalyWatchdog:
             )
             self._bp_since = None
 
+    def note_slo_burn(self, slo: str, burn_short: float, burn_long: float) -> None:
+        """Both of an SLO's evaluation windows burn error budget past the
+        plane's factor: fires the `slo_burn` reason under the usual
+        cooldown (the plane keeps each SLO's fired/cleared state)."""
+        if not _enabled:
+            return
+        self._trigger("slo_burn", slo=slo, burn_short=round(burn_short, 3), burn_long=round(burn_long, 3))
+
     def note_handoff_violation(
         self, epoch: int, activation_round: int, trigger_round: int
     ) -> None:
@@ -506,6 +561,7 @@ class AnomalyWatchdog:
 
     def reset(self) -> None:
         self._last_fired.clear()
+        self._context_hooks = []
         self._bp_since = None
         self.triggers = []
 

@@ -124,12 +124,27 @@ def test_without_a_card_and_without_device_cpu_main_raises(monkeypatch):
         bench.main(["--batch", "8"])
 
 
-@pytest.mark.parametrize("flag", [["--telemetry-port", "0"]])
-def test_legs_left_out_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        bench.main(["--device", "cpu"] + flag)
-    assert e.value.code == 2
-    assert f"{flag[0]} is not ported" in capsys.readouterr().err
+def test_telemetry_port_serves_the_plane(capsys):
+    """`--telemetry-port 0` serves the telemetry plane on a free port for
+    the run, which the port's and the reference's `scrape_sync` both read;
+    `stop_telemetry` closes it."""
+    from hotstuff_tpu.utils import telemetry as ref_telemetry
+    from hotstuff_tpu_torch.utils import telemetry
+
+    try:
+        line = bench.main(["--device", "cpu", "--ingress", "--ingress-duration", "0.2", "--ingress-rate", "20",
+                           "--telemetry-port", "0"])
+        port = bench.TELEMETRY_PORT
+        assert f"# telemetry scrape endpoint on 127.0.0.1:{port}" in capsys.readouterr().err
+        for scrape_sync in (telemetry.scrape_sync, ref_telemetry.scrape_sync):
+            dump = scrape_sync(("127.0.0.1", port))
+            assert dump["kind"] == "telemetry" and dump["node"] == "bench" and dump["lanes"] == {}
+            assert isinstance(dump["device"], dict)
+    finally:
+        bench.stop_telemetry()
+    assert line["backend"] == "cpu" and bench.TELEMETRY_PORT is None
+    with pytest.raises(OSError):
+        telemetry.scrape_sync(("127.0.0.1", port), timeout=2.0)
 
 
 @pytest.mark.parametrize("flag", ["--ingress-backend", "--sched-backend"])

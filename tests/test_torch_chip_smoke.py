@@ -688,6 +688,7 @@ def test_phase_bench_on_cpu(monkeypatch, capsys):
     assert [r["route"] for r in rows] == ["openssl", "openssl", "card"]
     text = capsys.readouterr().out
     assert "bench committee scale| committee  quorum" in text and "phase 11 (the port's bench): 2 runs" in text
+    assert "bench committee cache on: telemetry scrape of 127.0.0.1 ok" in text and bench.TELEMETRY_PORT is None
 
 
 def test_phase_12_gates():

@@ -32,6 +32,8 @@ import tempfile
 from hotstuff_tpu_torch.node import main as node_main
 with tempfile.TemporaryDirectory() as tmp:
     node_main.main(["keys", "--filename", tmp + "/key.json"])
+from hotstuff_tpu_torch.utils import telemetry
+telemetry.default_slos()  # its lazy import of the scheduler
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "hotstuff_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -58,6 +60,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.crypto.aggsig", "hotstuff_tpu_torch.ops.bit_ladder",
                 "hotstuff_tpu_torch.ops.field12", "hotstuff_tpu_torch.tune_device",
                 "hotstuff_tpu_torch.bench", "hotstuff_tpu_torch.utils.serde", "hotstuff_tpu_torch.utils.tracing",
+                "hotstuff_tpu_torch.utils.telemetry", "hotstuff_tpu_torch.latch_probe", "hotstuff_tpu_torch.roofline",
                 "hotstuff_tpu_torch.consensus", "hotstuff_tpu_torch.consensus.messages",
                 "hotstuff_tpu_torch.ingress", "hotstuff_tpu_torch.ingress.messages",
                 "hotstuff_tpu_torch.ingress.admission", "hotstuff_tpu_torch.ingress.loadgen",

@@ -160,17 +160,18 @@ def test_mixed_committee_commits_the_same_blocks_over_the_aggregation_overlay(ru
     assert metrics.REGISTRY.counter("agg.bundles_sent").value > before
 
 
-@pytest.mark.parametrize("option", [{"leader_collector": True}, {"probe_interval_ms": 100}], ids=lambda o: next(iter(o)))
+@pytest.mark.parametrize("option", [{"leader_collector": True}, {"probe_interval_ms": 100},
+                                    {"region_aware_election": True}], ids=lambda o: next(iter(o)))
 def test_mixed_committee_commits_the_same_blocks_with_an_option_on(run_async, base_port, option):
     """The same with the rest of the consensus options that are off by
     default: votes collected at the round's own leader, which hands the QC
-    to the next; round-trip probes between the nodes."""
+    to the next; round-trip probes between the nodes; region-aware
+    election, whose schedule with no region map is round-robin in both
+    packages."""
     _mixed_committee(run_async, base_port, **option)
 
 
-@pytest.mark.parametrize("section, option", [
-    ("consensus", "aggregate_certs"), ("consensus", "region_aware_election"), ("mempool", "ingress_enabled"),
-])
+@pytest.mark.parametrize("section, option", [("consensus", "aggregate_certs"), ("mempool", "ingress_enabled")])
 def test_node_refuses_parameters_that_are_not_ported(tmp_path, section, option):
     """A parameters file that turns on an option the port leaves out stops
     the node before it boots; `Consensus.run` refuses the consensus ones."""
@@ -310,7 +311,7 @@ def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
 
 @pytest.mark.parametrize("argv, said", [
     (["run", "--ingress"], "--ingress is not ported"),
-    (["run", "--telemetry-port", "9000"], "--telemetry-port is not ported"),
+    (["run", "--crypto", "cpu", "--device", "cpu"], "--device applies to --crypto torch only"),
     (["run", "--crypto", "cpu", "--crypto-sharded"], "--crypto-sharded requires --crypto torch"),
     (["run", "--crypto", "tpu"], "invalid choice: 'tpu'"),
     (["deploy", "--nodes", "4"], "deploy subcommand is not ported"),
@@ -323,3 +324,40 @@ def test_node_refuses_what_is_not_ported(argv, said, capsys):
     with pytest.raises(SystemExit) as exit_:
         node_main.parse_args(argv)
     assert exit_.value.code == 2 and said in capsys.readouterr().err
+
+
+def test_node_serves_its_telemetry_plane(run_async):
+    """`run --telemetry-port` is accepted, and the plane the node starts
+    (its keys-file stem as the label, its service's lanes, the device
+    timeline, the peer ledger, the watchdog's dump context) answers the
+    reference's scrape over localhost TCP, on the reference's wire."""
+    import types
+
+    from hotstuff_tpu.utils import telemetry as ref_telemetry
+    from hotstuff_tpu_torch.node import main as node_main
+    from hotstuff_tpu_torch.utils import tracing
+
+    args = node_main.parse_args(["run", "--keys", "k", "--committee", "c", "--store", "s", "--telemetry-port", "0"])
+    assert args.telemetry_port == 0
+
+    async def body():
+        service = BatchVerificationService(CpuBackend())
+        service.lane_stats.note("consensus", 0.001)
+        node = types.SimpleNamespace(verification_service=service)
+        plane, server = node_main.start_telemetry(node, "keys/node-3.json", 0)
+        try:
+            for _ in range(500):  # the server binds on the loop's next pass
+                if server._server is not None:
+                    break
+                await asyncio.sleep(0.01)
+            plane.snapshot(1.0)
+            assert tracing.WATCHDOG.context()["telemetry"]["node-3"] == plane.snapshots()
+            return await ref_telemetry.scrape(("127.0.0.1", server.port))
+        finally:
+            plane.detach_watchdog()
+            server._server.close()
+
+    dump = run_async(body(), timeout=30)
+    assert dump["kind"] == "telemetry" and dump["node"] == "node-3"
+    assert dump["lanes"]["consensus"]["count"] == 1 and len(dump["snapshots"]) == 1
+    assert isinstance(dump["device"], dict) and isinstance(dump["peers"], dict)
