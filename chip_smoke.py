@@ -15,10 +15,12 @@ caught:
      `decompress_table` (raw limbs and valid, on random and special keys),
      K1 `ladder` (raw limbs) and K4 `compress_eq` (the mask, on
      lambda-scaled, identity, non-canonical-R and invalid lanes) also at
-     every width of WIDTHS (1, 7, 43, 128, 1,000), all three timed at 128
+     every width of WIDTHS (1, 7, 43, 128, 1,000) and of NODE_BUCKETS (256,
+     512, 1,024, 2,048, a node's bulk buckets), all three timed at 128
      lanes beside 4,096; K2 `h_digits` at every width too (the 16-byte
-     tile path at 128 and 4,096, the byte-wide path at the others and on
-     rows at a misaligned address), timed at 128 lanes beside 4,096;
+     tile path at 128, NODE_BUCKETS and 4,096, the byte-wide path at the
+     others and on rows at a misaligned address), timed at 128 lanes
+     beside 4,096;
      then K2's reduction alone (`hs_reduce_mod_l`, a test entry) against
      `reduce_mod_l` and Python ints on the edge values and the 4,096-value
      sweep of tests/test_torch_sha512.py;
@@ -282,10 +284,37 @@ caught:
      both on cuda:0, takes a 4,096-lane bulk flood: `pipeline.steals`
      must move, every mask must be the expected one, and the backends'
      card lanes must add up to the lanes sent (one card: the accounting
-     only).
+     only);
+ 15. the port's client ingress and commit proofs: four port nodes as in
+     phase 13 (`--crypto torch --crypto-crossover 1`, keys written in
+     process), their parameters with `ingress_enabled`
+     (INGRESS_NODE_PARAMS), front ports whose ingress (+1,000) and proof
+     (+2,000) ports are free too; then two legs of `python -m
+     hotstuff_tpu_torch.loadgen` against node 0's ingress port, each in
+     processes of its own (INGRESS_LEGS: a flash curve, 5x the rate in
+     the middle third, 10 s, 8 clients, 512 B; leg A 100 tx/s with
+     `--proofs`, leg B 5,000 tx/s over `--procs 4`), INGRESS_SETTLE_S
+     after each. Every run must exit 0 with nothing unresolved and no
+     transport error, offered = accepted + shed + rejected, no valid
+     signature rejected (`ingress.rejected_sigs` 0 on every node), and in
+     leg A every accepted transaction's proof served and bound; no node
+     may count `proofs.cert_mismatch`; every node commits with equal
+     digests; each node's dump passes phase 13's lanes and launches
+     check, and node 0's shows verified client signatures and K2, K3, K1
+     and K4 launched. Each distinct certificate of leg A
+     (`--proofs-out`) is then checked fully by `CommitProof.verify`
+     under a `TorchBackend` on the card and under OpenSSL: the verdicts
+     must be equal and all pass, and a copy with a flipped payload digest
+     and one with a flipped vote signature bit must fail on both. Prints
+     each leg's counts, committed tx/s (the commits stamped from the
+     curve's start to the end of the settle, over that window), client and proof
+     latency p50 / p99, `proof_bytes_max` and how long after the curve's
+     end its last answer came (`answer_tail_s`, against the generator's
+     LOADGEN_GRACE_S), and each node's lanes, launches and
+     `ingress.*` / `proofs.*` counters (the rows' `ingress_node_launches`).
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes;
-phase 13 the port's). The bound column's model and constants come from
+phases 13 and 15 the port's). The bound column's model and constants come from
 `hotstuff_tpu_torch/roofline.py`.
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script.
@@ -409,10 +438,15 @@ def phase_build() -> float:
 # Widths the verifier ships to the ladders: one vote, a few, a quorum of 43,
 # `min_bucket`, a ragged width, a full chunk. Cut to LANES.
 WIDTHS = (1, 7, 43, 128, 1000, 4096)
+# A node's bulk buckets above `min_bucket` (doubling up to the chunk): the
+# widths at which phases 13 and 15's nodes launch the generic kernels, whose
+# scheduler closes bulk buckets at multiples of 128 lanes. Their committee
+# kernels take certificates of a few votes, one bucket of 128.
+NODE_BUCKETS = (256, 512, 1024, 2048)
 
 
-def _widths() -> list[int]:
-    return [w for w in WIDTHS if w < LANES] + [LANES]
+def _widths(extra=()) -> list[int]:
+    return sorted({w for w in WIDTHS + tuple(extra) if w < LANES}) + [LANES]
 
 
 def _cut(t, w: int):
@@ -505,7 +539,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         digits = [(hv >> (4 * d)) & 15 for d in range(64)]
         if hd_full[:, i].tolist() != digits:
             fail(f"K2 h_digits lane {i} differs from hashlib")
-    for w in _widths()[:-1]:
+    for w in _widths(NODE_BUCKETS)[:-1]:
         args = (_cut(r, w), _cut(a, w), _cut(m, w))
         if not torch.equal(sha512.h_digits(*args), sha512.h_digits_plain(*args)):
             fail(f"K2 h_digits differs from its plain version at width {w}")
@@ -517,7 +551,7 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
     w_small = min(128, LANES)
     small = (_cut(r, w_small), _cut(a, w_small), _cut(m, w_small))
     ms, ms_small = queued_ms(lambda: sha512.h_digits(r, a, m), 20), queued_ms(lambda: sha512.h_digits(*small), 20)
-    print(f"K2: digits identical to the plain version at widths {_widths()} and at a misaligned address; "
+    print(f"K2: digits identical to the plain version at widths {_widths(NODE_BUCKETS)} and at a misaligned address; "
           f"{ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["h_digits"] = dict(
         ms=ms, plain_ms=plain_ms,
@@ -540,14 +574,14 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
     err = _max_abs(table, ptable)
     if err != 0:
         fail(f"K3 table differs from its plain version in raw limbs (max |diff| {err})")
-    for w in _widths()[:-1]:
+    for w in _widths(NODE_BUCKETS)[:-1]:
         got, want = ed.decompress_table(_cut(keys, w)), ed.decompress_table_plain(_cut(keys, w))
         if not all(torch.equal(g, p) for g, p in zip(got, want)):
             fail(f"K3 decompress_table differs from its plain version at width {w}")
     small = _cut(keys, w_small)
     ms, ms_small = queued_ms(lambda: ed.decompress_table(keys), 20), queued_ms(lambda: ed.decompress_table(small), 20)
     print(f"K3: {int(valid.sum())}/{LANES} random+special keys decompress; raw limbs and valid identical "
-          f"to the plain version at widths {_widths()}; {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
+          f"to the plain version at widths {_widths(NODE_BUCKETS)}; {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
           flush=True)
     results["decompress_table"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
@@ -565,14 +599,14 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
     err = _max_abs(point, ppoint)
     if err != 0:
         fail(f"K1 ladder differs from its plain version (max |diff| {err})")
-    for w in _widths()[:-1]:
+    for w in _widths(NODE_BUCKETS)[:-1]:
         args = (_cut(sd, w), _cut(hd, w), _cut(table, w))
         if not torch.equal(ladder.ladder(*args), ladder.ladder_plain(*args)):
             fail(f"K1 ladder differs from its plain version at width {w}")
     enc_p = ed.compress(ppoint)
     small = (_cut(sd, w_small), _cut(hd, w_small), _cut(table, w_small))
     ms, ms_small = queued_ms(lambda: ladder.ladder(sd, hd, table), 5), queued_ms(lambda: ladder.ladder(*small), 20)
-    print(f"K1: raw limbs identical to the plain version at widths {_widths()}; "
+    print(f"K1: raw limbs identical to the plain version at widths {_widths(NODE_BUCKETS)}; "
           f"{ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}", flush=True)
     results["ladder"] = dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
@@ -590,14 +624,14 @@ def phase_compare(seed: int, device: str = "cuda") -> dict:
         fail("K4 compress_eq differs from its plain version")
     if got.cpu().tolist() != k4_want:
         fail("K4 compress_eq differs from the mask known by construction")
-    for w in _widths()[:-1]:
+    for w in _widths(NODE_BUCKETS)[:-1]:
         args = (_cut(xyzt, w), _cut(r_bytes, w), _cut(k4_valid, w))
         if not torch.equal(ed.compress_eq(*args), ed.compress_eq_plain(*args)):
             fail(f"K4 compress_eq differs from its plain version at width {w}")
     small = (_cut(xyzt, w_small), _cut(r_bytes, w_small), _cut(k4_valid, w_small))
     ms = queued_ms(lambda: ed.compress_eq(xyzt, r_bytes, k4_valid), 20)
     ms_small = queued_ms(lambda: ed.compress_eq(*small), 20)
-    print(f"K4: mask identical to the plain version at widths {_widths()} "
+    print(f"K4: mask identical to the plain version at widths {_widths(NODE_BUCKETS)} "
           f"({int(got.sum())}/{LANES} lanes match); {ms_small:.4f} ms at {w_small} lanes, {ms:.4f} ms at {LANES}",
           flush=True)
     results["compress_eq"] = dict(
@@ -2382,11 +2416,13 @@ def _free_ports(n: int) -> list[int]:
             s.close()
 
 
-def write_node_configs(run_dir: Path, names: list[str], ports: list[int]) -> tuple[Path, Path]:
+def write_node_configs(run_dir: Path, names: list[str], ports: list[int],
+                       parameters: dict | None = None) -> tuple[Path, Path]:
     """The committee and parameters files of a local committee, in the
     format of benchmark/config.py (`LocalCommittee`, `NodeParameters`):
     node i's consensus, mempool and front addresses on ports[i],
-    ports[n + i] and ports[2n + i]; parameters LOCAL_NODE_PARAMS."""
+    ports[n + i] and ports[2n + i]; `parameters` (default
+    LOCAL_NODE_PARAMS)."""
     n = len(names)
     addr = lambda p: f"127.0.0.1:{p}"
     committee = {
@@ -2397,7 +2433,7 @@ def write_node_configs(run_dir: Path, names: list[str], ports: list[int]) -> tup
             for i, name in enumerate(names)}},
     }
     paths = run_dir / ".committee.json", run_dir / ".parameters.json"
-    for path, obj in zip(paths, (committee, LOCAL_NODE_PARAMS)):
+    for path, obj in zip(paths, (committee, parameters or LOCAL_NODE_PARAMS)):
         path.write_text(json.dumps(obj, indent=2, sort_keys=True))
     return paths
 
@@ -2413,11 +2449,14 @@ def committed_between(log_text: str, start: float, end: float) -> int:
     """How many `Committed B<r>(<digest>)` lines of a node log are stamped
     (UTC, the log's `[YYYY-mm-ddTHH:MM:SS.mmmZ ...` prefix) at or after
     `start` and before `end`, both in seconds since the epoch."""
-    n = 0
-    for stamp in re.findall(r"^\[(\S+)Z \S+ \S+\] Committed B\d+\([^)]*\)\s*$", log_text, re.M):
-        t = calendar.timegm(time.strptime(stamp[:19], "%Y-%m-%dT%H:%M:%S")) + float("0" + stamp[19:])
-        n += start <= t < end
-    return n
+    return sum(start <= _log_seconds(stamp) < end
+               for stamp in re.findall(r"^\[(\S+)Z \S+ \S+\] Committed B\d+\([^)]*\)\s*$", log_text, re.M))
+
+
+def _log_seconds(stamp: str) -> float:
+    """Seconds since the epoch of a node log's UTC stamp
+    (`YYYY-mm-ddTHH:MM:SS.mmm`)."""
+    return calendar.timegm(time.strptime(stamp[:19], "%Y-%m-%dT%H:%M:%S")) + float("0" + stamp[19:])
 
 
 def check_commits(logs: dict[str, str]) -> dict[str, dict[int, str]]:
@@ -2678,17 +2717,23 @@ def scrape_batches(dump: dict) -> int:
     return sum(snap.get("counters", {}).get("verifier.batches", 0) for snap in dump.get("snapshots") or ())
 
 
-def committed_txs(logs: dict[str, str], tx_size: int) -> dict[str, int]:
+def committed_txs(logs: dict[str, str], tx_size: int, window: tuple[float, float] | None = None) -> dict[str, int]:
     """Transactions each node committed: the bytes of the distinct payloads
     its `Committed B<r>(...) -> <payload>` lines name, over `tx_size`, as the
     reference's log parser counts them (`benchmark/logs.py`). A payload's
     size is its author's `Payload <digest> contains <n> B` line, in any
-    node's log."""
+    node's log. With `window` (start, end: seconds since the epoch), only
+    the lines stamped at or after start and before end count."""
     sizes = {d: int(n) for text in logs.values()
              for d, n in re.findall(r"Payload (\S+) contains (\d+) B$", text, re.M)}
     out = {}
     for name, text in logs.items():
-        committed = set(re.findall(r"Committed B\d+\([^)]*\) -> (\S+)$", text, re.M))
+        if window is None:
+            committed = set(re.findall(r"Committed B\d+\([^)]*\) -> (\S+)$", text, re.M))
+        else:
+            committed = {d for stamp, d in re.findall(r"^\[(\S+)Z \S+ \S+\] Committed B\d+\([^)]*\) -> (\S+)$",
+                                                      text, re.M)
+                         if window[0] <= _log_seconds(stamp) < window[1]}
         out[name] = sum(sizes.get(d, 0) for d in committed) // tx_size
     return out
 
@@ -2801,6 +2846,282 @@ def phase_port_committee(run_dir: Path) -> dict:
               f"node's run) samples, p50 / p99 ms {e2e[f'node-{i}']}", flush=True)
     result.update(scrapes=scrapes, e2e=e2e)
     return result
+
+
+# --- phase 15: the client ingress and commit proofs on the port's nodes ------
+
+# Phase 13's parameters (benchmark/fabfile.py:22-43) with the client plane on.
+INGRESS_NODE_PARAMS = {**LOCAL_NODE_PARAMS, "mempool": {**LOCAL_NODE_PARAMS["mempool"], "ingress_enabled": True}}
+INGRESS_PORT_OFFSET, PROOFS_PORT_OFFSET = 1_000, 2_000  # the mempool parameters' defaults
+# The two legs of `python -m hotstuff_tpu_torch.loadgen` against node 0's
+# ingress port: the reference bench's ingress default with proofs, and the
+# bench's 5,000 tx/s leg split over four generator processes. Both: a flash
+# curve (5x the rate in the middle third) for 10 s, 8 clients, 512 B bodies
+# (the committee's tx_size). Each leg's seeds give it clients of its own
+# (leg A's transactions replayed in leg B would answer `replay`).
+INGRESS_LEGS = {"A": {"rate": 100, "procs": 1, "proofs": True, "seed": 0},
+                "B": {"rate": 5_000, "procs": 4, "proofs": False, "seed": 100}}
+INGRESS_DURATION_S = 10
+INGRESS_SETTLE_S = 2  # after each leg, for what it admitted last to commit
+LOADGEN_TIMEOUT_S = 120
+LOADGEN_GRACE_S = 5.0  # OpenLoopLoadGen.run's wait for late answers after the curve
+# The generic kernels every ingress batch of node 0 must launch.
+INGRESS_KERNELS = ("h_digits", "decompress_table", "ladder", "compress_eq")
+
+
+def free_ports_with_offsets(n: int, offsets=(INGRESS_PORT_OFFSET, PROOFS_PORT_OFFSET), avoid=()) -> list[int]:
+    """n distinct free ports p, none in `avoid`, each with p + every offset
+    free too and no p + offset another's p: a node's front port and its
+    ingress and proof ports."""
+    taken = set(avoid)
+    out: list[int] = []
+    while len(out) < n:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            p = s.getsockname()[1]
+        group = {p} | {p + o for o in offsets}
+        if max(group) > 65535 or group & taken:
+            continue
+        try:
+            for o in offsets:
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p + o))
+        except OSError:
+            continue
+        out.append(p)
+        taken |= group
+    return out
+
+
+def loadgen_cmd(py: str, ingress_port: int, leg: str, json_out: str, proofs_out: str | None = None) -> list[str]:
+    """`python -m hotstuff_tpu_torch.loadgen` for one leg of INGRESS_LEGS
+    against 127.0.0.1:`ingress_port`."""
+    spec = INGRESS_LEGS[leg]
+    cmd = [py, "-m", "hotstuff_tpu_torch.loadgen", "--target", f"127.0.0.1:{ingress_port}", "--curve", "flash",
+           "--seed", str(spec["seed"]),
+           "--rate", str(spec["rate"]), "--duration", str(INGRESS_DURATION_S), "--clients", "8",
+           "--tx-bytes", str(LOCAL_BENCH["tx_size"]), "--procs", str(spec["procs"]), "--json-out", json_out, "-v"]
+    if spec["proofs"]:
+        cmd.append("--proofs")
+        if proofs_out:
+            cmd += ["--proofs-out", proofs_out]
+    return cmd
+
+
+def loadgen_errors(leg: str, rc: int, summary: dict) -> list[str]:
+    """What a leg's run got wrong: an exit code other than 0, unresolved
+    submissions or transport errors, offered != accepted + shed + rejected,
+    a rejected signature (every generated one is valid), and with proofs
+    any tracked transaction not served and verified."""
+    errors = []
+    if rc != 0:
+        errors.append(f"leg {leg}: loadgen exited {rc}")
+    if summary.get("unresolved") or summary.get("errors"):
+        errors.append(f"leg {leg}: {summary.get('unresolved')} unresolved, {summary.get('errors')} errors")
+    rejected = summary.get("bad_signature", 0) + summary.get("replay", 0) + summary.get("malformed", 0)
+    if summary.get("offered") != summary.get("accepted", 0) + summary.get("shed", 0) + rejected:
+        errors.append(f"leg {leg}: offered {summary.get('offered')} != accepted {summary.get('accepted')} + shed "
+                      f"{summary.get('shed')} + rejected {rejected}")
+    if summary.get("bad_signature"):
+        errors.append(f"leg {leg}: {summary['bad_signature']} valid signatures answered bad_signature")
+    if not summary.get("accepted"):
+        errors.append(f"leg {leg}: nothing accepted")
+    if INGRESS_LEGS[leg]["proofs"]:
+        p = summary.get("proofs") or {}
+        if not (p.get("tracked") == p.get("served") == p.get("verified_ok") == summary.get("accepted")) \
+                or p.get("verify_failed"):
+            errors.append(f"leg {leg}: proofs {p} for {summary.get('accepted')} accepted transactions")
+    return errors
+
+
+def ingress_dump_errors(name: str, dump: dict, ingress_node: bool) -> list[str]:
+    """What an ingress node's dump got wrong beyond `node_dump_errors`: a
+    rejected client signature on any node, a certificate that did not
+    certify its committed block (the proof registry's mismatch), and on
+    the node that took the traffic no verified client signature or a
+    generic kernel of its batches never launched."""
+    c = dump.get("counters", {})
+    errors = []
+    if c.get("ingress.rejected_sigs", 0):
+        errors.append(f"{name}: ingress.rejected_sigs {c['ingress.rejected_sigs']}")
+    if c.get("proofs.cert_mismatch", 0):
+        errors.append(f"{name}: proofs.cert_mismatch {c['proofs.cert_mismatch']}")
+    if ingress_node:
+        if c.get("ingress.verified_sigs", 0) <= 0:
+            errors.append(f"{name}: no client signature verified")
+        idle = [k for k in INGRESS_KERNELS if not (dump.get("launches") or {}).get(k)]
+        if idle:
+            errors.append(f"{name}: {idle} never launched")
+    return errors
+
+
+def certificate_verdicts(lines: list[str], committee, device: str = "cuda") -> dict:
+    """Each distinct certificate a leg received (the loadgen's
+    `--proofs-out` lines), checked fully with `CommitProof.verify(committee)`
+    under a `TorchBackend` on `device` (the card) and under the host route
+    (OpenSSL),
+    and two tampered copies of the first (a flipped payload digest, a
+    flipped bit of a vote's signature). Returns the verdicts ("ok" or the
+    exception's class name) of each route."""
+    import dataclasses
+
+    from hotstuff_tpu_torch.crypto import Digest, Signature
+    from hotstuff_tpu_torch.crypto.backend import CpuBackend, set_backend
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.consensus.messages import QC
+    from hotstuff_tpu_torch.proofs import CommitProof
+    from hotstuff_tpu_torch.utils.serde import Reader
+
+    proofs = [CommitProof.decode(Reader(bytes.fromhex(json.loads(line)["proof"]))) for line in lines]
+    if not proofs:
+        fail("phase 15: leg A wrote no certificate")
+    first = proofs[0]
+    flipped = Digest(bytes([first.payload[0].data[0] ^ 1]) + first.payload[0].data[1:])
+    (pk0, sig0), *rest = first.cert.votes
+    tampered = [dataclasses.replace(first, payload=(flipped, *first.payload[1:])),
+                dataclasses.replace(first, cert=QC(first.cert.hash, first.cert.round,
+                                                   ((pk0, Signature(bytes([sig0.data[0] ^ 1]) + sig0.data[1:])),
+                                                    *rest)))]
+    out = {}
+    for route, backend in (("card", TorchBackend(device=device, crossover=1)), ("host", CpuBackend())):
+        prev = set_backend(backend)
+        try:
+            verdicts = []
+            for proof in proofs + tampered:
+                try:
+                    proof.verify(committee)
+                    verdicts.append("ok")
+                except Exception as e:  # the verdict is the exception's kind
+                    verdicts.append(type(e).__name__)
+        finally:
+            set_backend(prev)
+        out[route] = {"certificates": verdicts[:len(proofs)], "tampered": verdicts[len(proofs):]}
+    return out
+
+
+def phase_port_ingress(run_dir: Path, device: str = "cuda") -> dict:
+    """Phase 15: four port nodes with the client plane on, two loadgen legs
+    against node 0's ingress port, leg A's certificates checked on the card
+    and on the host (see the module docstring)."""
+    from hotstuff_tpu_torch.node.config import Committee as NodeCommittee
+    from hotstuff_tpu_torch.node.config import Secret
+    from hotstuff_tpu_torch.store import store as port_store
+
+    n = LOCAL_BENCH["nodes"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    py = sys.executable
+    t0 = time.perf_counter()
+    port_store._load_library()
+    names = []
+    for i in range(n):
+        Secret.new().write(str(run_dir / f".node-{i}.json"))
+        names.append(json.loads((run_dir / f".node-{i}.json").read_text())["name"])
+    others = _free_ports(2 * n)
+    fronts = free_ports_with_offsets(n, avoid=others)
+    committee_path, parameters = run_dir / ".committee.json", run_dir / ".parameters.json"
+    write_node_configs(run_dir, names, others + fronts, INGRESS_NODE_PARAMS)
+    dumps = [run_dir / f"metrics-{i}.json" for i in range(n)]
+    ingress_port = fronts[0] + INGRESS_PORT_OFFSET
+    legs, windows, errors = {}, {}, []
+    procs = []
+    try:
+        nodes = []
+        for i in range(n):
+            log = run_dir / f"node-{i}.log"
+            cmd = port_node_cmd(py, i, committee_path.name, parameters.name, dumps[i].name)
+            nodes.append((log, _spawn(cmd, log, run_dir)))
+        procs += [p for _, p in nodes]
+        t_nodes = time.monotonic()
+        _await_logs(nodes, "successfully booted", "port node")
+        _await_logs(nodes[:1], "Proof server listening", "node 0's proof port")
+        boot_s = time.monotonic() - t_nodes
+        print(f"port ingress: {n} nodes booted in {boot_s:.1f} s ({time.perf_counter() - t0:.1f} s with keys); "
+              f"ingress on 127.0.0.1:{ingress_port}, proofs on 127.0.0.1:{fronts[0] + PROOFS_PORT_OFFSET}",
+              flush=True)
+        for leg in INGRESS_LEGS:
+            out = run_dir / f"leg-{leg}.json"
+            proofs_out = run_dir / f"proofs-{leg}.jsonl"
+            log = run_dir / f"loadgen-{leg}.log"
+            t_leg = time.time()
+            gen = _spawn(loadgen_cmd(py, ingress_port, leg, out.name, proofs_out.name), log, run_dir)
+            procs.append(gen)
+            try:
+                rc = gen.wait(LOADGEN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"phase 15: leg {leg}'s loadgen still running after {LOADGEN_TIMEOUT_S} s; see {log}")
+            time.sleep(INGRESS_SETTLE_S)
+            t_end = time.time()
+            try:
+                legs[leg] = json.loads(out.read_text())
+            except (OSError, json.JSONDecodeError) as e:
+                fail(f"phase 15: leg {leg} wrote no summary (rc {rc}, {e!r}); see {log}:\n{log.read_text()[-2000:]}")
+            windows[leg] = (legs[leg].get("curve_t0_unix", t_leg), t_end)
+            errors += loadgen_errors(leg, rc, legs[leg])
+        node_s = time.monotonic() - t_nodes
+    finally:
+        _kill(procs)  # SIGTERM: each node writes its dump
+        for store in run_dir.glob(".db-*"):
+            shutil.rmtree(store, ignore_errors=True)
+    logs = {f"node-{i}": (run_dir / f"node-{i}.log").read_text(errors="replace") for i in range(n)}
+    for name, text in logs.items():
+        if "synthetic batch verification failed" in text or "ingress verification dispatch failed" in text:
+            fail(f"{name} logged a failed verification; see {run_dir}")
+    commits = check_commits(logs)
+    lanes, launches, node_ingress = {}, {}, {}
+    for i, path in enumerate(dumps):
+        name = f"node-{i}"
+        try:
+            dump = json.loads(path.read_text())
+        except (OSError, json.JSONDecodeError) as e:
+            fail(f"{name} left no metrics dump ({e!r}); see {run_dir}")
+        errors += node_dump_errors(name, dump) + ingress_dump_errors(name, dump, i == 0)
+        lanes[name], launches[name] = node_dump_lanes(dump), dump.get("launches", {})
+        c = dump.get("counters", {})
+        node_ingress[name] = {k: c.get(k, 0) for k in ("ingress.received", "ingress.verified_sigs",
+                                                       "ingress.rejected_sigs", "ingress.forwarded",
+                                                       "proofs.indexed", "proofs.resolved", "proofs.served",
+                                                       "proofs.subs_shed", "proofs.cert_mismatch")}
+    if errors:
+        fail(f"phase 15: {errors}")
+    lines = (run_dir / "proofs-A.jsonl").read_text().splitlines()
+    verdicts = certificate_verdicts(lines, NodeCommittee.read(str(committee_path)).consensus, device)
+    card, host = verdicts["card"], verdicts["host"]
+    if card != host:
+        fail(f"phase 15: the card's verdicts {card} differ from the host's {host}")
+    if set(card["certificates"]) != {"ok"} or "ok" in card["tampered"]:
+        fail(f"phase 15: certificate verdicts {card}")
+    committed = {leg: committed_txs(logs, LOCAL_BENCH["tx_size"], windows[leg]) for leg in INGRESS_LEGS}
+    for leg, s in legs.items():
+        p = s.get("proofs") or {}
+        lat = s.get("latency_ms", {})
+        window_s = windows[leg][1] - windows[leg][0]
+        tx_s = min(committed[leg].values()) / window_s
+        s["committed_tx_per_s"], s["window_s"] = tx_s, window_s
+        print(f"port ingress leg {leg} (flash, {INGRESS_LEGS[leg]['rate']} tx/s x5 in the middle third, "
+              f"{INGRESS_DURATION_S} s, {INGRESS_LEGS[leg]['procs']} generator process(es)): offered {s['offered']}, "
+              f"accepted {s['accepted']}, shed {s['shed']}, rejected "
+              f"{s['bad_signature'] + s['replay'] + s['malformed']}; committed {committed[leg]} transactions from "
+              f"the curve's start to {INGRESS_SETTLE_S} s after the loadgen's exit, {tx_s:.1f} tx/s over that "
+              f"{window_s:.2f} s window (the slowest node's); client p50 / p99 {lat.get('p50')} / "
+              f"{lat.get('p99')} ms; last answer "
+              f"{s['answer_tail_s']} s after the curve's end, {LOADGEN_GRACE_S - s['answer_tail_s']:.3f} s inside "
+              f"the generator's {LOADGEN_GRACE_S} s grace"
+              + (f"; proofs tracked {p['tracked']}, served {p['served']}, verified {p['verified_ok']} "
+                 f"({p['verified']}), retries {p['retries']}, p50 / p99 {p['latency_ms']['p50']} / "
+                 f"{p['latency_ms']['p99']} ms, proof_bytes_max {p['proof_bytes_max']}, "
+                 f"{p['certificates']} certificates" if p else ""), flush=True)
+    print(f"port ingress certificates: {len(lines)} distinct certificates of leg A verified in full on the card "
+          f"and on the host (OpenSSL), verdicts equal; tampered (payload digest, vote signature): card "
+          f"{card['tampered']}, host {host['tampered']}", flush=True)
+    for name in logs:
+        print(f"port ingress {name}: lanes {lanes[name]}, launches "
+              f"{ {k: v for k, v in launches[name].items() if v} }, {node_ingress[name]}", flush=True)
+    rounds = max(max(c) for c in commits.values())
+    print(f"port ingress: every node committed (digests agree), round {rounds}; nodes ran {node_s:.1f} s; "
+          f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(legs=legs, committed=committed, lanes=lanes, launches=launches, node_ingress=node_ingress,
+                verdicts=verdicts, boot_s=boot_s, node_s=node_s)
 
 
 # --- phase 8: BLS aggregation ------------------------------------------------
@@ -3890,9 +4211,11 @@ def forced_ingress(seed: int, device: str = "cuda") -> dict:
     of its signature flipped, submitted to an `IngressPipeline` over a
     `TorchBackend(device)` before its drain first runs, so that the drain
     takes FORCED_TXS / FORCED_BATCH batches of FORCED_BATCH onto the card.
-    Every status must be the one known by construction, and on the card K2,
-    K3, K1 and K4 must each launch once a batch, nothing else. Returns the
-    launches."""
+    The drain keeps up to `DRAIN_WIDTH` batches in verification at once, so
+    the scheduler may join them into fewer dispatches. Every status must be
+    the one known by construction, every lane must reach the card, and there
+    K2, K3, K1 and K4 must each launch once a dispatch, nothing else.
+    Returns the launches."""
     import asyncio
     import random
 
@@ -3944,15 +4267,19 @@ def forced_ingress(seed: int, device: str = "cuda") -> dict:
     sizes = metrics.histogram("ingress.verify_batch_size", metrics.SIZE_BUCKETS).summary()
     if sizes["count"] != batches:
         errors.append(f"{sizes['count']} verification batches, not {batches}")
-    if device == "cuda" and launched != {k: batches for k in PACKED_KERNELS}:
-        errors.append(f"launched {launched}, not K2, K3, K1 and K4 {batches} times each")
+    dispatches = backend.stats["device_batches"]
+    if not 1 <= dispatches <= batches:
+        errors.append(f"{dispatches} dispatches to the card for {batches} batches")
+    if device == "cuda" and launched != {k: dispatches for k in PACKED_KERNELS}:
+        errors.append(f"launched {launched}, not K2, K3, K1 and K4 once each of {dispatches} dispatches")
     if backend.stats["device_sigs"] != FORCED_TXS:
         errors.append(f"{backend.stats['device_sigs']} lanes on the verifier, not {FORCED_TXS}")
     if errors:
         fail(f"forced ingress check: {errors}")
     bad = expected.count(BAD_SIGNATURE)
     print(f"forced ingress check: {FORCED_TXS} transactions, {bad} with a flipped signature bit, in "
-          f"{batches} batches of {FORCED_BATCH}: statuses exact, launches {launched}, {secs:.2f} s", flush=True)
+          f"{batches} batches of {FORCED_BATCH} in {dispatches} dispatches: statuses exact, launches {launched}, "
+          f"{secs:.2f} s", flush=True)
     return launches
 
 
@@ -4237,7 +4564,9 @@ def main() -> int:
     phase_roofline(main_path["sigs_per_s"], len(committee_path["table_keys"]), {**kernels, **committee_kernels})
     phase_steal(main_path["batch"])
     print(f"phase 14 (latch_probe, roofline, work stealing): {time.perf_counter() - t14:.1f} s", flush=True)
+    port_ingress = phase_port_ingress(REPO / ".chip_smoke" / "port_ingress")
     node_launches = lambda name: {node: d.get(name, 0) for node, d in port_committee["launches"].items()}  # noqa: E731
+    ingress_launches = lambda name: {node: d.get(name, 0) for node, d in port_ingress["launches"].items()}  # noqa: E731
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -4250,7 +4579,7 @@ def main() -> int:
                 bench_launches={label: n[name] for label, n in bench_launches.items()},
                 mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                                for label, m in mesh["meshes"].items()},
-                node_launches=node_launches(name),
+                node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,
@@ -4266,7 +4595,7 @@ def main() -> int:
             bench_launches={label: n[name] for label, n in bench_launches.items()},
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
-            node_launches=node_launches(name),
+            node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res.get("extra", {}),
@@ -4278,7 +4607,7 @@ def main() -> int:
         sidecar_launches=sidecar["launches"]["bit_ladder"],
         bench_launches={label: n["bit_ladder"] for label, n in bench_launches.items()},
         mesh_launches=f32["mesh_launches"],  # phase 9's ShardedEd25519TorchVerifier(packed=False) runs
-        node_launches=node_launches("bit_ladder"),
+        node_launches=node_launches("bit_ladder"), ingress_node_launches=ingress_launches("bit_ladder"),
         matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
         bound_by=res["bound_by"], library_ms=None, **res["extra"],
@@ -4294,7 +4623,7 @@ def main() -> int:
             bench_launches={label: n[name] for label, n in bench_launches.items()},
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
-            node_launches=node_launches(name),
+            node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res["extra"],

@@ -1,16 +1,15 @@
 """The port's client ingress plane: signed client transactions through
 admission control into the shared batch verification service.
 
-A trimmed copy of `hotstuff_tpu/ingress/`, the modules the bench's
-`--ingress` leg reaches:
+A copy of `hotstuff_tpu/ingress/`:
   * `messages.py`  — signed ClientTransaction + IngressResponse wire format
   * `admission.py` — fee lanes, bounded queues, shed + retry-after
   * `pipeline.py`  — admission → BatchVerificationService → sink
+  * `server.py`    — the framed TCP front end (`IngressServer`,
+                     `IngressClient`) a node serves with `--ingress`
   * `loadgen.py`   — open-loop arrival curves, signed traffic, latency stats
 
-Not ported: `server.py` (`IngressServer` / `IngressClient`, the framed TCP
-front end over the reference's network layer) and the chaos scenarios'
-`IngressLoad`.
+Not ported: the chaos scenarios' `IngressLoad`.
 """
 
 from .admission import AdmissionController, IngressConfig, LaneSpec
@@ -27,6 +26,7 @@ from .messages import (
     encode_ingress_message,
 )
 from .pipeline import IngressPipeline
+from .server import IngressClient, IngressServer
 
 __all__ = [
     "ACCEPTED",
@@ -37,9 +37,11 @@ __all__ = [
     "AdmissionController",
     "ArrivalCurve",
     "ClientTransaction",
+    "IngressClient",
     "IngressConfig",
     "IngressPipeline",
     "IngressResponse",
+    "IngressServer",
     "LaneSpec",
     "OpenLoopLoadGen",
     "decode_ingress_message",

@@ -23,8 +23,9 @@ caps the offered rate far below the curve; RFC 8032 signatures are
 deterministic, so both signers give the same bytes. `sign_s` and `signed`
 count the generator's signing time and signatures.
 
-Not copied: `IngressLoad` (the chaos scenarios' spec) and `log_summary`
-(the reference harness's log lines); neither is reached by the bench.
+`log_summary()` emits the `Ingress offered/accepted/shed/...` log lines
+that `benchmark/logs.py` scrapes. Not copied: `IngressLoad` (the chaos
+scenarios' spec).
 """
 
 from __future__ import annotations
@@ -258,3 +259,19 @@ class OpenLoopLoadGen:
                 "max": round(max(lat_ms), 3) if lat_ms else 0.0,
             },
         }
+
+    def log_summary(self) -> dict:
+        """Emit the scrapeable result lines (benchmark/logs.py contract).
+        NOTE: these log entries are used to compute performance."""
+        s = self.summary()
+        log.info("Ingress offered: %s transactions", s["offered"])
+        log.info("Ingress accepted: %s transactions", s["accepted"])
+        log.info("Ingress shed: %s transactions", s["shed"])
+        log.info(
+            "Ingress client latency p50: %s ms", s["latency_ms"]["p50"]
+        )
+        log.info(
+            "Ingress client latency p99: %s ms", s["latency_ms"]["p99"]
+        )
+        log.info("Ingress shed rate: %.2f %%", 100.0 * s["shed_rate"])
+        return s

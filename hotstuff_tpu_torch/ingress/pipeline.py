@@ -9,7 +9,11 @@ verified in groups of `IngressConfig.verify_batch` through a
 `dedup=False` (a repeated client transaction is a replay, which admission
 rejects before any crypto, so client traffic never enters the
 verified-signature cache), and only then forwarded into `deliver`, a
-bounded sink (the reference's mempool queue; the bench's counter).
+bounded sink (the node's mempool ingress lane; the bench's counter).
+With a `proof_registry` (`proofs/registry.py`), every verified
+transaction's (client, nonce) and digest are recorded there just before
+its body goes into the sink: the first link of the submit, commit, proof
+chain.
 
 Backpressure is end to end: a full sink blocks the drain loop, the lanes
 fill, and admission sheds with retry-after. A dispatch that fails marks
@@ -21,9 +25,16 @@ Every stage records `ingress.*` flight-recorder events (`utils/tracing.py`;
 trace id from the transaction digest) and counts into the `ingress.*`
 metrics.
 
-Not copied: the commit-proof registry hook (`proof_registry`), which
-belongs to the reference node's proof-serving plane, and the chaos
-scenarios' drain pacing (`verify_interval`).
+One change against the reference: the drain keeps up to `DRAIN_WIDTH`
+batches in verification at once, each answered and forwarded as it
+completes (the reference's drain takes one at a time, and so waits out the
+scheduler's ingress deadline, the card's round trip and the event loop's
+hops for every 64 transactions). A batch that is not full goes only while
+none is in flight, so a sparse stream still gathers into batches behind
+the one in verification, as in the reference; a backlog goes out in full
+batches, `DRAIN_WIDTH` at a time.
+
+Not copied: the chaos scenarios' drain pacing (`verify_interval`).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ _M_VERIFY_BATCH = metrics.histogram(
 _M_LATENCY = metrics.histogram("ingress.latency_s")
 
 LOG_EVERY = 10_000  # shed/reject log cadence
+DRAIN_WIDTH = 4  # verification batches the drain keeps in flight at once
 
 
 class IngressPipeline:
@@ -61,11 +73,14 @@ class IngressPipeline:
         service: BatchVerificationService,
         deliver: asyncio.Queue,
         config: IngressConfig | None = None,
+        proof_registry=None,
     ) -> None:
         self.service = service
         self.deliver = deliver
+        self.proof_registry = proof_registry
         self.admission = AdmissionController(config)
-        self._pending = asyncio.Event()  # set whenever a lane has work
+        self._pending = asyncio.Event()  # set whenever a lane has work or a batch completes
+        self._in_flight = 0  # batches in verification
         self._task: asyncio.Task | None = None
         self.stats = {"received": 0, "accepted": 0, "responded": 0}
 
@@ -81,6 +96,18 @@ class IngressPipeline:
         """Submit one client transaction; resolves to its response once
         admission rejects it (immediately) or its verification batch
         completes and the body is in the mempool queue."""
+        t0 = asyncio.get_running_loop().time()
+        out = self.admit(tx)
+        if isinstance(out, IngressResponse):
+            return out
+        return await self.result(out, t0)
+
+    def admit(self, tx: ClientTransaction) -> IngressResponse | asyncio.Future:
+        """`submit`'s admission step, without awaiting: the response of a
+        transaction admission rejects (shed, replay, malformed), or the
+        future its verification batch resolves (`result` awaits it). The
+        TCP server answers a rejection inline, so a flood that admission
+        sheds costs the event loop no task a frame."""
         self._ensure_task()
         loop = asyncio.get_running_loop()
         t0 = loop.time()
@@ -114,21 +141,36 @@ class IngressPipeline:
                 "ingress.admit", tracing.trace_id(0, tx.digest().data), lane=lane
             )
         self._pending.set()
+        return future
+
+    async def result(self, future: asyncio.Future, t0: float) -> IngressResponse:
+        """An admitted transaction's response, `t0` (event-loop time) its
+        arrival."""
         resp = await future
-        _M_LATENCY.record(loop.time() - t0)
+        _M_LATENCY.record(asyncio.get_running_loop().time() - t0)
         return resp
 
     # -- drain loop ----------------------------------------------------------
 
     async def _run(self) -> None:
         cfg = self.admission.config
-        loop = asyncio.get_running_loop()
         while True:
-            batch = self.admission.take(cfg.verify_batch)
-            if not batch:
-                self._pending.clear()
-                await self._pending.wait()
-                continue
+            n = self._in_flight
+            if n < DRAIN_WIDTH and (n == 0 or self.admission.depth() >= cfg.verify_batch):
+                batch = self.admission.take(cfg.verify_batch)
+                if batch:
+                    self._in_flight += 1
+                    spawn(self._drain(batch), name="ingress-verify")
+                    continue
+            self._pending.clear()
+            await self._pending.wait()
+
+    async def _drain(self, batch: list) -> None:
+        """Verify one batch and answer each transaction in it: forward the
+        verified ones into the sink, reject the rest; then wake the drain
+        loop."""
+        try:
+            loop = asyncio.get_running_loop()
             msgs = [tx.digest().data for tx, _t0, _f in batch]
             pairs = [(tx.client, tx.signature) for tx, _t0, _f in batch]
             _M_VERIFY_BATCH.record(len(batch))
@@ -155,6 +197,10 @@ class IngressPipeline:
                 if ok:
                     _M_VERIFIED.inc()
                     accepted += 1
+                    if self.proof_registry is not None:
+                        self.proof_registry.note_tx(
+                            tx.client, tx.nonce, tx.digest(), body=tx.body
+                        )
                     # Bounded sink: blocking here is the backpressure path
                     # (lanes fill behind us, admission sheds with
                     # retry-after) — the one place ingress may wait.
@@ -180,3 +226,6 @@ class IngressPipeline:
                 self.stats["responded"] += 1
             self.stats["accepted"] += accepted
             self.admission.note_drained(len(batch), loop.time())
+        finally:
+            self._in_flight -= 1
+            self._pending.set()

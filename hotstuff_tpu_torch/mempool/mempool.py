@@ -2,8 +2,10 @@
 wires the Front, net sender/receiver, payload maker, synchronizer, and core.
 
 The port's copy of `hotstuff_tpu/mempool/mempool.py`, its imports rewritten
-to this package, without the ingress server and the commit-proof server
-(`ingress_enabled` is refused).
+to this package. With `ingress_enabled` it boots the authenticated client
+ingress (`ingress/server.py`) on front + `ingress_port_offset` and, when a
+proof registry is wired, the commit-proof server (`proofs/server.py`) on
+front + `proofs_port_offset`.
 """
 
 from __future__ import annotations
@@ -53,11 +55,9 @@ class Mempool:
         `listen_addresses` = (front, mempool) covers a JOIN candidate
         not present in the genesis mempool committee: it still needs
         bound ports to serve and fetch payloads once admitted.
-
-        The authenticated client ingress (`ingress_enabled`) is not
-        ported: parameters that enable it are refused."""
-        if parameters.ingress_enabled:
-            raise ValueError("ingress_enabled is not ported (the ingress server and commit proofs)")
+        `proof_registry` (proofs/registry.py), when given, is fed by the
+        ingress pipeline and the payload maker, and served on the proof
+        port."""
         parameters.log(log)
 
         core_channel = channel()
@@ -147,6 +147,32 @@ class Mempool:
             len(core.queue) >= parameters.queue_capacity
             or sender.egress_backlogged()
         )
+        if parameters.ingress_enabled:
+            # Authenticated client plane: signed transactions verify
+            # through the node's shared BatchVerificationService on the
+            # scheduler's ingress lane, then join the PayloadMaker via
+            # their own intake queue (tx_ingress).
+            from ..ingress.pipeline import IngressPipeline
+            from ..ingress.server import IngressServer
+
+            IngressServer(
+                ("0.0.0.0", front_addr[1] + parameters.ingress_port_offset),
+                IngressPipeline(
+                    core.verification_service,
+                    tx_ingress,
+                    proof_registry=proof_registry,
+                ),
+            )
+            if proof_registry is not None:
+                # Commit-proof serving plane: clients that submitted on
+                # front+ingress_port_offset fetch their commit proofs on
+                # front+proofs_port_offset.
+                from ..proofs.server import ProofServer, ProofService
+
+                ProofServer(
+                    ("0.0.0.0", front_addr[1] + parameters.proofs_port_offset),
+                    ProofService(proof_registry),
+                )
         spawn(core.run(), name="mempool-core")
         log.info("Mempool of node %s successfully booted on %s", name.short(), mempool_addr)
         return core

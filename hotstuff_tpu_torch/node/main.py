@@ -3,7 +3,8 @@
 Subcommands:
   * keys --filename F                       -- generate a keypair file
   * run --keys K --committee C --store S [--parameters P]
-        [--crypto torch|cpu|remote] [--device cuda|cpu] [--telemetry-port PORT]
+        [--crypto torch|cpu|remote] [--device cuda|cpu] [--ingress]
+        [--telemetry-port PORT]
 
 The port's copy of `hotstuff_tpu/node/main.py`. `--crypto` selects the
 `CryptoBackend` every batch verification of the node goes through:
@@ -33,11 +34,14 @@ the node's `LaneStats`, the device timeline's summary and the per-peer
 link ledger, scraped with `telemetry.scrape_sync` or the reference's
 `tools/telemetry_dash.py --poll`; the plane's last snapshots ride every
 watchdog dump.
+`--ingress` (or `ingress_enabled` in the mempool parameters) serves the
+authenticated client ingress on front_port + `ingress_port_offset`
+(signed transactions, admission, verification through the node's
+backend) and the commit proofs of what it admitted on front_port +
+`proofs_port_offset`; `python -m hotstuff_tpu_torch.loadgen` drives both.
 
 Refused with an error, not ported: the reference's `--crypto tpu` (use
-`torch`), `--ingress` (and `ingress_enabled` in the parameters: the
-ingress server and commit proofs), the `deploy` subcommand and
-`HOTSTUFF_PROFILE`.
+`torch`), the `deploy` subcommand and `HOTSTUFF_PROFILE`.
 """
 
 from __future__ import annotations
@@ -90,7 +94,6 @@ async def _run_node(args) -> None:
     from ..crypto.backend import set_backend
     from ..ops import _build
     from ..utils import metrics
-    from .node import Node
 
     backend = make_node_backend(args)
     set_backend(backend)
@@ -100,7 +103,7 @@ async def _run_node(args) -> None:
         from ..crypto.remote import warmup_backend
 
         warmup_backend(backend)
-    node = Node(args.committee, args.keys, args.store, args.parameters)
+    node = make_node(args)
     # Committee registration at startup: validator keys become device-
     # resident tables, with the committee kernels run before the node
     # joins consensus. boot() re-asserts it (a no-op for the same keys).
@@ -113,6 +116,17 @@ async def _run_node(args) -> None:
     if args.telemetry_port is not None:
         start_telemetry(node, args.keys, args.telemetry_port)
     await node.analyze_block()
+
+
+def make_node(args):
+    """The `Node` of `run`'s files, with `--ingress` turning on
+    `ingress_enabled` on top of the parameters file."""
+    from .node import Node
+
+    node = Node(args.committee, args.keys, args.store, args.parameters)
+    if args.ingress:
+        node.parameters.mempool.ingress_enabled = True
+    return node
 
 
 def start_telemetry(node, keys_path: str, port: int):
@@ -182,7 +196,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p_run.add_argument("--crypto-sharded", action="store_true",
                        help="with --crypto torch: split verification over every visible GPU; "
                        "committee registration replicates the tables onto each")
-    p_run.add_argument("--ingress", action="store_true", help="not ported: refused")
+    p_run.add_argument("--ingress", action="store_true",
+                       help="serve the authenticated client ingress on front_port + ingress_port_offset and "
+                       "the commit proofs on front_port + proofs_port_offset; equivalent to ingress_enabled "
+                       "in the mempool parameters")
     p_run.add_argument("--no-warmup", action="store_true",
                        help="skip running the kernels before joining consensus")
     p_run.add_argument("--telemetry-port", type=int, default=None, metavar="PORT",
@@ -199,8 +216,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.command == "deploy":
         parser.error("the deploy subcommand is not ported; start each node with `run`")
     if args.command == "run":
-        if args.ingress:
-            parser.error("--ingress is not ported (the ingress server and commit proofs)")
         if args.crypto_sharded and (args.crypto != "torch" or args.device != "cuda"):
             parser.error("--crypto-sharded requires --crypto torch on --device cuda")
         if args.device != "cuda" and args.crypto != "torch":

@@ -4,9 +4,11 @@ boots Mempool then Consensus. `analyze_block` drains the commit channel (the
 application layer stub the reference also has, node/src/node.rs:95-99).
 
 The port's copy of `hotstuff_tpu/node/node.py`, its imports rewritten to
-this package. The client ingress (`ingress_enabled`) and its commit-proof
-registry and aggregate certificates (`aggregate_certs`) are not ported: a
-parameters file that enables one of them is refused. Region-aware
+this package. With the client ingress on (`ingress_enabled`), one
+`ProofRegistry` is shared by the ingress pipeline, the payload maker and
+the consensus core, and its persisted window reloads from the store.
+Aggregate certificates (`aggregate_certs`) are not ported: a parameters
+file that enables them is refused. Region-aware
 election (`region_aware_election`) is accepted; a node passes no region
 map, so its schedule is round-robin, as the reference's.
 """
@@ -40,8 +42,6 @@ class Node:
             if parameters_path
             else NodeParameters.default()
         )
-        if self.parameters.mempool.ingress_enabled:
-            raise ConfigError("ingress_enabled is not ported (the ingress server and commit proofs)")
         if self.parameters.consensus.aggregate_certs:
             raise ConfigError("aggregate_certs is not ported")
         self.store_path = store_path
@@ -72,6 +72,19 @@ class Node:
         consensus_mempool_channel = channel()
         consensus_core_channel = channel()
 
+        # Commit-proof serving plane: one registry shared by the ingress
+        # pipeline (admitted-tx feed), the payload maker (flush pairing)
+        # and the consensus core (commit feed). The persisted newest
+        # window reloads in the background: queries racing the load see
+        # PENDING/UNKNOWN until their proofs reappear.
+        self.proof_registry = None
+        if self.parameters.mempool.ingress_enabled:
+            from ..proofs.registry import ProofRegistry
+            from ..utils.actors import spawn
+
+            self.proof_registry = ProofRegistry(store=store)
+            spawn(self.proof_registry.load(), name="proof-registry-load")
+
         Mempool.run(
             name,
             self.committee.mempool,
@@ -85,6 +98,7 @@ class Node:
             # payload gossip fan-out, sync and address resolution cross
             # an epoch boundary at the same activation round (§5.5j).
             epoch_manager=self.epoch_manager,
+            proof_registry=self.proof_registry,
         )
         Consensus.run(
             name,
@@ -97,6 +111,7 @@ class Node:
             core_channel=consensus_core_channel,
             verification_service=verification_service,
             epoch_manager=self.epoch_manager,
+            proof_registry=self.proof_registry,
         )
         log.info("Node %s successfully booted", name.short())
 

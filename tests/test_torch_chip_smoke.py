@@ -849,3 +849,125 @@ def test_committed_txs_counts_each_committed_payload_once():
                                 ts.format("consensus") + "Committed B2(BBBB) -> P2="]) + "\n"
     node1 = ts.format("consensus") + "Committed B1(AAAA) -> P1=\n" + ts.format("consensus") + "Committed B3(CC) -> P9=\n"
     assert chip_smoke.committed_txs({"node-0": node0, "node-1": node1}, 512) == {"node-0": 3, "node-1": 2}
+
+
+# --- phase 15: the client ingress and commit proofs -----------------------------
+
+
+def test_ingress_ports_leave_each_nodes_offsets_free():
+    import socket
+
+    avoid = chip_smoke._free_ports(8)
+    fronts = chip_smoke.free_ports_with_offsets(4, avoid=avoid)
+    taken = set(avoid)
+    for p in fronts:
+        group = {p, p + chip_smoke.INGRESS_PORT_OFFSET, p + chip_smoke.PROOFS_PORT_OFFSET}
+        assert not group & taken
+        taken |= group
+        for q in group - {p}:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", q))
+
+
+def test_ingress_node_parameters_and_loadgen_command_lines(tmp_path):
+    """Phase 15's parameters turn the client plane on over phase 13's, and
+    each leg's command line parses under the port's loadgen: leg A with
+    proofs and a certificate file, leg B over four processes, each leg's
+    clients its own."""
+    from hotstuff_tpu_torch import loadgen
+    from hotstuff_tpu_torch.node.config import NodeParameters, Secret
+
+    names = [Secret.new().name.encode_base64() for _ in range(4)]
+    _, parameters = chip_smoke.write_node_configs(tmp_path, names, list(range(30_000, 30_012)),
+                                                  chip_smoke.INGRESS_NODE_PARAMS)
+    p = NodeParameters.read(str(parameters))
+    assert p.mempool.ingress_enabled and p.mempool.benchmark_mode
+    assert (p.mempool.ingress_port_offset, p.mempool.proofs_port_offset) == (
+        chip_smoke.INGRESS_PORT_OFFSET, chip_smoke.PROOFS_PORT_OFFSET)
+    assert chip_smoke.LOCAL_NODE_PARAMS["mempool"].get("ingress_enabled") is None  # phase 13's are untouched
+    a = chip_smoke.loadgen_cmd("py", 9100, "A", "leg-A.json", "proofs-A.jsonl")
+    b = chip_smoke.loadgen_cmd("py", 9100, "B", "leg-B.json", "proofs-B.jsonl")
+    assert a[:3] == b[:3] == ["py", "-m", "hotstuff_tpu_torch.loadgen"]
+    args_a, args_b = loadgen.parse_args(a[3:]), loadgen.parse_args(b[3:])
+    assert (args_a.target, args_a.curve, args_a.rate, args_a.duration, args_a.clients, args_a.tx_bytes) == (
+        "127.0.0.1:9100", "flash", 100.0, 10.0, 8, 512)
+    assert args_a.proofs and args_a.proofs_out == "proofs-A.jsonl" and args_a.procs == 1
+    assert (args_a.spike_start, args_a.spike_end) == (10 / 3, 20 / 3)
+    assert (args_b.rate, args_b.procs, args_b.proofs, args_b.proofs_out) == (5000.0, 4, False, None)
+    assert args_a.seed != args_b.seed
+
+
+def _leg(offered=10, accepted=6, shed=4, **kw):
+    s = {"offered": offered, "accepted": accepted, "shed": shed, "bad_signature": 0, "replay": 0, "malformed": 0,
+         "unresolved": 0, "errors": 0}
+    s.update(kw)
+    return s
+
+
+def test_loadgen_errors_gate_each_leg():
+    assert chip_smoke.loadgen_errors("B", 0, _leg()) == []
+    proofs = {"tracked": 6, "served": 6, "verified_ok": 6, "verify_failed": 0}
+    assert chip_smoke.loadgen_errors("A", 0, _leg(proofs=proofs)) == []
+    assert chip_smoke.loadgen_errors("A", 0, _leg(proofs={**proofs, "served": 5})) == [
+        f"leg A: proofs {({**proofs, 'served': 5})} for 6 accepted transactions"]
+    assert chip_smoke.loadgen_errors("A", 0, _leg(proofs={**proofs, "verify_failed": 1}))
+    errors = chip_smoke.loadgen_errors("B", 2, _leg(offered=12, unresolved=2))
+    assert errors == ["leg B: loadgen exited 2", "leg B: 2 unresolved, 0 errors",
+                      "leg B: offered 12 != accepted 6 + shed 4 + rejected 0"]
+    assert chip_smoke.loadgen_errors("B", 0, _leg(accepted=5, bad_signature=1)) == [
+        "leg B: 1 valid signatures answered bad_signature"]
+    assert chip_smoke.loadgen_errors("B", 0, _leg(accepted=0, shed=10)) == ["leg B: nothing accepted"]
+
+
+def test_ingress_dump_errors():
+    dump = {"counters": {"ingress.verified_sigs": 64, "ingress.rejected_sigs": 0, "proofs.cert_mismatch": 0},
+            "launches": dict.fromkeys(chip_smoke.INGRESS_KERNELS, 2)}
+    assert chip_smoke.ingress_dump_errors("node-0", dump, True) == []
+    assert chip_smoke.ingress_dump_errors("node-1", {"counters": {}}, False) == []
+    bad = {"counters": {"ingress.rejected_sigs": 3, "proofs.cert_mismatch": 1}, "launches": {"ladder": 1}}
+    assert chip_smoke.ingress_dump_errors("node-0", bad, True) == [
+        "node-0: ingress.rejected_sigs 3", "node-0: proofs.cert_mismatch 1", "node-0: no client signature verified",
+        "node-0: ['h_digits', 'decompress_table', 'compress_eq'] never launched"]
+
+
+def test_committed_txs_in_a_window():
+    import calendar
+
+    ts = "[2026-10-18T03:02:0{}.500Z INFO hotstuff.{}] "
+    author = ts.format(1, "mempool") + "Payload P1= contains 1024 B\n" + ts.format(1, "mempool") + \
+        "Payload P2= contains 512 B\n"
+    log = author + "\n".join([ts.format(2, "consensus") + "Committed B1(AA) -> P1=",
+                              ts.format(4, "consensus") + "Committed B2(BB) -> P2=",
+                              ts.format(4, "consensus") + "Committed B3(CC) -> P1="]) + "\n"
+    start = calendar.timegm((2026, 10, 18, 3, 2, 2, 0, 0, 0))
+    assert chip_smoke.committed_txs({"n": log}, 512, (start, start + 1)) == {"n": 2}
+    assert chip_smoke.committed_txs({"n": log}, 512, (start + 1, start + 3)) == {"n": 3}
+    assert chip_smoke.committed_txs({"n": log}, 512, (start, start + 3)) == {"n": 3}
+    assert chip_smoke.committed_txs({"n": log}, 512, (start + 3, start + 9)) == {"n": 0}
+
+
+def test_certificate_verdicts_on_cpu():
+    """Leg A's certificates through `CommitProof.verify` on the plain
+    kernels and on OpenSSL: equal verdicts, tampered copies rejected."""
+    import dataclasses
+
+    from hotstuff_tpu_torch.consensus.config import Committee
+    from hotstuff_tpu_torch.consensus.messages import QC, _vote_digest
+    from hotstuff_tpu_torch.crypto import Digest, PublicKey, Signature
+    from hotstuff_tpu_torch.proofs import CommitProof
+    from hotstuff_tpu_torch.utils.serde import Writer
+
+    pairs = sorted(pysigner.keypair_from_seed(bytes([i + 7]) * 32) for i in range(4))
+    keys = [(PublicKey(pk), seed) for pk, seed in pairs]
+    cmt = Committee.new([(pk, 1, ("127.0.0.1", 1)) for pk, _ in keys])
+    skeleton = CommitProof(keys[1][0], 5, (Digest.of(b"payload"),), Digest.of(b"parent"), 4, QC.genesis())
+    digest = skeleton.block_digest()
+    msg = _vote_digest(digest, 5).data
+    proof = dataclasses.replace(skeleton, cert=QC(digest, 5, tuple(
+        (pk, Signature(pysigner.sign(seed, msg))) for pk, seed in keys[:3])))
+    w = Writer()
+    proof.encode(w)
+    line = json.dumps({"proof": w.bytes().hex(), "tx": "00"})
+    verdicts = chip_smoke.certificate_verdicts([line], cmt, device="cpu")
+    assert verdicts["card"] == verdicts["host"] == {
+        "certificates": ["ok"], "tampered": ["ProofVerificationError", "InvalidSignatureError"]}

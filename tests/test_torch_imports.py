@@ -64,7 +64,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "hotstuff_tpu_torch.consensus", "hotstuff_tpu_torch.consensus.messages",
                 "hotstuff_tpu_torch.ingress", "hotstuff_tpu_torch.ingress.messages",
                 "hotstuff_tpu_torch.ingress.admission", "hotstuff_tpu_torch.ingress.loadgen",
-                "hotstuff_tpu_torch.ingress.pipeline", "hotstuff_tpu_torch.crypto.primitives",
+                "hotstuff_tpu_torch.ingress.pipeline", "hotstuff_tpu_torch.ingress.server",
+                "hotstuff_tpu_torch.proofs", "hotstuff_tpu_torch.proofs.messages", "hotstuff_tpu_torch.proofs.registry",
+                "hotstuff_tpu_torch.proofs.server", "hotstuff_tpu_torch.loadgen", "hotstuff_tpu_torch.crypto.primitives",
                 "hotstuff_tpu_torch.crypto.service", "hotstuff_tpu_torch.network",
                 "hotstuff_tpu_torch.network.net", "hotstuff_tpu_torch.store", "hotstuff_tpu_torch.store.store",
                 *(f"hotstuff_tpu_torch.consensus.{m}" for m in (

@@ -10,9 +10,14 @@
     registered takes one synthetic mempool batch on the generic plain
     kernels (K2, K3, K1, K4) and one QC on the committee plain kernels
     (K2g, K5, K4).
+  * The client plane: the mixed committee with `ingress_enabled` on every
+    node; signed transactions submitted to a port node's ingress port and
+    to a reference node's come back from each node's proof port as commit
+    proofs that both packages' `CommitProof.verify` accept.
   * The entry point: `python -m hotstuff_tpu_torch.node.main run --crypto
     torch` asks for the card, so on a host without one it exits non-zero,
-    and never falls back to the CPU; what is not ported is refused.
+    and never falls back to the CPU; `--ingress` turns the client plane on;
+    what is not ported is refused.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+import chip_smoke
 
 pytest.importorskip("cryptography")
 
@@ -60,6 +67,7 @@ from hotstuff_tpu_torch.ops import sha512 as ops_sha512
 from hotstuff_tpu_torch.store import Store
 from hotstuff_tpu_torch.utils import metrics
 from hotstuff_tpu_torch.utils.actors import channel
+from hotstuff_tpu_torch.utils.serde import Reader
 from tests.common_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -171,12 +179,10 @@ def test_mixed_committee_commits_the_same_blocks_with_an_option_on(run_async, ba
     _mixed_committee(run_async, base_port, **option)
 
 
-@pytest.mark.parametrize("section, option", [("consensus", "aggregate_certs"), ("mempool", "ingress_enabled")])
-def test_node_refuses_parameters_that_are_not_ported(tmp_path, section, option):
-    """A parameters file that turns on an option the port leaves out stops
-    the node before it boots; `Consensus.run` refuses the consensus ones."""
-    from hotstuff_tpu_torch.node.config import ConfigError, Secret
-    from hotstuff_tpu_torch.node.node import Node
+def _node_files(tmp_path, parameters: dict) -> tuple[str, str, str]:
+    """A key, a committee of that one key and a parameters file: their
+    paths."""
+    from hotstuff_tpu_torch.node.config import Secret
 
     key = tmp_path / "node.json"
     Secret.new().write(str(key))
@@ -188,9 +194,20 @@ def test_node_refuses_parameters_that_are_not_ported(tmp_path, section, option):
             "front_address": "127.0.0.1:2", "mempool_address": "127.0.0.1:3"}}},
     }))
     params = tmp_path / "parameters.json"
-    params.write_text(json.dumps({section: {option: True}}))
+    params.write_text(json.dumps(parameters))
+    return str(key), str(committee), str(params)
+
+
+@pytest.mark.parametrize("section, option", [("consensus", "aggregate_certs")])
+def test_node_refuses_parameters_that_are_not_ported(tmp_path, section, option):
+    """A parameters file that turns on an option the port leaves out stops
+    the node before it boots; `Consensus.run` refuses the consensus ones."""
+    from hotstuff_tpu_torch.node.config import ConfigError
+    from hotstuff_tpu_torch.node.node import Node
+
+    key, committee, params = _node_files(tmp_path, {section: {option: True}})
     with pytest.raises(ConfigError, match=f"{option} is not ported"):
-        Node(str(committee), str(key), str(tmp_path / "db"), str(params))
+        Node(committee, key, str(tmp_path / "db"), params)
     if section == "consensus":
         with pytest.raises(ValueError, match=f"{option} is not ported"):
             Consensus.run(PublicKey(bytes(32)), Committee.new([]), Parameters(**{option: True}), None,
@@ -310,7 +327,6 @@ def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
 
 
 @pytest.mark.parametrize("argv, said", [
-    (["run", "--ingress"], "--ingress is not ported"),
     (["run", "--crypto", "cpu", "--device", "cpu"], "--device applies to --crypto torch only"),
     (["run", "--crypto", "cpu", "--crypto-sharded"], "--crypto-sharded requires --crypto torch"),
     (["run", "--crypto", "tpu"], "invalid choice: 'tpu'"),
@@ -361,3 +377,139 @@ def test_node_serves_its_telemetry_plane(run_async):
     assert dump["kind"] == "telemetry" and dump["node"] == "node-3"
     assert dump["lanes"]["consensus"]["count"] == 1 and len(dump["snapshots"]) == 1
     assert isinstance(dump["device"], dict) and isinstance(dump["peers"], dict)
+
+
+def test_mixed_committee_serves_ingress_and_commit_proofs(run_async):
+    """The mixed committee (nodes 0, 1 the reference's, 2, 3 the port's) with
+    `ingress_enabled` and a proof registry on every node. Signed client
+    transactions go to port node 2's ingress port (the port's client) and
+    to reference node 0's (the reference's client); each node's proof port
+    serves their commit proofs, and both packages' `CommitProof.verify`
+    accept every proof, whichever node served it. The nodes commit equal
+    digests wherever two commit a round."""
+    from hotstuff_tpu import ingress as r_ingress
+    from hotstuff_tpu import proofs as r_proofs
+    from hotstuff_tpu.crypto import backend as r_backend
+    from hotstuff_tpu.utils import serde as r_serde
+    from hotstuff_tpu_torch import ingress, proofs
+    from hotstuff_tpu_torch.crypto import backend as p_backend
+
+    n = 4
+    keys = _keys(n, 21)
+    others = chip_smoke._free_ports(2 * n)
+    fronts = chip_smoke.free_ports_with_offsets(n, avoid=others)  # ingress and proof ports free too
+    addr = lambda p: ("127.0.0.1", p)  # noqa: E731
+    ref_cc = RCommittee.new([(pk, 1, addr(others[n + i])) for i, (pk, _) in enumerate(keys)])
+    ref_mc = RMempoolCommittee.new([(pk, addr(fronts[i]), addr(others[i])) for i, (pk, _) in enumerate(keys)])
+    port_cc = Committee.from_json(ref_cc.to_json())
+    port_mc = MempoolCommittee.from_json(ref_mc.to_json())
+    # (package, client seed, node) of each client: the port's at port node
+    # 2, the reference's at reference node 0.
+    clients = (("port", b"\x0b" * 32, 2), ("ref", b"\x0c" * 32, 0))
+    txs_each = 6
+
+    async def body():
+        commit_channels, registries = [], []
+        for i, (pk, sk) in enumerate(keys):
+            cm, core, commit = (r_channel(), r_channel(), r_channel()) if i < 2 else (channel(), channel(), channel())
+            commit_channels.append(commit)
+            if i < 2:
+                sig, store = RSignatureService(sk), RStore()
+                reg = r_proofs.ProofRegistry(store=store)
+                RMempool.run(pk, ref_mc, RMempoolParameters(max_payload_size=256, min_block_delay=10,
+                                                            ingress_enabled=True), store, sig, cm, core,
+                             proof_registry=reg)
+                RConsensus.run(pk, ref_cc, RParameters(timeout_delay=1_000, min_block_delay=10), store, sig, cm,
+                               commit, core_channel=core, proof_registry=reg)
+            else:
+                ppk, psk = PublicKey(pk.data), SecretKey(sk.data)
+                sig, store = SignatureService(psk), Store()
+                reg = proofs.ProofRegistry(store=store)
+                service = BatchVerificationService(CpuBackend())
+                Mempool.run(ppk, port_mc, MempoolParameters(max_payload_size=256, min_block_delay=10,
+                                                            ingress_enabled=True), store, sig, cm, core,
+                            verification_service=service, proof_registry=reg)
+                Consensus.run(ppk, port_cc, Parameters(timeout_delay=1_000, min_block_delay=10), store, sig, cm,
+                              commit, core_channel=core, verification_service=service, proof_registry=reg)
+            registries.append(reg)
+        committed: list[list] = [[] for _ in range(n)]
+
+        async def drain(i):
+            while True:
+                committed[i].append(await commit_channels[i].get())
+
+        drains = [asyncio.ensure_future(drain(i)) for i in range(n)]
+        await asyncio.sleep(0.3)
+        served = []
+        for pkg, seed, node in clients:
+            ing, prf = (ingress, proofs) if pkg == "port" else (r_ingress, r_proofs)
+            client = ing.IngressClient()
+            await client.connect(("127.0.0.1", fronts[node] + 1_000))
+            txs = [ing.ClientTransaction.new_signed(seed, nonce, 1, b"\x01" + bytes([nonce]) * 40)
+                   for nonce in range(1, txs_each + 1)]
+            statuses = await asyncio.gather(*(client.submit(tx) for tx in txs))
+            assert [r.status_name for r in statuses] == ["accepted"] * txs_each, (pkg, statuses)
+            client.close()
+            proof_client = prf.ProofClient()
+            await proof_client.connect(("127.0.0.1", fronts[node] + 2_000))
+            replies = await asyncio.gather(*(proof_client.query(prf.ProofQuery(tx.client, tx.nonce,
+                                                                               prf.MODE_SUBSCRIBE))
+                                             for tx in txs))
+            proof_client.close()
+            assert [r.status_name for r in replies] == ["ok"] * txs_each, (pkg, replies)
+            served += [(pkg, node, prf.encode_proof_message(r)) for r in replies]
+        for d in drains:
+            d.cancel()
+        return served, committed, [reg.stats["mismatch"] for reg in registries]
+
+    prev_port, prev_ref = p_backend.set_backend(CpuBackend()), r_backend.set_backend(r_backend.CpuBackend())
+    try:
+        served, committed, mismatches = run_async(body(), timeout=120)
+        assert len(served) == 2 * txs_each and mismatches == [0] * n
+        for pkg, node, wire in served:
+            ours = proofs.decode_proof_message(wire).proof
+            theirs = r_proofs.decode_proof_message(wire).proof
+            ours.verify(port_cc)
+            theirs.verify(ref_cc)
+            w = r_serde.Writer()
+            theirs.encode(w)
+            assert proofs.CommitProof.decode(Reader(w.bytes())) == ours
+    finally:
+        p_backend.set_backend(prev_port)
+        r_backend.set_backend(prev_ref)
+    by_round: dict[int, set] = {}
+    for blocks in committed:
+        for b in blocks:
+            by_round.setdefault(b.round, set()).add(b.digest().data)
+    assert all(committed) and all(len(d) == 1 for d in by_round.values()), by_round
+
+
+def test_node_run_accepts_ingress(tmp_path):
+    """`run --ingress` parses and turns `ingress_enabled` on over a
+    parameters file that leaves it off."""
+    from hotstuff_tpu_torch.node import main as node_main
+
+    key, committee, params = _node_files(tmp_path, {"mempool": {"ingress_enabled": False}})
+    base = ["run", "--keys", key, "--committee", committee, "--store", str(tmp_path / "db"), "--parameters", params]
+    assert not node_main.make_node(node_main.parse_args(base)).parameters.mempool.ingress_enabled
+    args = node_main.parse_args([*base, "--ingress"])
+    assert args.ingress and node_main.make_node(args).parameters.mempool.ingress_enabled
+    _, _, on = _node_files(tmp_path, {"mempool": {"ingress_enabled": True}})
+    assert node_main.make_node(node_main.parse_args([*base[:-1], on])).parameters.mempool.ingress_enabled
+
+
+def test_node_still_refuses_aggregate_certs_and_deploy(tmp_path, capsys):
+    """With the client plane on, aggregate certificates in the parameters
+    and the `deploy` subcommand are still refused."""
+    from hotstuff_tpu_torch.node import main as node_main
+    from hotstuff_tpu_torch.node.config import ConfigError
+
+    key, committee, params = _node_files(tmp_path, {"mempool": {"ingress_enabled": True},
+                                                    "consensus": {"aggregate_certs": True}})
+    args = node_main.parse_args(["run", "--keys", key, "--committee", committee, "--store", str(tmp_path / "db"),
+                                 "--parameters", params, "--ingress"])
+    with pytest.raises(ConfigError, match="aggregate_certs is not ported"):
+        node_main.make_node(args)
+    with pytest.raises(SystemExit) as exit_:
+        node_main.parse_args(["deploy", "--nodes", "4"])
+    assert exit_.value.code == 2 and "deploy subcommand is not ported" in capsys.readouterr().err
