@@ -311,10 +311,28 @@ caught:
      latency p50 / p99, `proof_bytes_max` and how long after the curve's
      end its last answer came (`answer_tail_s`, against the generator's
      LOADGEN_GRACE_S), and each node's lanes, launches and
-     `ingress.*` / `proofs.*` counters (the rows' `ingress_node_launches`).
+     `ingress.*` / `proofs.*` counters (the rows' `ingress_node_launches`);
+ 16. the port's in-process testbed: `python -m hotstuff_tpu_torch.node.main
+     deploy --nodes 4 --crypto-crossover 1 --metrics-out ...` in a run
+     directory of its own, after a check that 7000-7003, 7100-7103 and
+     7200-7203 are free (a taken port fails the phase and is named; the
+     ports never move): four nodes in one process on one `TorchBackend` on
+     the card, no committee registered. Four `node.client` processes send
+     LOCAL_BENCH's 1,000 tx/s of 512 B in all to the front ports for
+     DEPLOY_TRAFFIC_S (15 s), then SIGTERM. Every round in the log must
+     carry one digest, committed by all four nodes up to the newest round
+     that all four committed (`deploy_commit_errors`); the dump must show
+     lanes on the card, none on the host or the committee route, K2, K3,
+     K1 and K4 launched and nothing else (the rows' `deploy_launches`),
+     and every width the largest batch can reach (`deploy_widths`) must be
+     among phase 2's. Prints committed rounds, commit lines and blocks a
+     second a node within the traffic (`committed_between`), committed
+     transactions a second, lanes, launches and where the time went.
+Before the kernels line, `phase seconds:` gives the wall seconds of each
+stretch of the run (`Laps`), so that two runs compare phase by phase.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes;
-phases 13 and 15 the port's). The bound column's model and constants come from
+phases 13, 15 and 16 the port's). The bound column's model and constants come from
 `hotstuff_tpu_torch/roofline.py`.
 Exits non-zero without a result when no CUDA device is available or the
 port's package is not beside this script.
@@ -3124,6 +3142,171 @@ def phase_port_ingress(run_dir: Path, device: str = "cuda") -> dict:
                 verdicts=verdicts, boot_s=boot_s, node_s=node_s)
 
 
+# --- phase 16: the in-process testbed (node.main deploy) on the card ---------
+
+DEPLOY_NODES = 4
+DEPLOY_BASES = (7000, 7100, 7200)  # the reference testbed's consensus, mempool and front ports
+DEPLOY_TRAFFIC_S = 15
+DEPLOY_KERNELS = ("h_digits", "decompress_table", "ladder", "compress_eq")  # deploy registers no committee
+DEPLOY_MIN_BUCKET, DEPLOY_CHUNK = 128, 4096  # TorchBackend's defaults, which deploy keeps
+
+
+def deploy_ports_taken(n: int = DEPLOY_NODES, bases=DEPLOY_BASES) -> list[int]:
+    """The testbed's ports (base + i for each base, i < n) that something
+    on 127.0.0.1 already holds: each is tried with a bind, never moved."""
+    taken = []
+    for port in (b + i for b in bases for i in range(n)):
+        sock = socket.socket()
+        try:
+            sock.bind(("127.0.0.1", port))
+        except OSError:
+            taken.append(port)
+        finally:
+            sock.close()
+    return taken
+
+
+def deploy_commit_counts(log_text: str) -> dict[int, dict[str, int]]:
+    """Round -> {digest: how many of the process's nodes committed it}, from
+    the `Committed B<r>(<digest>)` lines of one deploy log (every node of
+    the testbed logs into it)."""
+    out: dict[int, dict[str, int]] = {}
+    for r, d in re.findall(r"Committed B(\d+)\(([^)]*)\)\s*$", log_text, re.M):
+        by_digest = out.setdefault(int(r), {})
+        by_digest[d] = by_digest.get(d, 0) + 1
+    return out
+
+
+def deploy_commit_errors(counts: dict[int, dict[str, int]], nodes: int = DEPLOY_NODES) -> list[str]:
+    """What a deploy's commits got wrong: no round committed by every node,
+    two digests for one round, a digest committed more than `nodes` times,
+    or a round below the newest that every node committed which some node
+    did not commit (only the rounds past it, cut by SIGTERM, may be
+    short)."""
+    errors = [f"round {r}: digests {sorted(by)}" for r, by in sorted(counts.items()) if len(by) > 1]
+    errors += [f"round {r}: {d} committed {c} times by {nodes} nodes"
+               for r, by in sorted(counts.items()) for d, c in by.items() if c > nodes]
+    full = [r for r, by in counts.items() if len(by) == 1 and sum(by.values()) == nodes]
+    if not full:
+        return errors + [f"no round committed by all {nodes} nodes"]
+    short = sorted(r for r, by in counts.items() if r < max(full) and sum(by.values()) != nodes)
+    if short:
+        errors.append(f"rounds {short} are not committed by all {nodes} nodes, though round {max(full)} is")
+    return errors
+
+
+def deploy_widths(max_batch: int, min_bucket: int = DEPLOY_MIN_BUCKET, chunk: int = DEPLOY_CHUNK) -> list[int]:
+    """Every lane width the generic kernels can have taken in a run whose
+    largest verifier batch held `max_batch` signatures: the verifier pads a
+    chunk of n lanes to the power of two from `min_bucket` up, and splits
+    batches at `chunk`."""
+    widths, w = [], min_bucket
+    while True:
+        widths.append(w)
+        if w >= min(max(max_batch, 1), chunk):
+            return widths
+        w *= 2
+
+
+def deploy_launches(dump: dict) -> dict[str, int]:
+    """The kernel launch counts of a deploy's metrics dump (its run, after
+    the warm-up)."""
+    launches = dump.get("launches")
+    return dict(launches) if isinstance(launches, dict) else {}
+
+
+def deploy_dump_errors(dump: dict) -> list[str]:
+    """What a deploy's dump got wrong: no lane on the card, lanes on the
+    host, a kernel of DEPLOY_KERNELS never launched, another launched, or a
+    batch wider than phase 2's widths hold against the plain versions."""
+    errors = []
+    lanes = node_dump_lanes(dump)
+    if lanes["generic"] <= 0 or lanes["committee"] or lanes["host"]:
+        errors.append(f"lanes {lanes} (want generic > 0, committee 0, host 0)")
+    launches = deploy_launches(dump)
+    if not launches:
+        return errors + ["the dump holds no launch counts"]
+    idle = sorted(k for k in DEPLOY_KERNELS if not launches.get(k))
+    if idle:
+        errors.append(f"{idle} never launched")
+    off = sorted(k for k, v in launches.items() if v and k not in DEPLOY_KERNELS)
+    if off:
+        errors.append(f"{off} launched off deploy's path: {launches}")
+    max_batch = int(dump.get("histograms", {}).get("verifier.batch_size", {}).get("max", 0))
+    unheld = sorted(set(deploy_widths(max_batch)) - set(_widths(NODE_BUCKETS)))
+    if unheld:
+        errors.append(f"widths {unheld} (largest batch {max_batch}) are not among phase 2's {_widths(NODE_BUCKETS)}")
+    return errors
+
+
+def deploy_cmd(py: str, metrics_out: str) -> list[str]:
+    """`node.main deploy` as phase 16 runs it: four nodes on the card's
+    shared `TorchBackend`, every batch of one signature or more on the
+    card."""
+    return [py, "-m", "hotstuff_tpu_torch.node.main", "-vv", "deploy", "--nodes", str(DEPLOY_NODES),
+            "--crypto-crossover", "1", "--metrics-out", metrics_out]
+
+
+def phase_port_deploy(run_dir: Path) -> dict:
+    """Phase 16: the port's in-process testbed on the card (see the module
+    docstring)."""
+    n = DEPLOY_NODES
+    taken = deploy_ports_taken(n)
+    if taken:
+        fail(f"deploy's ports are taken: {taken} (the testbed keeps the reference's 7000/7100/7200 + i)")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    py = sys.executable
+    t0 = time.perf_counter()
+    log, dump_path = run_dir / "deploy.log", run_dir / "metrics.json"
+    consensus = [f"127.0.0.1:{DEPLOY_BASES[0] + i}" for i in range(n)]
+    procs = []
+    try:
+        procs.append(_spawn(deploy_cmd(py, dump_path.name), log, run_dir))
+        clients = []
+        for i in range(n):
+            clog = run_dir / f"client-{i}.log"
+            clients.append((clog, _spawn(port_client_cmd(py, DEPLOY_BASES[2] + i, consensus, n), clog, run_dir)))
+        procs += [p for _, p in clients]
+        _await_logs(clients, "Start sending transactions", "client")
+        if procs[0].poll() is not None:
+            fail(f"deploy exited (rc {procs[0].returncode}); see {log}:\n{log.read_text()[-2000:]}")
+        t_run, t_run_utc = time.monotonic(), time.time()
+        up_s = time.perf_counter() - t0
+        time.sleep(DEPLOY_TRAFFIC_S)
+        wall = time.monotonic() - t_run
+    finally:
+        _kill(procs)  # SIGTERM: deploy writes its dump
+        for store in run_dir.glob(".db_*"):
+            shutil.rmtree(store, ignore_errors=True)
+    text = log.read_text(errors="replace")
+    try:
+        dump = json.loads(dump_path.read_text())
+    except (OSError, json.JSONDecodeError) as e:
+        fail(f"deploy left no metrics dump ({e!r}); see {run_dir}")
+    counts = deploy_commit_counts(text)
+    errors = deploy_commit_errors(counts, n) + deploy_dump_errors(dump)
+    if errors:
+        fail(f"deploy: {errors}; see {run_dir}")
+    in_window = committed_between(text, t_run_utc, t_run_utc + wall)  # every node's commit lines
+    txs = committed_txs({"deploy": text}, LOCAL_BENCH["tx_size"], (t_run_utc, t_run_utc + wall))["deploy"]
+    launches, lanes = deploy_launches(dump), node_dump_lanes(dump)
+    max_batch = int(dump["histograms"]["verifier.batch_size"]["max"])
+    full = max(r for r, by in counts.items() if sum(by.values()) == n)
+    result = dict(rounds=len(counts), newest_full_round=full, blocks_in_traffic=in_window,
+                  blocks_per_s=in_window / n / wall, tx_per_s=txs / wall, lanes=lanes, launches=launches,
+                  widths=deploy_widths(max_batch), timings=node_dump_timings(dump), wall_s=wall, up_s=up_s)
+    print(f"port deploy: {n} nodes in one process on one TorchBackend (--crypto-crossover 1), up with "
+          f"{n} clients in {up_s:.1f} s, {wall:.1f} s of client traffic ({LOCAL_BENCH['rate']} tx/s of "
+          f"{LOCAL_BENCH['tx_size']} B in all): {len(counts)} rounds committed, each by all {n} nodes with one "
+          f"digest up to round {full}; {in_window} commit lines within the traffic, "
+          f"{result['blocks_per_s']:.2f} blocks/s a node; {txs} transactions, {result['tx_per_s']:.1f} tx/s; "
+          f"lanes {lanes}; launches { {k: v for k, v in launches.items() if v} }; largest batch {max_batch}, "
+          f"widths {result['widths']} (each held in phase 2); p50 / p99 ms and card batches {result['timings']}; "
+          f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
 # --- phase 8: BLS aggregation ------------------------------------------------
 
 BLS_SIZES = (4, 16, 64, 128, 256)  # bench.py --agg-sizes' 4, 16, 64; the agg_certs chaos cells' 128; bls.py's 256
@@ -4477,6 +4660,22 @@ REPLACES = {
 }
 
 
+class Laps:
+    """Wall seconds of each stretch of `main`, keyed by the phases it ran:
+    `lap(label)` closes the stretch since the previous lap (or since the
+    clock was made). `main` prints them on one line, so that a run's time
+    splits by phase and two runs compare phase by phase."""
+
+    def __init__(self) -> None:
+        self.t = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def lap(self, label: str) -> None:
+        now = time.perf_counter()
+        self.seconds[label] = round(now - self.t, 1)
+        self.t = now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4492,27 +4691,35 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    laps = Laps()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     phase_build()
+    laps.lap("1 build")
     kernels = phase_compare(args.seed)
     kernels.update(phase_reduce_compare())
+    laps.lap("2 compare")
     main_path = phase_main_path(args.seed)
     votes = committee_votes(args.seed)
     phase_staging(main_path["batch"], votes[2:6])
     phase_pipeline_ab(main_path["batch"])
+    laps.lap("3-4 main path, staging, pipeline A/B")
     committee_path = phase_committee_path(votes)
     committee_kernels = phase_committee_compare(args.seed, committee_path["table_keys"])
+    laps.lap("5 committee path and compare")
     mesh = phase_mesh(main_path["batch"], committee_path, main_path["launches"], kernels, committee_kernels, card)
+    laps.lap("mesh")
 
     from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
     from hotstuff_tpu_torch.ops import _build
 
     sidecar_backend = TorchBackend(device="cuda", crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
     sidecar = phase_sidecar(args.seed, sidecar_backend, committee_path, main_path["sigs_per_s"], card)
+    laps.lap("6 sidecar")
     committee_run = phase_committee_run(sidecar_backend, committee_path["qcs"], REPO / ".chip_smoke" / "committee")
+    laps.lap("7 reference committee")
     print(f"sidecar pipeline: {_pipeline_line(sidecar_backend._verifier)}", flush=True)
     off_path = bls_off_path_errors({
         "main path": main_path["launches"], "committee path": committee_path["launches"],
@@ -4523,6 +4730,7 @@ def main() -> int:
     if off_path:
         fail(f"BLS kernels launched in phases 3-7: {off_path}")
     bls_path = phase_bls(args.seed)
+    laps.lap("8 BLS")
     k7_off = k7_off_path_errors({
         "main path": main_path["launches"], "committee path": committee_path["launches"],
         "sidecar": sidecar["launches"], "committee run": committee_run["launches"], "BLS": bls_path["launches"],
@@ -4533,6 +4741,7 @@ def main() -> int:
     if k7_off:
         fail(f"K7 launched in phases 2-8: {k7_off}")
     f32 = phase_f32(args.seed, main_path["batch"])
+    laps.lap("9 f32")
     print(f"f32 path sigs/s {f32['rates']} beside phase 3's packed path {main_path['sigs_per_s']:.1f}", flush=True)
     since_f32 = _build.launches()
     tuning_off = off_path_errors({
@@ -4549,6 +4758,7 @@ def main() -> int:
     field_launches = _build.launches()
     phase_wide_compare(args.seed)
     tool_launches = phase_tune()
+    laps.lap("10 field12, wide compare, tuning")
     bls_late = bls_off_path_errors({
         **{f"f32 {k}": d for k, d in f32["leg_launches"].items()}, "since phase 9's last reset": since_f32,
         "phase 10 field12": field_launches, "phase 10 wide compare": _build.launches(), "tuning tool": tool_launches,
@@ -4556,15 +4766,22 @@ def main() -> int:
     if bls_late:
         fail(f"BLS kernels launched in phases 9-10: {bls_late}")
     bench_runs = phase_bench()
+    laps.lap("11 bench")
     bench_runs.update(phase_bench_legs(args.seed))
+    laps.lap("12 bench legs")
     bench_launches = {label: r["launches"] for label, r in bench_runs.items()}
     port_committee = phase_port_committee(REPO / ".chip_smoke" / "port_committee")
-    t14 = time.perf_counter()
+    laps.lap("13 port committee")
     phase_latch_probe()
     phase_roofline(main_path["sigs_per_s"], len(committee_path["table_keys"]), {**kernels, **committee_kernels})
     phase_steal(main_path["batch"])
-    print(f"phase 14 (latch_probe, roofline, work stealing): {time.perf_counter() - t14:.1f} s", flush=True)
+    laps.lap("14 latch_probe, roofline, stealing")
+    print(f"phase 14 (latch_probe, roofline, work stealing): {laps.seconds['14 latch_probe, roofline, stealing']:.1f} s",
+          flush=True)
     port_ingress = phase_port_ingress(REPO / ".chip_smoke" / "port_ingress")
+    laps.lap("15 port ingress")
+    port_deploy = phase_port_deploy(REPO / ".chip_smoke" / "port_deploy")
+    laps.lap("16 port deploy")
     node_launches = lambda name: {node: d.get(name, 0) for node, d in port_committee["launches"].items()}  # noqa: E731
     ingress_launches = lambda name: {node: d.get(name, 0) for node, d in port_ingress["launches"].items()}  # noqa: E731
 
@@ -4580,6 +4797,7 @@ def main() -> int:
                 mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                                for label, m in mesh["meshes"].items()},
                 node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
+                deploy_launches=port_deploy["launches"].get(name, 0),
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
                 bound_by=res["bound_by"], library_ms=None,
@@ -4596,6 +4814,7 @@ def main() -> int:
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
             node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
+            deploy_launches=port_deploy["launches"].get(name, 0),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res.get("extra", {}),
@@ -4608,6 +4827,7 @@ def main() -> int:
         bench_launches={label: n["bit_ladder"] for label, n in bench_launches.items()},
         mesh_launches=f32["mesh_launches"],  # phase 9's ShardedEd25519TorchVerifier(packed=False) runs
         node_launches=node_launches("bit_ladder"), ingress_node_launches=ingress_launches("bit_ladder"),
+        deploy_launches=port_deploy["launches"].get("bit_ladder", 0),
         matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
         bound_by=res["bound_by"], library_ms=None, **res["extra"],
@@ -4624,10 +4844,12 @@ def main() -> int:
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
             node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
+            deploy_launches=port_deploy["launches"].get(name, 0),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, **res["extra"],
         ))
+    print(f"phase seconds: {json.dumps(laps.seconds)} (card line and start-up in the first)", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,7 @@ class Consensus:
         epoch_manager: EpochManager | None = None,
         listen_address: Address | None = None,
         overlay_regions: dict[PublicKey, str] | None = None,
+        agg_signer=None,
         proof_registry=None,
     ) -> Core:
         """Boot the consensus plane; returns the Core (its actor task is
@@ -60,21 +61,18 @@ class Consensus:
         port to catch up and participate from. `overlay_regions` maps
         authority keys to WAN region labels for the aggregation overlay's
         region-aware tree (consensus/overlay.py); only consulted when
-        Parameters.aggregation_overlay is on. `proof_registry`
+        Parameters.aggregation_overlay is on. `agg_signer` is this
+        node's aggregate-scheme signing handle (crypto/aggsig.AggSigner);
+        required — together with Parameters.aggregate_certs — for the
+        node to EMIT aggregate votes/timeouts (§5.5o); inbound aggregate
+        certificates are understood regardless. `proof_registry`
         (proofs/registry.py) receives every committed block with its
         certifying certificate, feeding the commit-proof serving plane
         (§5.5q).
 
         `Parameters.region_aware_election` selects `RegionAwareElector`
         over `overlay_regions` (consensus/leader.py); with no map, as in a
-        node process, its schedule is round-robin.
-
-        Not ported, and refused: `Parameters.aggregate_certs` (aggregate
-        votes and timeouts need an aggregate signer, which no node process
-        supplies; inbound AggQC/AggTC frames still decode, and fail
-        verification, since no aggregate key is registered)."""
-        if parameters.aggregate_certs:
-            raise ValueError("aggregate_certs is not ported (no aggregate signer in a node)")
+        node process, its schedule is round-robin."""
         # NOTE: boot-time config echo; parsed by the benchmark harness.
         parameters.log(log)
 
@@ -126,6 +124,7 @@ class Consensus:
             commit_channel,
             verification_service=verification_service,
             overlay_regions=overlay_regions,
+            agg_signer=agg_signer,
             proof_registry=proof_registry,
         )
         spawn(core.run(), name="consensus-core")

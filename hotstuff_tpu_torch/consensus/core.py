@@ -29,14 +29,14 @@ import asyncio
 import logging
 import time
 
-from ..crypto import Digest, PublicKey, SignatureService
+from ..crypto import Digest, PublicKey, SignatureService, aggsig
 from ..network import net
 from ..network.net import NetMessage
 from ..store import Store
 from ..utils import metrics, tracing
 from ..utils.actors import Selector, Timer, spawn
 from ..utils.serde import Reader, Writer
-from .aggregator import Aggregator
+from .aggregator import AggCertAggregator, Aggregator
 from .config import Committee, Parameters
 from .errors import (
     ConsensusError,
@@ -52,6 +52,8 @@ from .messages import (
     TC,
     AggQC,
     AggTC,
+    AggTimeoutBundle,
+    AggVoteBundle,
     Block,
     LoopBack,
     Ping,
@@ -64,6 +66,8 @@ from .messages import (
     TimeoutBundle,
     Vote,
     VoteBundle,
+    _bitmap_members,
+    _resolve_agg_keys,
     _timeout_digest,
     _vote_digest,
     decode_any_qc,
@@ -114,6 +118,7 @@ _M_PARKED = metrics.counter("sync.parked_blocks")
 # encoded certificate bytes of EVERY committed block regardless of mode,
 # so legacy and aggregate matrix cells expose comparable
 # bytes_per_committed_round columns (utils/telemetry.fleet_rollup).
+_M_AGG_PARTIAL_REJECTS = metrics.counter("agg.partial_rejects")
 _M_AGG_CERT_BYTES = metrics.counter("agg.cert_bytes_committed")
 # Region-aware election attribution (§5.5p). Counted per COMMITTED round
 # whenever a region map is wired (EVERY elector mode, so region-blind
@@ -155,6 +160,7 @@ class Core:
         commit_channel: asyncio.Queue,
         verification_service=None,
         overlay_regions: dict[PublicKey, str] | None = None,
+        agg_signer: "aggsig.AggSigner | None" = None,
         proof_registry=None,
     ) -> None:
         from ..crypto.batch_service import BatchVerificationService
@@ -190,11 +196,22 @@ class Core:
         self.last_voted_round: Round = 0
         self.last_committed_round: Round = 0
         self.high_qc: QC | AggQC = QC.genesis()
+        # Constant-size certificate plane (§5.5o): with aggregate_certs
+        # on AND an aggregate signing key wired, this node's votes and
+        # timeouts ride as singleton-bitmap partials and its quorums form
+        # AggQC/AggTC. Inbound aggregate traffic is ALWAYS understood
+        # (mixed-fleet interop); only the node's own emissions are gated.
+        self.agg_signer = agg_signer
+        self.agg = bool(parameters.aggregate_certs) and agg_signer is not None
+        self.agg_aggregator = AggCertAggregator(
+            self.epochs, window=parameters.agg_window
+        )
         # Cumulative cert-plane commit stats feeding the "Cert plane:"
         # log line (benchmark LogParser's + CERTS section).
         self._agg_certs_committed = 0
         self._legacy_certs_committed = 0
         self._worst_cert_bytes = 0
+        self._agg_depth_max = 0
         # Cumulative election-plane commit stats feeding the
         # "Election plane:" log line (benchmark LogParser's + ELECTION
         # section). Zero — and the line absent — without a region map.
@@ -359,9 +376,19 @@ class Core:
     async def _store_block(self, block: Block) -> None:
         await self.store.write(block.digest().data, encode_stored_block(block))
 
+    def _agg_bit(self, round_: Round) -> int | None:
+        """This node's bit position in round_'s committee bitmap (sorted
+        key order — the AggQC/AggTC convention); None when not a member
+        of that round's committee."""
+        keys = self.epochs.committee_for_round(round_).sorted_keys()
+        try:
+            return keys.index(self.name)
+        except ValueError:
+            return None
+
     # -- voting & committing -------------------------------------------------
 
-    async def _make_vote(self, block: Block) -> Vote | None:
+    async def _make_vote(self, block: Block) -> Vote | AggVoteBundle | None:
         """Safety rules (core.rs:106-123), plus the epoch-final
         certification wall: while a next-epoch handoff is pending, this
         node refuses to help certify any round at or past the declared
@@ -387,6 +414,15 @@ class Core:
         self.last_voted_round = block.round
         await self._store_safety_state()
         digest = block.digest()
+        if self.agg:
+            # Aggregate mode: the vote IS a singleton-bitmap partial —
+            # one aggregate-scheme signature over the same vote digest,
+            # mergeable by any interior node on its way to the leader.
+            bit = self._agg_bit(block.round)
+            if bit is None:
+                return None
+            sig = self.agg_signer.sign(_vote_digest(digest, block.round).data)
+            return AggVoteBundle(block.round, digest, 1 << bit, sig)
         signature = await self.signature_service.request_signature(
             _vote_digest(digest, block.round)
         )
@@ -485,7 +521,7 @@ class Core:
             self._agg_certs_committed,
             self._legacy_certs_committed,
             self._worst_cert_bytes,
-            0,  # no aggregate partials: aggregate_certs is refused
+            self._agg_depth_max,
         )
         if self._elect_rounds:
             # NOTE: parsed by the benchmark LogParser (+ ELECTION section).
@@ -638,6 +674,7 @@ class Core:
         if self.timer is not None:
             self.timer.reset()
         self.aggregator.cleanup(self.round)
+        self.agg_aggregator.cleanup(self.round)
         self.overlay.cleanup(self.round)
         # Round/high_qc persistence piggybacks on the next pre-vote or
         # pre-timeout safety write (exactly one flushed write per round);
@@ -656,10 +693,22 @@ class Core:
         log.warning("Timeout reached for round %s", self.round)
         self.last_voted_round = max(self.last_voted_round, self.round)
         await self._store_safety_state()
-        signature = await self.signature_service.request_signature(
-            _timeout_digest(self.round, self.high_qc.round)
-        )
-        timeout = Timeout(self.high_qc, self.round, self.name, signature)
+        agg_bit = self._agg_bit(self.round) if self.agg else None
+        if agg_bit is not None:
+            # Aggregate mode: a singleton-group partial (one group for
+            # this node's high_qc round) carrying the backing certificate.
+            sig = self.agg_signer.sign(
+                _timeout_digest(self.round, self.high_qc.round).data
+            )
+            timeout: Timeout | AggTimeoutBundle = AggTimeoutBundle(
+                self.round, self.high_qc,
+                ((self.high_qc.round, 1 << agg_bit),), sig,
+            )
+        else:
+            signature = await self.signature_service.request_signature(
+                _timeout_digest(self.round, self.high_qc.round)
+            )
+            timeout = Timeout(self.high_qc, self.round, self.name, signature)
         if self.timer is not None:
             # Exponential backoff (liveness only — timeouts carry no safety
             # weight): under overload, firing at a fixed cadence adds
@@ -680,7 +729,17 @@ class Core:
             )
             self.timer.set_delay_ms(max(delay, p.timeout_delay))
             self.timer.reset()
-        if self.overlay.enabled:
+        if isinstance(timeout, AggTimeoutBundle):
+            if self.overlay.enabled:
+                await self.overlay.on_own_timeout_agg(timeout)
+            else:
+                await self._transmit(timeout, None)
+                note_plane_frames(
+                    KIND_TIMEOUT,
+                    len(self.committee.broadcast_addresses(self.name)),
+                )
+            await self._handle_agg_timeout_bundle(timeout)
+        elif self.overlay.enabled:
             # Overlay mode: ONE bundle frame up the round's aggregation
             # tree (plus a bounded gossip fallback if the round stays
             # stalled) instead of an n-1 frame broadcast — the O(n²)
@@ -791,6 +850,18 @@ class Core:
         sink = self.leader_elector.get_leader(
             self.round if self.parameters.leader_collector else self.round + 1
         )
+        if isinstance(vote, AggVoteBundle):
+            if sink == self.name:
+                await self._handle_agg_vote_bundle(vote)
+            elif self.overlay.enabled:
+                await self.overlay.on_own_vote_agg(vote)
+            else:
+                await self._transmit(
+                    vote, sink,
+                    trace=self._trace_ctx(vote.round, vote.hash),
+                )
+                note_plane_frames(KIND_VOTE, 1)
+            return
         if sink == self.name:
             await self._handle_vote(vote)
         elif self.overlay.enabled:
@@ -933,7 +1004,10 @@ class Core:
         next_leader = self.leader_elector.get_leader(qc.round + 1)
         if next_leader == self.name:
             return
-        bundle = VoteBundle(qc.round, qc.hash, tuple(qc.votes))
+        if hasattr(qc, "votes"):
+            bundle = VoteBundle(qc.round, qc.hash, tuple(qc.votes))
+        else:
+            bundle = AggVoteBundle(qc.round, qc.hash, qc.bitmap, qc.agg_sig)
         note_plane_frames(KIND_VOTE, 1)
         await self._transmit(
             bundle, next_leader,
@@ -1217,6 +1291,154 @@ class Core:
                 return
         await self.overlay.after_merge(key)
 
+    async def _handle_agg_vote_bundle(self, bundle: AggVoteBundle) -> None:
+        """Aggregate-certificate vote partial (§5.5o). Verification is
+        ATOMIC — the partial verifies as a whole or is rejected as a
+        whole (Handel's rule: an aggregate has no per-entry signatures to
+        salvage), so a forged member poisons only the partial carrying
+        it. Verified partials feed the Handel packing state: the next
+        leader's AggQCMaker when this node collects, the overlay partial
+        set (merge + forward one frame up the tree) otherwise."""
+        self.overlay.note_received()
+        if bundle.round < self.round:
+            return
+        committee = self.epochs.committee_for_round(bundle.round)
+        try:
+            members = _bitmap_members(bundle.bitmap, committee)
+            ensure(
+                bool(members),
+                InvalidSignatureError("empty aggregate vote partial"),
+            )
+            ok = aggsig.active_agg_scheme().verify(
+                _resolve_agg_keys(members),
+                bundle.signed_digest().data,
+                bundle.agg_sig,
+            )
+            ensure(
+                ok, InvalidSignatureError("aggregate vote partial rejected")
+            )
+        except ConsensusError:
+            _M_AGG_PARTIAL_REJECTS.inc()
+            self.overlay.note_invalid(1)
+            raise
+        if bundle.depth > self._agg_depth_max:
+            self._agg_depth_max = bundle.depth
+        if self._vote_sink(bundle.round):
+            qc = self.agg_aggregator.add_vote_partial(bundle)
+            if qc is not None:
+                # NOTE: parsed by the benchmark LogParser (+ AGG:).
+                log.info(
+                    "Agg bundle quorum: QC round %s from %s entries",
+                    qc.round,
+                    qc.signers(),
+                )
+                await self._process_qc(qc)
+                if self.leader_elector.get_leader(self.round) == self.name:
+                    await self._generate_proposal(None)
+                else:
+                    await self._handoff_qc(qc)
+            return
+        key = OverlayRouter.vote_key(bundle.round, bundle.hash)
+        self.overlay.merge_agg_vote(
+            key, bundle.bitmap, bundle.agg_sig, bundle.depth
+        )
+        if await self._try_collector_quorum(key, bundle.round):
+            return
+        await self.overlay.after_merge(key)
+
+    async def _handle_agg_timeout_bundle(self, bundle: AggTimeoutBundle) -> None:
+        """Aggregate-certificate timeout partial. Atomicity REPLACES the
+        legacy filter_backed per-entry salvage: a bundle whose max
+        claimed high-qc round exceeds its carried certificate's round is
+        rejected WHOLE (an honest sender never produces one), the
+        carried certificate itself must verify, and the groups must be
+        bitmap-disjoint — only then does the one aggregate signature get
+        checked over the per-group timeout digests. Any node reaching
+        2f+1 packed stake assembles the AggTC and broadcasts it."""
+        self.overlay.note_received()
+        if bundle.round < self.round:
+            return
+        committee = self.epochs.committee_for_round(bundle.round)
+        try:
+            ensure(
+                bool(bundle.groups),
+                InvalidSignatureError("empty aggregate timeout partial"),
+            )
+            claimed = max(hqr for hqr, _ in bundle.groups)
+            ensure(
+                claimed <= bundle.high_qc.round,
+                InvalidSignatureError(
+                    "aggregate timeout partial claims an unbacked high-qc "
+                    f"round {claimed} > carried {bundle.high_qc.round}"
+                ),
+            )
+            if not bundle.high_qc.is_genesis():
+                await bundle.high_qc.verify_async(
+                    self.epochs, self.verification_service
+                )
+            seen = 0
+            groups = []
+            for hqr, bm in bundle.groups:
+                ensure(
+                    not bm & seen,
+                    InvalidSignatureError(
+                        "overlapping groups in aggregate timeout partial"
+                    ),
+                )
+                seen |= bm
+                members = _bitmap_members(bm, committee)
+                ensure(
+                    bool(members),
+                    InvalidSignatureError("empty aggregate timeout group"),
+                )
+                groups.append(
+                    (
+                        _resolve_agg_keys(members),
+                        _timeout_digest(bundle.round, hqr).data,
+                    )
+                )
+            ok = aggsig.active_agg_scheme().verify_groups(
+                groups, bundle.agg_sig
+            )
+            ensure(
+                ok, InvalidSignatureError("aggregate timeout partial rejected")
+            )
+        except ConsensusError:
+            _M_AGG_PARTIAL_REJECTS.inc()
+            self.overlay.note_invalid(1)
+            raise
+        if bundle.depth > self._agg_depth_max:
+            self._agg_depth_max = bundle.depth
+        if not bundle.high_qc.is_genesis():
+            await self._process_qc(bundle.high_qc)
+            if bundle.round < self.round:
+                return  # the carried certificate already outran this round
+        tc = self.agg_aggregator.add_timeout_partial(
+            bundle.round, bundle.groups, bundle.agg_sig, bundle.depth
+        )
+        if tc is not None:
+            # NOTE: parsed by the benchmark LogParser (+ AGG:).
+            log.info(
+                "Agg bundle quorum: TC round %s from %s entries",
+                tc.round,
+                tc.signers(),
+            )
+            self._note_tc(tc)
+            await self._advance_round(tc.round)
+            await self._transmit(tc, None)
+            if self.leader_elector.get_leader(self.round) == self.name:
+                await self._generate_proposal(tc)
+            return
+        key = OverlayRouter.timeout_key(bundle.round)
+        self.overlay.merge_agg_timeout(
+            key,
+            bundle.groups,
+            bundle.agg_sig,
+            bundle.depth,
+            carried_cert=bundle.high_qc,
+        )
+        await self.overlay.after_merge(key)
+
     async def _handle_tc(self, tc: TC | AggTC) -> None:
         """A TC received directly (core.rs:438-444)."""
         await tc.verify_async(self.epochs, self.verification_service)
@@ -1428,6 +1650,10 @@ class Core:
                     await self._handle_vote_bundle(value)
                 elif isinstance(value, TimeoutBundle):
                     await self._handle_timeout_bundle(value)
+                elif isinstance(value, AggVoteBundle):
+                    await self._handle_agg_vote_bundle(value)
+                elif isinstance(value, AggTimeoutBundle):
+                    await self._handle_agg_timeout_bundle(value)
                 elif isinstance(value, (TC, AggTC)):
                     await self._handle_tc(value)
                 elif isinstance(value, SyncRequest):

@@ -304,7 +304,7 @@ class AggQC:
         self.check_quorum(committee)
         own = _committee_at(committee, self.round)
         pks = _resolve_agg_keys(_bitmap_members(self.bitmap, own))
-        ok = aggsig.exact_scheme().verify(
+        ok = aggsig.active_agg_scheme().verify(
             pks, self.signed_digest().data, self.agg_sig
         )
         ensure(ok, InvalidSignatureError("aggregate QC verification failed"))
@@ -312,9 +312,10 @@ class AggQC:
     async def verify_async(
         self, committee: Committee, service, trace: str | None = None
     ) -> None:
-        """Aggregate verification is one multi-pairing — there is no
-        per-entry batch to coalesce, so it runs inline rather than
-        through the verification service."""
+        """Aggregate verification is ONE combine-and-compare (stub) or
+        one multi-pairing (exact) — there is no per-entry batch to
+        coalesce, so it runs inline rather than through the
+        verification service."""
         self.verify(committee)
 
     def encode(self, w: Writer) -> None:
@@ -378,7 +379,7 @@ class AggTC:
             )
             for hqr, bm in self.groups
         ]
-        ok = aggsig.exact_scheme().verify_groups(groups, self.agg_sig)
+        ok = aggsig.active_agg_scheme().verify_groups(groups, self.agg_sig)
         ensure(ok, InvalidSignatureError("aggregate TC verification failed"))
 
     async def verify_async(

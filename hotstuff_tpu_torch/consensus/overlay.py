@@ -65,12 +65,16 @@ import asyncio
 import logging
 import struct
 
-from ..crypto import Digest, PublicKey, sha512_32
+from ..crypto import Digest, PublicKey, aggsig, sha512_32
 from ..utils import metrics, tracing
 from ..utils.actors import spawn
+from .aggregator import AggPartialSet, _merge_timeout_payload
 from .errors import ConsensusError
 from .messages import (
     QC,
+    AggQC,
+    AggTimeoutBundle,
+    AggVoteBundle,
     Round,
     TimeoutBundle,
     VoteBundle,
@@ -232,18 +236,24 @@ class AggregationTree:
 
 
 class _Pending:
-    """Merge state for one (round, kind[, digest]) key: per-author
-    entries. The reference's aggregate-certificate partials are not
-    ported (Parameters.aggregate_certs is refused)."""
+    """Merge state for one (round, kind[, digest]) key. Legacy mode
+    accumulates per-author entries; aggregate mode (Parameters.
+    aggregate_certs) accumulates bitmap-disjoint partials in a Handel
+    AggPartialSet instead — `agg_set` is created on first aggregate
+    merge and the two never mix under one key."""
 
-    __slots__ = ("entries", "best_qc", "forwards", "hold_task", "fallback_task")
+    __slots__ = (
+        "entries", "best_qc", "forwards", "hold_task", "fallback_task",
+        "agg_set",
+    )
 
     def __init__(self) -> None:
         self.entries: dict[PublicKey, tuple] = {}
-        self.best_qc: QC | None = None  # best carried QC
+        self.best_qc: QC | None = None  # best carried cert (QC or AggQC)
         self.forwards = 0
         self.hold_task: asyncio.Task | None = None
         self.fallback_task: asyncio.Task | None = None
+        self.agg_set: AggPartialSet | None = None
 
     def cancel_hold(self) -> None:
         if self.hold_task is not None and not self.hold_task.done():
@@ -276,6 +286,10 @@ class OverlayRouter:
         self.hold_s = p.agg_hold_ms / 1000.0
         self.fallback_s = p.agg_fallback_ms / 1000.0
         self.max_forwards = p.agg_max_forwards
+        # Aggregate-certificate mode: partials are one signature + bitmap
+        # and interior merges are combine()+OR — never entry lists.
+        self.agg = bool(p.aggregate_certs)
+        self.window = p.agg_window
         self._trees: dict[tuple[Round, int], AggregationTree] = {}
         self._state: dict[tuple, _Pending] = {}
 
@@ -369,12 +383,61 @@ class OverlayRouter:
         if n > 0:
             _M_INVALID.inc(n)
 
-    def covered(self, key: tuple) -> int:
-        """Members this key's merged state covers (the forward-policy
-        quantity)."""
-        return len(self._pending(key).entries)
+    # -- aggregate merges (Parameters.aggregate_certs) -----------------------
 
-    def quorum_certificate(self, key: tuple, committee) -> QC | None:
+    def merge_agg_vote(
+        self, key: tuple, bitmap: int, agg_sig: bytes, depth: int
+    ) -> None:
+        """Merge one VERIFIED vote partial: Handel windowed insert —
+        combine() + bitmap OR against every disjoint entry."""
+        st = self._pending(key)
+        if st.agg_set is None:
+            st.agg_set = AggPartialSet(
+                aggsig.active_agg_scheme().combine, self.window
+            )
+        st.agg_set.add(bitmap, agg_sig, depth)
+        _M_ENTRIES_MERGED.inc(bitmap.bit_count())
+
+    def merge_agg_timeout(
+        self,
+        key: tuple,
+        groups: tuple[tuple[Round, int], ...],
+        agg_sig: bytes,
+        depth: int,
+        carried_cert=None,
+    ) -> None:
+        """Merge one VERIFIED timeout partial. Keeps the highest-round
+        carried certificate: every accepted partial's claims were backed
+        by its own carried cert, so the max over contributors backs the
+        merged bundle's claims too (the atomic analogue of
+        filter_backed's invariant)."""
+        st = self._pending(key)
+        if st.agg_set is None:
+            st.agg_set = AggPartialSet(_merge_timeout_payload, self.window)
+        coverage = 0
+        for _, bm in groups:
+            coverage |= bm
+        st.agg_set.add(
+            coverage,
+            (tuple(sorted(groups)), agg_sig, aggsig.active_agg_scheme()),
+            depth,
+        )
+        _M_ENTRIES_MERGED.inc(coverage.bit_count())
+        if carried_cert is not None and not carried_cert.is_genesis():
+            if st.best_qc is None or carried_cert.round > st.best_qc.round:
+                st.best_qc = carried_cert
+
+    def covered(self, key: tuple) -> int:
+        """Members this key's merged state covers — entry count in legacy
+        mode, best-packing popcount in aggregate mode (the forward-policy
+        quantity)."""
+        st = self._pending(key)
+        if st.agg_set is not None:
+            best = st.agg_set.best()
+            return best[0].bit_count() if best else 0
+        return len(st.entries)
+
+    def quorum_certificate(self, key: tuple, committee) -> QC | AggQC | None:
         """The complete certificate this vote key's merged state can
         assemble, or None below quorum stake. The leader-collector
         quorum watch (§5.5p): under Parameters.leader_collector the
@@ -389,9 +452,16 @@ class OverlayRouter:
         st = self._state.get(key)
         if st is None or key[0] != KIND_VOTE:
             return None
-        if not st.entries:
+        if st.agg_set is not None:
+            best = st.agg_set.best()
+            if best is None:
+                return None
+            bitmap, sig, _depth = best
+            qc: QC | AggQC = AggQC(key[2], key[1], bitmap, sig)
+        elif st.entries:
+            qc = QC(key[2], key[1], tuple(st.entries.values()))
+        else:
             return None
-        qc = QC(key[2], key[1], tuple(st.entries.values()))
         try:
             qc.check_quorum(committee)
         except ConsensusError:
@@ -402,6 +472,18 @@ class OverlayRouter:
 
     def _bundle(self, key: tuple):
         st = self._pending(key)
+        if st.agg_set is not None:
+            best = st.agg_set.best()
+            if best is None:
+                return None
+            if key[0] == KIND_VOTE:
+                bitmap, sig, depth = best
+                return AggVoteBundle(key[1], key[2], bitmap, sig, depth)
+            _, payload, depth = best
+            groups, sig, _ = payload
+            return AggTimeoutBundle(
+                key[1], st.best_qc or QC.genesis(), groups, sig, depth
+            )
         entries = tuple(st.entries.values())
         if key[0] == KIND_VOTE:
             return VoteBundle(key[1], key[2], entries)
@@ -439,6 +521,22 @@ class OverlayRouter:
             key,
             [(timeout.author, timeout.signature, timeout.high_qc.round)],
             high_qc=timeout.high_qc,
+        )
+        self._arm_fallback(key)
+        await self.after_merge(key)
+
+    async def on_own_vote_agg(self, bundle: AggVoteBundle) -> None:
+        """This node's own singleton vote partial enters the tree."""
+        key = self.vote_key(bundle.round, bundle.hash)
+        self.merge_agg_vote(key, bundle.bitmap, bundle.agg_sig, bundle.depth)
+        self._arm_fallback(key)
+        await self.after_merge(key)
+
+    async def on_own_timeout_agg(self, bundle: AggTimeoutBundle) -> None:
+        key = self.timeout_key(bundle.round)
+        self.merge_agg_timeout(
+            key, bundle.groups, bundle.agg_sig, bundle.depth,
+            carried_cert=bundle.high_qc,
         )
         self._arm_fallback(key)
         await self.after_merge(key)
@@ -556,7 +654,10 @@ def bundle_entries(bundle) -> tuple:
 
 
 def bundle_weight(bundle) -> int:
-    """Members a bundle speaks for: its entry count."""
+    """Members a bundle speaks for: entry count for legacy bundles,
+    bitmap popcount for aggregate partials."""
+    if isinstance(bundle, (AggVoteBundle, AggTimeoutBundle)):
+        return bundle.signers()
     return len(bundle_entries(bundle))
 
 

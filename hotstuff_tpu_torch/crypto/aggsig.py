@@ -1,24 +1,25 @@
-"""Exact pure-Python BLS12-381 (min-pk) for the port's aggregate-key plane.
+"""Exact pure-Python BLS12-381 (min-pk) and the aggregate-signature scheme
+seam the port's certificate plane verifies through.
 
-The port's trimmed copy of `hotstuff_tpu/crypto/aggsig.py`: the field
-towers (Fp, Fp2, Fp6, Fp12), the curve groups (`_CurveOps` over Fp and
-Fp2), ZCash-style point compression, `hash_to_g2`, the optimal ate pairing
-and `ExactBlsScheme`'s `keypair_from_seed`, `sign` and `verify`. The exact
-arithmetic is copied, not changed, so keys, signatures and verdicts are
-the reference's bit for bit. `ops/bls.py` sums committee keys on the card
-and checks the one pairing of an aggregate certificate here;
-`chip_smoke.py` makes its keys and signatures with `ExactBlsScheme`.
+The port's copy of `hotstuff_tpu/crypto/aggsig.py`: the field towers (Fp,
+Fp2, Fp6, Fp12), the curve groups (`_CurveOps` over Fp and Fp2),
+ZCash-style point compression, `hash_to_g2`, the optimal ate pairing and
+`ExactBlsScheme`. The exact arithmetic is copied, not changed, so keys,
+signatures and verdicts are the reference's bit for bit. `ops/bls.py` sums
+committee keys on the card and checks the one pairing of an aggregate
+certificate here; `chip_smoke.py` makes its keys and signatures with
+`ExactBlsScheme`.
 
-What the consensus codec reads to check an inbound AggQC / AggTC is
-copied too: `exact_scheme`, the aggregate-key registry
-(`register_agg_key`, `agg_key_of`) and the certificate bitmap helpers
-(`AGG_BITMAP_BYTES`, `MAX_AGG_COMMITTEE`, `members_of`,
-`bitmap_to_bytes`, `bitmap_from_bytes`).
-
-Not copied: the scheme and registry installers, the chaos runner's
-trusted stub scheme, `AggSigner`, `combine` / `aggregate`, `bitmap_of`,
-`_g1_in_subgroup`, `_fp2_conj` and `B_G2`. A node forms no aggregate
-certificate: `Parameters.aggregate_certs` is refused.
+The seam, as in the reference: `install_agg_scheme` / `active_agg_scheme`
+(the chaos plane's virtual-time fleets install the trusted stub,
+`chaos/trusted_crypto.TrustedAggScheme`), the aggregate-key registry
+(`register_agg_key`, `agg_key_of`, `install_agg_registry`), a node's
+aggregate identity (`AggSigner`), public aggregation (`combine`,
+`aggregate`) and the committee bitmaps (`bitmap_of`, `members_of`, the
+fixed 64-byte wire form). `Parameters.aggregate_certs` emits aggregate
+votes and timeouts only where the node has an `AggSigner`.
+Not copied (no caller in the port): `_g1_in_subgroup`, `_fp2_conj` and
+`B_G2`.
 
 Curve layout (min-pk, the Ethereum/ZCash convention):
   * secret keys are scalars mod r;
@@ -26,6 +27,21 @@ Curve layout (min-pk, the Ethereum/ZCash convention):
     the device need only Fp arithmetic;
   * signatures/messages live in G2 (96 B compressed), hashed by
     deterministic try-and-increment + cofactor clearing.
+
+Scheme-interface contract (ExactBlsScheme and every stand-in):
+  keypair_from_seed(seed) -> (pk_bytes, sk); sign(sk, msg) -> sig;
+  combine(a, b) / aggregate([...]) merge PARTIAL aggregates without any
+  secret (public aggregation — what lets overlay interior nodes merge
+  in place); verify(pks, msg, sig) checks a same-message aggregate;
+  verify_groups([(pks, msg), ...], sig) checks a multi-message
+  aggregate (the TC form: one aggregate signature spanning the distinct
+  high-qc-round digests).
+
+Trust model: pk registration (install_agg_registry) is the
+proof-of-possession boundary — rogue-key aggregation is prevented by
+only ever resolving aggregate keys through the registry that the
+deployment populated from its own key ceremony (the chaos plane derives
+both key families from the same node seeds).
 """
 
 from __future__ import annotations
@@ -74,6 +90,15 @@ DST_DOMAIN = b"hotstuff-aggsig-g2-v1:"  # hash-to-G2 domain separation
 
 PK_BYTES = 48
 SIG_BYTES = 96
+
+# Certificate bitmaps are FIXED 64 bytes on the wire: one bit per member
+# of the round's sorted committee, sized for a 512-node
+# stretch goal. Fixed (not length-prefixed by committee size) on
+# purpose — it makes the aggregate certificate byte size a constant of
+# the protocol, which is exactly the O(1) claim the matrix measures.
+AGG_BITMAP_BYTES = 64
+MAX_AGG_COMMITTEE = AGG_BITMAP_BYTES * 8
+
 
 # --------------------------------------------------------------------------
 # Fp and Fp2 arithmetic (plain ints / int pairs)
@@ -731,6 +756,17 @@ class ExactBlsScheme:
     def sign(self, sk: int, msg: bytes) -> bytes:
         return compress_g2(_FP2_OPS.mul_affine(hash_to_g2(msg), sk))
 
+    def combine(self, a: bytes, b: bytes) -> bytes:
+        return compress_g2(
+            _FP2_OPS.add_affine(decompress_g2(a), decompress_g2(b))
+        )
+
+    def aggregate(self, sigs) -> bytes:
+        acc = None
+        for s in sigs:
+            acc = _FP2_OPS.add_affine(acc, decompress_g2(s))
+        return compress_g2(acc)
+
     def verify(self, pks, msg: bytes, sig: bytes) -> bool:
         return self.verify_groups([(list(pks), msg)], sig)
 
@@ -758,8 +794,11 @@ class ExactBlsScheme:
 
 
 # --------------------------------------------------------------------------
-# The scheme that checks aggregate certificates: the exact curve.
+# Scheme seam (the pysigner.install_scheme pattern): virtual-time fleets
+# install the trusted-stub aggregate analogue; everything else gets the
+# exact curve. Restored by the installer (orchestrator teardown).
 
+_AGG_SCHEME = None
 _EXACT: ExactBlsScheme | None = None
 
 
@@ -770,13 +809,35 @@ def exact_scheme() -> ExactBlsScheme:
     return _EXACT
 
 
+def install_agg_scheme(scheme):
+    """Swap the active aggregate-signature scheme; returns the previous
+    value (None = exact) so callers can restore it."""
+    global _AGG_SCHEME
+    prev = _AGG_SCHEME
+    _AGG_SCHEME = scheme
+    return prev
+
+
+def active_agg_scheme():
+    return _AGG_SCHEME if _AGG_SCHEME is not None else exact_scheme()
+
+
 # --------------------------------------------------------------------------
 # Aggregate-key registry: consensus identity (Ed25519 pk bytes) ->
 # aggregate pk bytes. Certificates carry NO keys on the wire (that is
 # the point); verifiers resolve bitmap members here. Registration is
-# the proof-of-possession boundary.
+# the proof-of-possession boundary (module docstring).
 
 _REGISTRY: dict[bytes, bytes] = {}
+
+
+def install_agg_registry(mapping: dict[bytes, bytes] | None):
+    """Replace the whole registry (None = empty); returns the previous
+    mapping for restore-on-teardown."""
+    global _REGISTRY
+    prev = _REGISTRY
+    _REGISTRY = dict(mapping or {})
+    return prev
 
 
 def register_agg_key(identity: bytes, agg_pk: bytes) -> None:
@@ -787,11 +848,30 @@ def agg_key_of(identity: bytes) -> bytes | None:
     return _REGISTRY.get(bytes(identity))
 
 
+class AggSigner:
+    """One node's aggregate-signature identity, derived from the same
+    seed as its Ed25519 keypair (the chaos/benchmark key ceremony)."""
+
+    __slots__ = ("public_key", "_sk", "_scheme")
+
+    def __init__(self, seed: bytes, scheme=None) -> None:
+        self._scheme = scheme if scheme is not None else active_agg_scheme()
+        self.public_key, self._sk = self._scheme.keypair_from_seed(seed)
+
+    def sign(self, msg: bytes) -> bytes:
+        return self._scheme.sign(self._sk, msg)
+
+
 # --------------------------------------------------------------------------
 # Committee bitmaps: bit i = sorted_keys()[i] of the round's committee.
 
-AGG_BITMAP_BYTES = 64
-MAX_AGG_COMMITTEE = AGG_BITMAP_BYTES * 8
+
+def bitmap_of(members, sorted_keys) -> int:
+    index = {pk: i for i, pk in enumerate(sorted_keys)}
+    bm = 0
+    for pk in members:
+        bm |= 1 << index[pk]
+    return bm
 
 
 def members_of(bitmap: int, sorted_keys) -> list:

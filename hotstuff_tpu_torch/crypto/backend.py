@@ -16,7 +16,6 @@ import abc
 import threading
 from typing import Sequence
 
-from . import pysigner
 from .primitives import PublicKey, Signature
 
 
@@ -46,6 +45,10 @@ class CryptoBackend(abc.ABC):
         if not messages:
             return True
         return all(self.verify_batch_mask(messages, keys, signatures))
+
+
+# After CryptoBackend: pysigner's PurePythonBackend derives from it.
+from . import pysigner  # noqa: E402
 
 
 class HostBackend(CryptoBackend):

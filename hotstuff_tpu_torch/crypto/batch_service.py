@@ -40,13 +40,19 @@ sibling backends that a bulk bucket goes to when the home backend's
 `BULK_CONCURRENCY` slots are all in flight (`crypto/scheduler.py`,
 `pipeline.steals`). Critical dispatches and every flush of the legacy loop
 stay on the home backend. The reference widens its service-wide bound on
-concurrent dispatches to cover every backend's slots, and its inline mode
-turns stealing off; the port's scheduler path has neither that bound nor
-an inline mode, so the scheduler's per-backend accounting is the only
-bound.
+concurrent dispatches to cover every backend's slots; the port's scheduler
+path has no such bound, so the scheduler's per-backend accounting is the
+only bound.
 
-Not ported: the inline (virtual-time) dispatch mode, the anomaly
-watchdog's verify samples (its per-signature baseline misreads a
+`inline=True` is the chaos plane's virtual-time mode, as in the reference:
+the backend call runs on the event loop instead of a worker thread (thread
+scheduling is the one nondeterminism a virtual-time replay cannot
+control), and stealing is forced off, so which backend a bucket lands on
+never depends on thread timing. `scheduler_config` passes the scheduler's
+knobs (`SchedulerConfig`: the chaos plane's `pace_s_per_sig`). The card's
+path keeps the defaults: a worker thread and no pacing.
+
+Not ported: the anomaly watchdog's verify samples (its per-signature baseline misreads a
 sidecar's mix of large and small flushes as a regression), and a cache
 size other than the reference's default (65,536 triples).
 """
@@ -65,7 +71,7 @@ from ..utils import metrics, tracing
 from ..utils.actors import spawn
 from .backend import CryptoBackend, get_backend
 from .primitives import PublicKey, Signature
-from .scheduler import DeviceScheduler, LaneStats, note_queue_delay, resolve_source
+from .scheduler import DeviceScheduler, LaneStats, SchedulerConfig, note_queue_delay, resolve_source
 
 log = logging.getLogger("hotstuff.crypto")
 
@@ -158,12 +164,16 @@ class BatchVerificationService:
         max_batch: int = 8192,
         use_scheduler: bool = True,
         steal_backends: Sequence[CryptoBackend] = (),
+        inline: bool = False,
+        scheduler_config: SchedulerConfig | None = None,
     ) -> None:
         self._backend = backend
         self.max_batch = max_batch
         # Backends 1.. of the scheduler's accounts: where bulk buckets go
-        # while every slot of the home backend (0) is in flight.
-        self._steal_backends: list[CryptoBackend] = list(steal_backends)
+        # while every slot of the home backend (0) is in flight. Inline
+        # (virtual-time) services never steal.
+        self._steal_backends: list[CryptoBackend] = [] if inline else list(steal_backends)
+        self.inline = inline
         self.dedup = VerifiedSigCache(DEDUP_CACHE_SIZE)
         self._queue: asyncio.Queue[_Group] = asyncio.Queue()  # the legacy loop's
         self._task: asyncio.Task | None = None
@@ -174,6 +184,7 @@ class BatchVerificationService:
                 max_batch=max_batch,
                 alignment_fn=self._bucket_alignment,
                 lane_stats=self.lane_stats,
+                config=scheduler_config,
                 n_backends=1 + len(self._steal_backends),
             )
             if use_scheduler
@@ -351,7 +362,10 @@ class BatchVerificationService:
             s = sigs if full else [sigs[i] for i in miss]
             t0 = time.perf_counter()
             try:
-                sub = await asyncio.to_thread(backend.verify_batch_mask, m, k, s, **kwargs)
+                if self.inline:
+                    sub = backend.verify_batch_mask(m, k, s, **kwargs)
+                else:
+                    sub = await asyncio.to_thread(backend.verify_batch_mask, m, k, s, **kwargs)
             except Exception as exc:  # a backend failure must not hang callers
                 for g in groups:
                     if not g.future.done():

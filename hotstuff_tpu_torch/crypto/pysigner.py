@@ -1,7 +1,10 @@
 """ed25519 (RFC 8032) in exact host integers.
 
-A trimmed copy of `hotstuff_tpu/crypto/pysigner.py` (exact scheme only):
-`keypair_from_seed`, `sign` and strict `verify`, plus
+The port's copy of `hotstuff_tpu/crypto/pysigner.py`: `keypair_from_seed`,
+`sign` and strict `verify`, the scheme seam the chaos plane switches
+(`install_scheme`, `active_scheme`; `keypair_exact`, `sign_exact` and
+`verify_exact` always take the RFC 8032 arithmetic), `PurePythonBackend`
+and `PySignatureService` (the chaos runner's backend and signer), plus
 `verify_device_semantics`, the port's host verifier (`HostBackend`, which
 `TorchBackend` runs below its crossover). It signs the test and smoke
 corpora and needs no `cryptography` wheel; its key decoder is the one
@@ -13,14 +16,23 @@ card's verdicts (ops/ed25519.py:decompress and the cofactorless equation):
 a key's y is reduced mod p and x = 0 takes either sign, so keys that decode
 to the identity accept R = enc([s]B) for any message, as OpenSSL (the
 reference's `CpuBackend`) does; R must still equal the canonical encoding
-byte for byte.
+byte for byte. `verify_device_semantics` ignores the installed scheme.
 """
 
 from __future__ import annotations
 
+import asyncio
 import hashlib
 
+from typing import Sequence
+
 from ..ops.ed25519 import decompress_int
+from ..utils import metrics
+from ..utils.actors import spawn
+from .backend import CryptoBackend
+from .primitives import Digest, PublicKey, Signature
+
+_M_REJECTS = metrics.counter("verifier.rejected_sigs")
 
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493
@@ -123,7 +135,58 @@ def _clamp(h: bytes) -> int:
     return a
 
 
+# ---------------------------------------------------------------------------
+# Scheme seam. The chaos plane's trusted-crypto mode (chaos/trusted_crypto.py)
+# swaps signatures for keyed-hash stubs at hundred-node committee sizes.
+# Everything that signs or verifies through this module (PySignatureService,
+# PurePythonBackend, the byzantine policies, EpochChange.new_from_seed, the
+# SafetyChecker audit) follows one installed scheme, so a run is never
+# half-stubbed. The `*_exact` names always take the RFC 8032 arithmetic.
+
+_SCHEME = None  # None = exact RFC 8032 (the default)
+
+
+def install_scheme(scheme):
+    """Install a signature scheme (None for exact RFC 8032); returns the
+    previously installed one so callers can restore it. A scheme supplies
+    keypair_from_seed/sign/verify with this module's shapes (32-byte seeds
+    and keys, 64-byte signatures)."""
+    global _SCHEME
+    prev = _SCHEME
+    _SCHEME = scheme
+    return prev
+
+
+def active_scheme():
+    return _SCHEME
+
+
 def keypair_from_seed(seed: bytes) -> tuple[bytes, bytes]:
+    """32-byte seed -> (public key, seed) under the active scheme. The
+    seed IS the secret; signing re-derives what the scheme needs."""
+    if _SCHEME is not None:
+        return _SCHEME.keypair_from_seed(seed)
+    return keypair_exact(seed)
+
+
+def sign(seed: bytes, message: bytes, public_key: bytes | None = None) -> bytes:
+    """64-byte signature over `message` under the active scheme (exact RFC
+    8032 unless a chaos scheme is installed). Passing the seed's exact
+    `public_key` saves re-deriving it (one scalar multiplication)."""
+    if _SCHEME is not None:
+        return _SCHEME.sign(seed, message)
+    return sign_exact(seed, message, public_key)
+
+
+def verify(public_key: bytes, message: bytes, signature: bytes) -> bool:
+    """Verify under the active scheme: strict RFC 8032 by default; a stub
+    scheme recomputes its keyed hash and compares byte for byte."""
+    if _SCHEME is not None:
+        return _SCHEME.verify(public_key, message, signature)
+    return verify_exact(public_key, message, signature)
+
+
+def keypair_exact(seed: bytes) -> tuple[bytes, bytes]:
     """32-byte seed -> (compressed public key, seed). The seed IS the
     secret (RFC 8032 private key); signing re-derives the scalar."""
     if len(seed) != 32:
@@ -132,9 +195,8 @@ def keypair_from_seed(seed: bytes) -> tuple[bytes, bytes]:
     return _pt_compress(_pt_mul(_clamp(h), _B_POINT)), seed
 
 
-def sign(seed: bytes, message: bytes, public_key: bytes | None = None) -> bytes:
-    """RFC 8032 Ed25519 signature (64 bytes) over `message`. Passing the
-    seed's `public_key` saves re-deriving it (one scalar multiplication)."""
+def sign_exact(seed: bytes, message: bytes, public_key: bytes | None = None) -> bytes:
+    """RFC 8032 Ed25519 signature (64 bytes) over `message`."""
     if len(seed) != 32:
         raise ValueError("ed25519 seed must be 32 bytes")
     h = hashlib.sha512(seed).digest()
@@ -147,14 +209,26 @@ def sign(seed: bytes, message: bytes, public_key: bytes | None = None) -> bytes:
     return r_enc + s.to_bytes(32, "little")
 
 
-def verify(public_key: bytes, message: bytes, signature: bytes) -> bool:
+# Decompressed-key memo: committee keys recur on every certificate check,
+# and decompression dominates small verifies. Bounded so key floods cannot
+# grow it.
+_KEY_CACHE: dict[bytes, tuple] = {}
+_KEY_CACHE_MAX = 4096
+
+
+def verify_exact(public_key: bytes, message: bytes, signature: bytes) -> bool:
     """STRICT verification: canonical s < L, on-curve canonical A and R,
     full sB == R + hA."""
     if len(signature) != 64 or len(public_key) != 32:
         return False
-    a_pt = _pt_decompress(public_key)
+    a_pt = _KEY_CACHE.get(public_key)
     if a_pt is None:
-        return False
+        a_pt = _pt_decompress(public_key)
+        if a_pt is None:
+            return False
+        if len(_KEY_CACHE) >= _KEY_CACHE_MAX:
+            _KEY_CACHE.clear()
+        _KEY_CACHE[public_key] = a_pt
     r_enc = signature[:32]
     r_pt = _pt_decompress(r_enc)
     if r_pt is None:
@@ -186,3 +260,46 @@ def verify_device_semantics(public_key: bytes, message: bytes, signature: bytes)
     x, y = P - a[0], a[1]
     neg_a = (x, y, 1, x * y % P)
     return _pt_compress(_pt_double_mul(s, _B_POINT, h, neg_a)) == r_enc
+
+
+class PurePythonBackend(CryptoBackend):
+    """`CryptoBackend` over this module's `verify` (exact integers by
+    default, the active scheme under a chaos trusted-crypto run). The chaos
+    runner installs it, so its scenarios run the real verification flow
+    (`BatchVerificationService` -> backend) on the host."""
+
+    name = "pure-python"
+
+    def verify_batch_mask(
+        self,
+        messages: Sequence[bytes],
+        keys: Sequence[PublicKey],
+        signatures: Sequence[Signature],
+    ) -> list[bool]:
+        out = []
+        for msg, pk, sig in zip(messages, keys, signatures, strict=True):
+            ok = verify(pk.data, msg, sig.data)
+            if not ok:
+                _M_REJECTS.inc()
+            out.append(ok)
+        return out
+
+
+class PySignatureService:
+    """Drop-in for `crypto.service.SignatureService` that signs with this
+    module: the same actor shape (queue + futures), no OpenSSL."""
+
+    def __init__(self, seed: bytes) -> None:
+        self._queue: asyncio.Queue = asyncio.Queue(100)
+        self._task = spawn(self._run(seed), name="py-signature-service")
+
+    async def _run(self, seed: bytes) -> None:
+        while True:
+            digest, fut = await self._queue.get()
+            if not fut.cancelled():
+                fut.set_result(Signature(sign(seed, digest.data)))
+
+    async def request_signature(self, digest: Digest) -> Signature:
+        fut = asyncio.get_running_loop().create_future()
+        await self._queue.put((digest, fut))
+        return await fut

@@ -37,9 +37,14 @@ Observability: per-lane queueing-delay histograms
 `scheduler.*` namespace, `pipeline.steals`, and a per-service `LaneStats`
 reservoir, which the telemetry plane windows (`utils/telemetry.py`).
 
-No wall-clock reads (event-loop time only) and no threads of its own. The
-reference's virtual-time pace model (`pace_s_per_sig`) and its
-drain-order lint support are chaos tooling and are not ported.
+No wall-clock reads (event-loop time only) and no threads of its own, so
+under the chaos plane's virtual-time loop, with the service's inline
+dispatch, a scheduled run replays bit for bit. `SchedulerConfig.
+pace_s_per_sig` models finite device occupancy in loop time (a bucket of n
+signatures holds the bulk pipeline for n x pace seconds), which makes
+queueing observable under a clock where Python work costs no virtual
+time; its default, 0, leaves the loop as the card's path runs it.
+`drain_order` simulates the loop's selection for the starvation lint.
 """
 
 from __future__ import annotations
@@ -61,9 +66,11 @@ __all__ = [
     "INGRESS",
     "MEMPOOL",
     "LaneStats",
+    "SchedulerConfig",
     "DeviceScheduler",
     "note_queue_delay",
     "resolve_source",
+    "drain_order",
 ]
 
 
@@ -209,6 +216,15 @@ class LaneStats:
 BULK_CONCURRENCY = 2
 
 
+@dataclass(slots=True)
+class SchedulerConfig:
+    """Knobs beyond what the owning service carries: `pace_s_per_sig` is
+    the chaos plane's virtual device-occupancy model (0 = backend-bound,
+    the card's path)."""
+
+    pace_s_per_sig: float = 0.0
+
+
 class _Lane:
     __slots__ = ("cls", "queue", "enqueued", "dispatched")
 
@@ -236,12 +252,14 @@ class DeviceScheduler:
         max_batch: int = 8192,
         alignment_fn: Callable[[], int] | None = None,
         lane_stats: LaneStats | None = None,
+        config: SchedulerConfig | None = None,
         n_backends: int = 1,
     ) -> None:
         self._dispatch = dispatch
         self.max_batch = max_batch
         self._alignment_fn = alignment_fn or (lambda: 0)
         self.lane_stats = lane_stats or LaneStats()
+        self.config = config or SchedulerConfig()
         ordered = sorted(SOURCE_CLASSES.values(), key=lambda c: c.priority)
         self._critical = [c.name for c in ordered if c.preemptive]
         self._batched = [c.name for c in ordered if not c.preemptive]
@@ -373,12 +391,30 @@ class DeviceScheduler:
         self._dispatch(hot, sum(len(g) for g in hot), True)
         return True
 
+    async def _pace_busy(self, dur: float, loop) -> None:
+        """Hold the bulk pipeline busy for `dur` seconds of loop time
+        (virtual under chaos) without ever delaying the critical lane:
+        wake-ups inside the window ship any pending critical work, then
+        the remaining occupancy elapses."""
+        end = loop.time() + dur
+        while True:
+            remaining = end - loop.time()
+            if remaining <= RESOLUTION_S:
+                return  # sub-resolution remainder: same livelock class
+            self._wake.clear()
+            try:
+                await asyncio.wait_for(self._wake.wait(), remaining)
+            except asyncio.TimeoutError:
+                return
+            self._ship_critical(loop.time())
+
     async def run(self) -> None:
         """The single admission -> bucket -> dispatch loop, spawned by the
         owning service."""
         loop = asyncio.get_running_loop()
         if self._wake is None:
             self._wake = asyncio.Event()
+        pace = self.config.pace_s_per_sig
         while True:
             now = loop.time()
             # 1. Critical lane first; remember whether it preempted.
@@ -416,6 +452,11 @@ class DeviceScheduler:
                     else:
                         task = self._dispatch(bucket, total, False, target)
                         task.add_done_callback(lambda t, b=target: self.note_bulk_done(t, b))
+                    if pace > 0.0:
+                        # The virtual occupancy model: the bulk pipeline is
+                        # busy for total * pace seconds, but a critical
+                        # arrival ships mid-occupancy.
+                        await self._pace_busy(total * pace, loop)
                     continue
             # 3. Nothing dispatchable: wait for new work, a freed bulk slot,
             #    or the earliest pending deadline.
@@ -430,3 +471,67 @@ class DeviceScheduler:
                 await asyncio.wait_for(self._wake.wait(), timeout)
             except asyncio.TimeoutError:
                 pass
+
+    def summary(self) -> dict:
+        """Structured per-lane snapshot (a chaos report embeds one per node)."""
+        return {
+            "backends": self.n_backends,
+            "inflight": list(self._inflight),
+            "lanes": {
+                name: {
+                    "priority": lane.cls.priority,
+                    "slo_ms": round(lane.cls.slo_s * 1e3, 3),
+                    "enqueued": lane.enqueued,
+                    "dispatched": lane.dispatched,
+                    "depth": len(lane.queue),
+                }
+                for name, lane in self.lanes.items()
+            },
+            "queue_delay": self.lane_stats.summary(),
+            **self.stats,
+        }
+
+
+# ---------------------------------------------------------------------------
+# Starvation lint support
+
+
+class _StubGroup:
+    """Minimal group shape for the drain-order simulation: the scheduler's
+    formation logic only reads source/t_submit/len()."""
+
+    __slots__ = ("source", "t_submit", "t_dequeue", "n")
+
+    def __init__(self, source: str, t_submit: float, n: int = 1) -> None:
+        self.source = source
+        self.t_submit = t_submit
+        self.t_dequeue = 0.0
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+
+def drain_order(classes: tuple[SourceClass, ...] | None = None) -> list[str]:
+    """Simulate the loop's selection over one group per registered class
+    with NO further arrivals, advancing a synthetic clock past each pending
+    deadline, and return the lane names in the order their groups were
+    dequeued. A registered class missing from the result can be enqueued
+    but never selected: the starvation condition."""
+    sched = DeviceScheduler(lambda groups, total, critical: None)
+    classes = classes or tuple(SOURCE_CLASSES.values())
+    now = 0.0
+    for cls in classes:
+        sched.submit(_StubGroup(cls.name, now))
+    order: list[str] = []
+    for _ in range(4 * len(classes) + 4):  # bounded: no arrivals, must drain
+        for g in sched.drain_critical(now):
+            order.append(g.source)
+        formed = sched.form_bucket(now)
+        if formed is not None:
+            order.extend(g.source for g in formed[0])
+        if sched.depth() == 0:
+            break
+        deadline = sched._next_deadline()
+        now = (deadline if deadline is not None else now) + 1e-6
+    return order

@@ -21,8 +21,8 @@ and the time the rejected lane's depth needs to half-drain at that rate,
 clamped to [RETRY_MIN_MS, RETRY_MAX_MS]. It reads only the event-loop
 time its caller passes in.
 
-Not copied: `IngressConfig.verify_interval`, the drain pacer of the
-reference's chaos scenarios under virtual time.
+`IngressConfig.verify_interval` paces the drain for the chaos scenarios
+(`pipeline.py`).
 """
 
 from __future__ import annotations
@@ -67,6 +67,12 @@ class IngressConfig:
     max_tx_bytes: int = 64 * 1024  # per-tx body cap (one frame, never a payload)
     replay_window: int = 65_536  # recently-seen (client, nonce) pairs kept
     verify_batch: int = 64  # txs per verification group
+    # Seconds to pause between verification batches: a deliberate drain
+    # pacer modelling finite verify capacity (batch/interval tx/s). 0 =
+    # backend-bound (the card's path); the chaos scenarios set it so
+    # overload, and so shedding, is reachable under a virtual clock where
+    # Python work costs no virtual time.
+    verify_interval: float = 0.0
 
 
 @dataclass(slots=True)

@@ -2,7 +2,7 @@
 per-client latency accounting.
 
 A copy of `hotstuff_tpu/ingress/loadgen.py` for the port (`ArrivalCurve`,
-`OpenLoopLoadGen`). OPEN loop means arrivals follow the curve whatever
+`OpenLoopLoadGen`, and `IngressLoad`, the chaos scenarios' spec). OPEN loop means arrivals follow the curve whatever
 the node answers. Each generated transaction is ed25519-signed by one of a
 pool of client identities; all randomness comes from the injected rng, in
 the reference's order (the client seeds first, then each transaction's
@@ -17,15 +17,16 @@ Curves:
                  [t_start, t_end).
 
 The signer (`make_signer`): OpenSSL (`cryptography`'s Ed25519) where it
-imports, else the port's exact `pysigner.sign`. The reference signs every
+imports, else the port's exact `pysigner.sign`; while a chaos run has a
+scheme installed in `pysigner` (the trusted-crypto stub), every
+signature goes through `pysigner.sign`, so the run's verifier accepts it. The reference signs every
 transaction with its exact pure-Python signer in the event loop, which
 caps the offered rate far below the curve; RFC 8032 signatures are
 deterministic, so both signers give the same bytes. `sign_s` and `signed`
 count the generator's signing time and signatures.
 
 `log_summary()` emits the `Ingress offered/accepted/shed/...` log lines
-that `benchmark/logs.py` scrapes. Not copied: `IngressLoad` (the chaos
-scenarios' spec).
+that `benchmark/logs.py` scrapes.
 """
 
 from __future__ import annotations
@@ -35,13 +36,14 @@ import logging
 import math
 import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Awaitable, Callable
 
 from ..crypto import pysigner
 from ..utils import metrics
 from ..utils.actors import spawn
 from . import messages
+from .admission import IngressConfig
 from .messages import ClientTransaction, IngressResponse
 
 log = logging.getLogger("hotstuff.loadgen")
@@ -92,6 +94,8 @@ def make_signer() -> tuple[str, Callable[[bytes, bytes, bytes], bytes]]:
     keys: dict[bytes, Ed25519PrivateKey] = {}
 
     def sign_openssl(seed: bytes, message: bytes, public_key: bytes | None = None) -> bytes:
+        if pysigner.active_scheme() is not None:
+            return pysigner.sign(seed, message)
         key = keys.get(seed)
         if key is None:
             key = keys[seed] = Ed25519PrivateKey.from_private_bytes(seed)
@@ -275,3 +279,18 @@ class OpenLoopLoadGen:
         )
         log.info("Ingress shed rate: %.2f %%", 100.0 * s["shed_rate"])
         return s
+
+
+@dataclass(slots=True)
+class IngressLoad:
+    """Declarative ingress-load spec for chaos scenarios: the orchestrator
+    boots one IngressPipeline + OpenLoopLoadGen per target node (seeded
+    from the scenario's master seed, so replay stays bit-identical) and
+    embeds each generator's summary in the report under `ingress`."""
+
+    curve: ArrivalCurve
+    duration: float
+    clients: int = 4
+    tx_bytes: int = 32
+    targets: tuple[int, ...] | None = None  # node indices; None = all honest
+    config: Callable[[], IngressConfig] = field(default=IngressConfig)

@@ -34,7 +34,11 @@ none is in flight, so a sparse stream still gathers into batches behind
 the one in verification, as in the reference; a backlog goes out in full
 batches, `DRAIN_WIDTH` at a time.
 
-Not copied: the chaos scenarios' drain pacing (`verify_interval`).
+With `IngressConfig.verify_interval` set (the chaos scenarios' drain pacer,
+which models a verify capacity of verify_batch / verify_interval tx/s under
+a virtual clock), the drain width is 1: one batch at a time, each holding
+its slot for the pause after it, as in the reference, so the paced
+capacity is the reference's too.
 """
 
 from __future__ import annotations
@@ -154,13 +158,19 @@ class IngressPipeline:
 
     async def _run(self) -> None:
         cfg = self.admission.config
+        width = 1 if cfg.verify_interval else DRAIN_WIDTH
         while True:
             n = self._in_flight
-            if n < DRAIN_WIDTH and (n == 0 or self.admission.depth() >= cfg.verify_batch):
+            if n < width and (n == 0 or self.admission.depth() >= cfg.verify_batch):
                 batch = self.admission.take(cfg.verify_batch)
                 if batch:
                     self._in_flight += 1
-                    spawn(self._drain(batch), name="ingress-verify")
+                    if width == 1:
+                        # Paced: awaited in this task, as the reference's
+                        # drain is, so no task hop reorders a virtual instant.
+                        await self._drain(batch)
+                    else:
+                        spawn(self._drain(batch), name="ingress-verify")
                     continue
             self._pending.clear()
             await self._pending.wait()
@@ -169,6 +179,7 @@ class IngressPipeline:
         """Verify one batch and answer each transaction in it: forward the
         verified ones into the sink, reject the rest; then wake the drain
         loop."""
+        cfg = self.admission.config
         try:
             loop = asyncio.get_running_loop()
             msgs = [tx.digest().data for tx, _t0, _f in batch]
@@ -226,6 +237,10 @@ class IngressPipeline:
                 self.stats["responded"] += 1
             self.stats["accepted"] += accepted
             self.admission.note_drained(len(batch), loop.time())
+            if cfg.verify_interval:
+                # Deliberate drain pacing (see IngressConfig): capacity =
+                # verify_batch / verify_interval tx/s.
+                await asyncio.sleep(cfg.verify_interval)
         finally:
             self._in_flight -= 1
             self._pending.set()

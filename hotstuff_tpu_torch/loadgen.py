@@ -51,10 +51,9 @@ transport errors (a refused connection included), unresolved
 submissions, or bad flags (argparse); 3 = malformed --target or
 --proofs-target.
 
-Not ported: `--selftest` (and its `--capacity`, `--commit-interval`),
+Not ported yet: `--selftest` (and its `--capacity`, `--commit-interval`),
 which runs an in-process pipeline and a synthetic committer on the chaos
-virtual clock; it is refused with an error until the port has the chaos
-plane (ROADMAP A.11.4).
+virtual clock; it is refused with an error (ROADMAP A.11.4c).
 """
 
 from __future__ import annotations
@@ -461,8 +460,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
     if args.selftest:
-        ap.error("--selftest is not ported: it runs on the chaos virtual clock, which the port does not "
-                 "have yet (ROADMAP A.11.4); use --target against a node started with --ingress")
+        ap.error("--selftest is not ported yet (ROADMAP A.11.4c); use --target against a node started "
+                 "with --ingress")
     if args.procs < 1:
         ap.error("--procs must be >= 1")
     if args.proofs_out and not args.proofs:

@@ -5,6 +5,9 @@ Subcommands:
   * run --keys K --committee C --store S [--parameters P]
         [--crypto torch|cpu|remote] [--device cuda|cpu] [--ingress]
         [--telemetry-port PORT]
+  * deploy --nodes N [--crypto torch|cpu|remote] [--device cuda|cpu]
+        [--crypto-crossover N] [--no-warmup] [--metrics-out PATH]
+                                            -- the in-process local testbed
 
 The port's copy of `hotstuff_tpu/node/main.py`. `--crypto` selects the
 `CryptoBackend` every batch verification of the node goes through:
@@ -40,8 +43,20 @@ authenticated client ingress on front_port + `ingress_port_offset`
 backend) and the commit proofs of what it admitted on front_port +
 `proofs_port_offset`; `python -m hotstuff_tpu_torch.loadgen` drives both.
 
+`deploy --nodes N` is the reference's in-process testbed
+(`hotstuff_tpu/node/main.py:104-150`): N nodes in this process, keys from
+`random.Random(0)`, consensus on 127.0.0.1:7000+i, mempool on 7100+i, front
+on 7200+i, stores at `.db_{i}/log` under the working directory, the
+default consensus and mempool parameters, one commit drain a node. The
+nodes share one process-wide backend, built as `run` builds it
+(`make_node_backend`: the card's `TorchBackend` by default, no CPU
+fallback) and warmed before they boot; no committee is registered, as the
+reference's deploy registers none, so committee-tagged batches take the
+generic kernels. `--metrics-out` and `HOTSTUFF_METRICS_INTERVAL` work as
+for `run`; a `--crypto remote` deploy uses the sidecar at 127.0.0.1:9700.
+
 Refused with an error, not ported: the reference's `--crypto tpu` (use
-`torch`), the `deploy` subcommand and `HOTSTUFF_PROFILE`.
+`torch`) and `HOTSTUFF_PROFILE`.
 """
 
 from __future__ import annotations
@@ -90,19 +105,27 @@ def make_node_backend(args):
     return make_backend("cpu")
 
 
-async def _run_node(args) -> None:
+def install_node_backend(args):
+    """Make the backend of `--crypto` (`make_node_backend`), install it as
+    the process's, and warm it unless `--no-warmup`: the kernels are built
+    and every bucket width run BEFORE the pacemaker can arm, since a first
+    launch stalls early rounds past timeout_delay."""
     from ..crypto.backend import set_backend
-    from ..ops import _build
-    from ..utils import metrics
 
     backend = make_node_backend(args)
     set_backend(backend)
     if not args.no_warmup:
-        # Build the kernels and run every bucket width BEFORE the pacemaker
-        # can arm: a first launch stalls early rounds past timeout_delay.
         from ..crypto.remote import warmup_backend
 
         warmup_backend(backend)
+    return backend
+
+
+async def _run_node(args) -> None:
+    from ..ops import _build
+    from ..utils import metrics
+
+    install_node_backend(args)
     node = make_node(args)
     # Committee registration at startup: validator keys become device-
     # resident tables, with the committee kernels run before the node
@@ -116,6 +139,77 @@ async def _run_node(args) -> None:
     if args.telemetry_port is not None:
         start_telemetry(node, args.keys, args.telemetry_port)
     await node.analyze_block()
+
+
+# The reference testbed's base ports: consensus, mempool and front.
+DEPLOY_PORTS = (7000, 7100, 7200)
+
+
+def deploy_keys(n: int) -> list:
+    """The testbed's keypairs: `generate_keypair` on `random.Random(0)`, in
+    the reference's order."""
+    import random
+
+    from ..crypto import generate_keypair
+
+    rng = random.Random(0)
+    return [generate_keypair(rng) for _ in range(n)]
+
+
+def deploy_committees(keys, consensus_port: int = DEPLOY_PORTS[0], mempool_port: int = DEPLOY_PORTS[1],
+                      front_port: int = DEPLOY_PORTS[2]):
+    """The testbed's consensus and mempool committees over `keys`: stake 1
+    each, node i on 127.0.0.1 at consensus_port + i, mempool_port + i and
+    front_port + i."""
+    from ..consensus.config import Committee as ConsensusCommittee
+    from ..mempool.config import MempoolCommittee
+
+    consensus = ConsensusCommittee.new(
+        [(pk, 1, ("127.0.0.1", consensus_port + i)) for i, (pk, _) in enumerate(keys)])
+    mempool = MempoolCommittee.new(
+        [(pk, ("127.0.0.1", front_port + i), ("127.0.0.1", mempool_port + i)) for i, (pk, _) in enumerate(keys)])
+    return consensus, mempool
+
+
+async def _deploy_testbed(args, consensus_port: int = DEPLOY_PORTS[0], mempool_port: int = DEPLOY_PORTS[1],
+                          front_port: int = DEPLOY_PORTS[2]) -> None:
+    """The in-process local testbed (`hotstuff_tpu/node/main.py:104-150`,
+    node/src/main.rs:94-153): `args.nodes` nodes on one shared backend.
+    Tests pass other base ports; the command line keeps the reference's."""
+    from ..consensus import Consensus
+    from ..consensus.config import Parameters
+    from ..crypto import SignatureService
+    from ..mempool import Mempool
+    from ..mempool.config import MempoolParameters
+    from ..ops import _build
+    from ..store import Store
+    from ..utils import metrics
+    from ..utils.actors import channel
+
+    install_node_backend(args)
+    # The dump's metrics and launch counts (--metrics-out) are the
+    # testbed's own run, not the warmup's.
+    metrics.reset()
+    _build.reset_launches()
+    keys = deploy_keys(args.nodes)
+    consensus_committee, mempool_committee = deploy_committees(keys, consensus_port, mempool_port, front_port)
+    commits = []
+    for i, (pk, sk) in enumerate(keys):
+        store = Store(f".db_{i}/log")
+        signer = SignatureService(sk)
+        cm_channel = channel()
+        core_channel = channel()
+        commit_channel = channel()
+        Mempool.run(pk, mempool_committee, MempoolParameters(), store, signer, cm_channel, core_channel)
+        Consensus.run(pk, consensus_committee, Parameters(), store, signer, cm_channel, commit_channel,
+                      core_channel=core_channel)
+        commits.append(commit_channel)
+
+    async def drain(ch):
+        while True:
+            await ch.get()
+
+    await asyncio.gather(*(drain(c) for c in commits))
 
 
 def make_node(args):
@@ -210,16 +304,31 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                        help="write the flight-recorder dump to this path on exit/SIGTERM; watchdog dumps "
                        "land next to it as <path>.watchdog-<reason>-<n>.json")
 
-    sub.add_parser("deploy", help="not ported: refused").add_argument("--nodes", type=int)
+    p_deploy = sub.add_parser("deploy", help="in-process local testbed")
+    p_deploy.add_argument("--nodes", type=int, required=True)
+    p_deploy.add_argument("--crypto", default="torch", choices=["torch", "cpu", "remote"])
+    p_deploy.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                          help="with --crypto torch: the card (default) or the plain PyTorch kernels")
+    p_deploy.add_argument("--crypto-crossover", type=int, default=None,
+                          help="batches below this size verify on the host CPU (as for run)")
+    p_deploy.add_argument("--no-warmup", action="store_true",
+                          help="skip running the kernels before the nodes boot")
+    p_deploy.add_argument("--metrics-out", default=None,
+                          help="write the metrics dump, with the kernel launch counts, to this path on exit/SIGTERM")
+    # The sidecar address and sharding are run's flags; deploy keeps the
+    # reference's flag set and these defaults.
+    p_deploy.set_defaults(crypto_addr="127.0.0.1:9700", crypto_sharded=False, trace_out=None)
 
     args = parser.parse_args(argv)
-    if args.command == "deploy":
-        parser.error("the deploy subcommand is not ported; start each node with `run`")
+    if args.command in ("run", "deploy"):
+        if args.device != "cuda" and args.crypto != "torch":
+            parser.error("--device applies to --crypto torch only")
+    if args.command == "deploy" and args.nodes < 1:
+        parser.error("--nodes must be at least 1")
     if args.command == "run":
         if args.crypto_sharded and (args.crypto != "torch" or args.device != "cuda"):
             parser.error("--crypto-sharded requires --crypto torch on --device cuda")
-        if args.device != "cuda" and args.crypto != "torch":
-            parser.error("--device applies to --crypto torch only")
+    if args.command in ("run", "deploy"):
         if os.environ.get("HOTSTUFF_PROFILE"):
             parser.error("HOTSTUFF_PROFILE is not ported")
     return args
@@ -294,7 +403,7 @@ def main(argv: list[str] | None = None) -> None:
 
     signal.signal(signal.SIGTERM, _on_term)
     atexit.register(_flush_all)
-    asyncio.run(_run_node(args))
+    asyncio.run(_deploy_testbed(args) if args.command == "deploy" else _run_node(args))
 
 
 if __name__ == "__main__":

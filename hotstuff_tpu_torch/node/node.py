@@ -7,8 +7,9 @@ The port's copy of `hotstuff_tpu/node/node.py`, its imports rewritten to
 this package. With the client ingress on (`ingress_enabled`), one
 `ProofRegistry` is shared by the ingress pipeline, the payload maker and
 the consensus core, and its persisted window reloads from the store.
-Aggregate certificates (`aggregate_certs`) are not ported: a parameters
-file that enables them is refused. Region-aware
+With `aggregate_certs` on, as in the reference, a node emits no aggregate
+vote or timeout (it has no aggregate signer) and understands inbound
+aggregate certificates. Region-aware
 election (`region_aware_election`) is accepted; a node passes no region
 map, so its schedule is round-robin, as the reference's.
 """
@@ -22,7 +23,7 @@ from ..crypto import SignatureService
 from ..mempool import Mempool
 from ..store import Store
 from ..utils.actors import channel
-from .config import Committee, ConfigError, NodeParameters, Secret
+from .config import Committee, NodeParameters, Secret
 
 log = logging.getLogger("hotstuff.node")
 
@@ -42,8 +43,6 @@ class Node:
             if parameters_path
             else NodeParameters.default()
         )
-        if self.parameters.consensus.aggregate_certs:
-            raise ConfigError("aggregate_certs is not ported")
         self.store_path = store_path
         self.commit_channel = channel()
         # Set by boot(): the node's shared BatchVerificationService.

@@ -3,18 +3,16 @@
 A copy of `hotstuff_tpu/utils/actors.py` for the port: bounded channels
 (`channel`), tracked spawns (`spawn`), a select-like multiplexer for
 (channel, timer) loops (`Selector`) and the pacemaker's resettable
-`Timer`. The reference is an actor-per-subsystem design on tokio: every
-component owns an mpsc receiver and runs an infinite select! loop in its
-own task, with no shared mutable state; this module gives the same
-discipline on asyncio.
-
-Not copied: the chaos runner's `SpawnScope` (the port has no chaos
-runner).
+`Timer`, and the chaos runner's `SpawnScope`. The reference is an
+actor-per-subsystem design on tokio: every component owns an mpsc receiver
+and runs an infinite select! loop in its own task, with no shared mutable
+state; this module gives the same discipline on asyncio.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import logging
 from typing import Any, Coroutine
 
@@ -30,6 +28,49 @@ def channel(capacity: int = CHANNEL_CAPACITY) -> asyncio.Queue:
 
 _tasks: set[asyncio.Task] = set()
 
+# Active SpawnScope, if any. A contextvar (not a global) so the scope
+# PROPAGATES: a task spawned while a scope is active carries the scope in
+# its context, and every task IT spawns later (per-peer net workers, sync
+# waiters, verify dispatches) lands in the same scope — the transitive
+# task tree of one in-process node, which is exactly what a chaos
+# crash-restart must cancel.
+_scope_var: contextvars.ContextVar["SpawnScope | None"] = contextvars.ContextVar(
+    "hotstuff-spawn-scope", default=None
+)
+
+
+class SpawnScope:
+    """Collects every task spawn()ed while the scope is active, including
+    transitively (see _scope_var). Used by the chaos orchestrator to model
+    a node crash as one cancel of the node's whole task tree."""
+
+    __slots__ = ("name", "tasks", "_token")
+
+    def __init__(self, name: str = "") -> None:
+        self.name = name
+        self.tasks: set[asyncio.Task] = set()
+        self._token = None
+
+    def __enter__(self) -> "SpawnScope":
+        self._token = _scope_var.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _scope_var.reset(self._token)
+        self._token = None
+
+    def adopt(self, task: asyncio.Task) -> None:
+        self.tasks.add(task)
+        task.add_done_callback(self.tasks.discard)
+
+    def cancel(self) -> list[asyncio.Task]:
+        """Cancel every live task in the scope; returns them so the caller
+        can await the cancellations settling."""
+        live = [t for t in self.tasks if not t.done()]
+        for t in live:
+            t.cancel()
+        return live
+
 
 def spawn(coro: Coroutine, name: str | None = None) -> asyncio.Task:
     """Spawn a long-lived actor task. Keeps a strong reference (asyncio only
@@ -37,6 +78,9 @@ def spawn(coro: Coroutine, name: str | None = None) -> asyncio.Task:
     run forever, like the reference's spawned loops."""
     task = asyncio.get_running_loop().create_task(coro, name=name)
     _tasks.add(task)
+    scope = _scope_var.get()
+    if scope is not None:
+        scope.adopt(task)
 
     def _done(t: asyncio.Task) -> None:
         _tasks.discard(t)

@@ -43,9 +43,10 @@ hooks: every `<path>.watchdog-<reason>-<n>.json` auto-dump embeds the last
 `default_slos` keeps the reference's set. `proofs.serve` reads no events
 in the port until the commit-proof plane is ported (`proofs.serve_s` is
 never recorded), and `reconfig.handoff` reads `reconfig.handoff_lag_rounds`
-from the port's epoch manager. Not copied: `fleet_rollup` and its
-`peer_latency_map`, which distil a chaos report into the scenario
-matrix's cell record and wait for the port's chaos runner.
+from the port's epoch manager. `peer_latency_map` (RTT EWMA per directed link, which the chaos
+plane's WAN scenarios read) is copied; `fleet_rollup`, which distils a
+chaos report into the scenario matrix's cell record, waits for the port's
+scenario matrix.
 
 Imports only the standard library and the port's `utils.metrics` /
 `utils.tracing` (`crypto.scheduler`, `network.net` and `utils.actors`
@@ -77,6 +78,7 @@ __all__ = [
     "PeerView",
     "peer_views",
     "infer_fleet_regions",
+    "peer_latency_map",
     "scrape",
     "scrape_sync",
     "serve_in_thread",
@@ -809,6 +811,21 @@ def infer_fleet_regions(
 # ---------------------------------------------------------------------------
 # Scrape endpoint: framed JSON request/response on the stack's 4-byte
 # length framing (network/net.py), one response per request frame.
+
+
+def peer_latency_map(peers: dict[str, dict]) -> dict[str, dict[str, float]]:
+    """{node: {peer: link snapshot}} -> {node: {peer: RTT EWMA ms}},
+    keeping only links with at least one closed probe loop."""
+    out: dict[str, dict[str, float]] = {}
+    for a, links in sorted((peers or {}).items()):
+        row = {
+            str(b): float(s["rtt_ewma_ms"])
+            for b, s in sorted((links or {}).items())
+            if isinstance(s, dict) and s.get("rtt_ewma_ms") is not None
+        }
+        if row:
+            out[str(a)] = row
+    return out
 
 
 class TelemetryServer:

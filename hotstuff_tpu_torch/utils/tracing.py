@@ -25,11 +25,14 @@ trace id and a frame trailer of either package read the same:
     every auto-dump: a telemetry plane's `attach_watchdog` registers one,
     so each dump carries the plane's last snapshots.
 
-Not copied: the ring size from `HOTSTUFF_TRACE_RING`; the watchdog's
-verify-regression trigger (`note_verify`, `HOTSTUFF_TRACE_P99_FACTOR`),
-which nothing of the port feeds; and what only the chaos runner calls
-(per-node filters of `events` / `dump` / `write_json`, an explicit
-`record` label).
+The chaos runner's parts are copied too: the `chaos.fault`, `chaos.crash`
+and `chaos.restart` event kinds, an explicit `record` label (an in-process
+node's index) and the per-node filter and cap of `events`.
+
+Not copied: the ring size from `HOTSTUFF_TRACE_RING`, the per-node
+filters of `dump` / `write_json` (the chaos runner reads `events`), and the
+watchdog's verify-regression trigger (`note_verify`,
+`HOTSTUFF_TRACE_P99_FACTOR`), which nothing of the port feeds.
 """
 
 from __future__ import annotations
@@ -104,6 +107,9 @@ EVENT_KINDS: frozenset[str] = frozenset(STAGES) | {
     "agg.fallback",
     "backpressure.on",
     "backpressure.off",
+    "chaos.fault",
+    "chaos.crash",
+    "chaos.restart",
     "watchdog.round_stall",
     "watchdog.backpressure",
     "watchdog.slo_burn",
@@ -278,12 +284,15 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=self.capacity)
         self._count = 0  # total ever recorded (dropped = count - len)
 
+    _USE_CTX = object()  # record(): default = read NODE_LABEL
+
     def record(
         self,
         kind: str,
         trace: str | None = None,
         dur: float | None = None,
         data: dict | None = None,
+        label: object = _USE_CTX,
     ) -> None:
         if not _enabled:
             return
@@ -291,7 +300,9 @@ class FlightRecorder:
         _M_EVENTS.inc()
         if self._count > self.capacity:
             _M_DROPPED.inc()
-        self._ring.append((_clock(), NODE_LABEL.get(), kind, trace, dur, data))
+        if label is self._USE_CTX:
+            label = NODE_LABEL.get()
+        self._ring.append((_clock(), label, kind, trace, dur, data))
 
     def __len__(self) -> int:
         return len(self._ring)
@@ -300,10 +311,13 @@ class FlightRecorder:
     def dropped(self) -> int:
         return max(0, self._count - self.capacity)
 
-    def events(self) -> list[dict]:
-        """Snapshot as dicts."""
+    def events(self, node: object | None = None, limit: int | None = None) -> list[dict]:
+        """Snapshot as dicts, optionally filtered to one node label and
+        capped to the most recent `limit` events."""
         out = []
         for t, label, kind, trace, dur, data in list(self._ring):
+            if node is not None and label != node:
+                continue
             e: dict = {"t": round(t, 6), "kind": kind}
             if label is not None:
                 e["node"] = label
@@ -314,6 +328,8 @@ class FlightRecorder:
             if data:
                 e["data"] = data
             out.append(e)
+        if limit is not None and len(out) > limit:
+            out = out[-limit:]
         return out
 
     def dump(self) -> dict:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 
 import pytest
 
@@ -971,3 +972,94 @@ def test_certificate_verdicts_on_cpu():
     verdicts = chip_smoke.certificate_verdicts([line], cmt, device="cpu")
     assert verdicts["card"] == verdicts["host"] == {
         "certificates": ["ok"], "tampered": ["ProofVerificationError", "InvalidSignatureError"]}
+
+
+# --- phase 16: the in-process testbed ------------------------------------------
+
+
+def test_deploy_port_check_names_each_taken_port():
+    """The port-free check binds each of the testbed's ports and names the
+    ones held; it never moves a port."""
+    import socket
+
+    with socket.socket() as held:
+        held.bind(("127.0.0.1", 0))
+        port = held.getsockname()[1]
+        bases = (port - 2, port + 100, port + 200)
+        taken = chip_smoke.deploy_ports_taken(4, bases)
+        assert port in taken and all(p == port for p in taken)
+    assert chip_smoke.deploy_ports_taken(4, bases) == []
+    assert chip_smoke.DEPLOY_BASES == (7000, 7100, 7200)
+
+
+def _deploy_log(rows) -> str:
+    """Commit lines of a deploy log: rows of (round, digest, times)."""
+    return "".join(f"[2026-01-01T00:00:{r:02d}.000Z INFO hotstuff.consensus] Committed B{r}({d})\n"
+                   f"[2026-01-01T00:00:{r:02d}.000Z INFO hotstuff.consensus] Committed B{r}({d}) -> p{r}\n" * k
+                   for r, d, k in rows)
+
+
+@pytest.mark.parametrize("rows, errors", [
+    ([(1, "a", 4), (2, "b", 4), (3, "c", 2)], []),
+    ([(1, "a", 4), (3, "c", 4)], []),
+    ([(1, "a", 4), (2, "b", 3), (3, "c", 4)], ["rounds [2] are not committed by all 4 nodes, though round 3 is"]),
+    ([(1, "a", 4), (1, "x", 1)], ["round 1: digests ['a', 'x']", "no round committed by all 4 nodes"]),
+    ([(1, "a", 5)], ["round 1: a committed 5 times by 4 nodes", "no round committed by all 4 nodes"]),
+    ([(1, "a", 3)], ["no round committed by all 4 nodes"]),
+], ids=["tail cut", "a skipped round", "a short round", "two digests", "five commits", "none full"])
+def test_deploy_counts_each_digests_four_commits(rows, errors):
+    counts = chip_smoke.deploy_commit_counts(_deploy_log(rows))
+    want = {}
+    for r, d, k in rows:
+        want.setdefault(r, {})[d] = want.get(r, {}).get(d, 0) + k
+    assert counts == want
+    assert chip_smoke.deploy_commit_errors(counts, 4) == errors
+
+
+def test_deploy_widths_and_dump_errors():
+    assert chip_smoke.deploy_widths(1) == chip_smoke.deploy_widths(128) == [128]
+    assert chip_smoke.deploy_widths(129) == [128, 256]
+    assert chip_smoke.deploy_widths(100_000) == [128, 256, 512, 1024, 2048, 4096]
+    launches = {name: 0 for name in chip_smoke.REPLACES}
+    launches.update({name: 3034 for name in chip_smoke.DEPLOY_KERNELS})
+    dump = {"counters": {"crypto.tpu_sigs": 5919}, "launches": launches,
+            "histograms": {"verifier.batch_size": {"max": 4}}}
+    assert chip_smoke.deploy_dump_errors(dump) == []
+    assert chip_smoke.deploy_launches(dump) == launches
+    bad = {"counters": {"crypto.tpu_sigs": 10, "verifier.committee_sigs": 2, "crypto.cpu_sigs": 1},
+           "launches": {**launches, "ladder": 0, "committee_ladder": 2}}
+    assert chip_smoke.deploy_dump_errors(bad) == [
+        "lanes {'generic': 8, 'committee': 2, 'host': 1} (want generic > 0, committee 0, host 0)",
+        "['ladder'] never launched", f"['committee_ladder'] launched off deploy's path: {bad['launches']}"]
+    assert chip_smoke.deploy_dump_errors({"counters": {"crypto.tpu_sigs": 1}}) == ["the dump holds no launch counts"]
+
+
+def test_deploy_launches_ride_every_row_of_the_kernels_line():
+    """Each row of the kernels line carries `deploy_launches`, read from
+    phase 16's dump (0 for a kernel off deploy's path)."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.count("deploy_launches=port_deploy[\"launches\"].get(") == src.count("ingress_node_launches=")
+    assert "phase_port_deploy(" in src
+    cmd = chip_smoke.deploy_cmd("py", "m.json")
+    assert cmd[2:] == ["hotstuff_tpu_torch.node.main", "-vv", "deploy", "--nodes", "4", "--crypto-crossover", "1",
+                       "--metrics-out", "m.json"]
+
+
+def test_laps_split_the_run_by_phase(monkeypatch):
+    """`Laps` closes each stretch at its lap, and `main` laps every phase
+    it runs, from the build to phase 16, before the kernels line."""
+    import inspect
+
+    clock = iter([10.0, 12.5, 12.5, 20.04])
+    monkeypatch.setattr(chip_smoke.time, "perf_counter", lambda: next(clock))
+    laps = chip_smoke.Laps()
+    laps.lap("1 build")
+    laps.lap("2 compare")
+    laps.lap("3 main path")
+    assert laps.seconds == {"1 build": 2.5, "2 compare": 0.0, "3 main path": 7.5}
+    src = inspect.getsource(chip_smoke.main)
+    labels = re.findall(r'laps\.lap\("([^"]+)"\)', src)
+    assert labels[0] == "1 build" and labels[-1] == "16 port deploy" and len(labels) == len(set(labels)) == 16
+    assert src.index("phase seconds:") < src.index('json.dumps({"kernels": rows})')

@@ -76,7 +76,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 *(f"hotstuff_tpu_torch.mempool.{m}" for m in (
                     "config", "errors", "messages", "payload_maker", "front", "synchronizer", "core", "mempool")),
                 "hotstuff_tpu_torch.node", "hotstuff_tpu_torch.node.node", "hotstuff_tpu_torch.node.client",
-                "hotstuff_tpu_torch.node.main"):
+                "hotstuff_tpu_torch.node.main", "hotstuff_tpu_torch.crypto.pysigner",
+                "hotstuff_tpu_torch.chaos", "hotstuff_tpu_torch.chaos_run", "hotstuff_tpu_torch.utils.incidents",
+                *(f"hotstuff_tpu_torch.chaos.{m}" for m in (
+                    "vtime", "plan", "trusted_crypto", "transport", "byzantine", "invariants", "orchestrator",
+                    "scenarios"))):
         assert mod in res["modules"]
 
 

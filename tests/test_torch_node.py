@@ -17,7 +17,8 @@
   * The entry point: `python -m hotstuff_tpu_torch.node.main run --crypto
     torch` asks for the card, so on a host without one it exits non-zero,
     and never falls back to the CPU; `--ingress` turns the client plane on;
-    what is not ported is refused.
+    `aggregate_certs` and `deploy` are taken; what is not ported is
+    refused.
 """
 
 from __future__ import annotations
@@ -199,19 +200,22 @@ def _node_files(tmp_path, parameters: dict) -> tuple[str, str, str]:
 
 
 @pytest.mark.parametrize("section, option", [("consensus", "aggregate_certs")])
-def test_node_refuses_parameters_that_are_not_ported(tmp_path, section, option):
-    """A parameters file that turns on an option the port leaves out stops
-    the node before it boots; `Consensus.run` refuses the consensus ones."""
-    from hotstuff_tpu_torch.node.config import ConfigError
+def test_node_refuses_parameters_that_are_not_ported(tmp_path, run_async, base_port, section, option):
+    """Since the aggregate-certificate plane is ported, a parameters file
+    that turns on `aggregate_certs` is taken as the reference's node takes
+    it: both packages' `Node` read it, and a mixed committee with it on
+    commits the same blocks. A node has no aggregate signer, so neither
+    package emits an aggregate vote or timeout and no AggQC forms."""
+    from hotstuff_tpu.node.node import Node as RNode
     from hotstuff_tpu_torch.node.node import Node
 
     key, committee, params = _node_files(tmp_path, {section: {option: True}})
-    with pytest.raises(ConfigError, match=f"{option} is not ported"):
-        Node(committee, key, str(tmp_path / "db"), params)
-    if section == "consensus":
-        with pytest.raises(ValueError, match=f"{option} is not ported"):
-            Consensus.run(PublicKey(bytes(32)), Committee.new([]), Parameters(**{option: True}), None,
-                          None, channel(), channel())
+    for node in (Node(committee, key, str(tmp_path / "db"), params),
+                 RNode(committee, key, str(tmp_path / "rdb"), params)):
+        assert getattr(node.parameters.consensus, option) is True
+    before = metrics.REGISTRY.counter("agg.qcs_formed").value
+    _mixed_committee(run_async, base_port, **{option: True})
+    assert metrics.REGISTRY.counter("agg.qcs_formed").value == before
 
 
 def test_service_routes_synthetic_load_and_qcs_to_their_kernels(run_async, monkeypatch):
@@ -330,7 +334,8 @@ def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
     (["run", "--crypto", "cpu", "--device", "cpu"], "--device applies to --crypto torch only"),
     (["run", "--crypto", "cpu", "--crypto-sharded"], "--crypto-sharded requires --crypto torch"),
     (["run", "--crypto", "tpu"], "invalid choice: 'tpu'"),
-    (["deploy", "--nodes", "4"], "deploy subcommand is not ported"),
+    (["deploy", "--nodes", "4", "--crypto", "cpu", "--device", "cpu"], "--device applies to --crypto torch only"),
+    (["deploy", "--nodes", "0"], "--nodes must be at least 1"),
 ])
 def test_node_refuses_what_is_not_ported(argv, said, capsys):
     from hotstuff_tpu_torch.node import main as node_main
@@ -499,17 +504,20 @@ def test_node_run_accepts_ingress(tmp_path):
 
 
 def test_node_still_refuses_aggregate_certs_and_deploy(tmp_path, capsys):
-    """With the client plane on, aggregate certificates in the parameters
-    and the `deploy` subcommand are still refused."""
+    """Since the aggregate-certificate plane and the testbed are ported,
+    with the client plane on, aggregate certificates in the parameters
+    and the `deploy` subcommand are taken, no longer refused: the node is
+    made with both planes on, and `deploy` parses to the reference's flag
+    set with `run`'s backend defaults (the card's `TorchBackend`)."""
     from hotstuff_tpu_torch.node import main as node_main
-    from hotstuff_tpu_torch.node.config import ConfigError
 
     key, committee, params = _node_files(tmp_path, {"mempool": {"ingress_enabled": True},
                                                     "consensus": {"aggregate_certs": True}})
     args = node_main.parse_args(["run", "--keys", key, "--committee", committee, "--store", str(tmp_path / "db"),
                                  "--parameters", params, "--ingress"])
-    with pytest.raises(ConfigError, match="aggregate_certs is not ported"):
-        node_main.make_node(args)
-    with pytest.raises(SystemExit) as exit_:
-        node_main.parse_args(["deploy", "--nodes", "4"])
-    assert exit_.value.code == 2 and "deploy subcommand is not ported" in capsys.readouterr().err
+    node = node_main.make_node(args)
+    assert node.parameters.consensus.aggregate_certs and node.parameters.mempool.ingress_enabled
+    args = node_main.parse_args(["deploy", "--nodes", "4"])
+    assert (args.command, args.nodes, args.crypto, args.device, args.crypto_crossover, args.no_warmup,
+            args.metrics_out) == ("deploy", 4, "torch", "cuda", None, False, None)
+    assert capsys.readouterr().err == ""

@@ -6,8 +6,8 @@ backends in both packages: the reference's three cases
 and with no steal backend the port's scheduler is what it was.
 
 The reference's third case turns stealing off through its inline
-(virtual-time) mode, which the port does not have: its counterpart is a
-service given no steal backend.
+(virtual-time) mode; the port's inline mode is given the same steal
+backend and must turn stealing off the same way.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ PKGS = {
     "reference": dict(service=RService, stub=_stub(RCryptoBackend), pk=RPublicKey, sig=RSignature,
                       metrics=r_metrics, no_steal=lambda stub: {"inline": True, "steal_backends": [stub()]}),
     "port": dict(service=BatchVerificationService, stub=_stub(CryptoBackend), pk=PublicKey, sig=Signature,
-                 metrics=p_metrics, no_steal=lambda stub: {}),
+                 metrics=p_metrics, no_steal=lambda stub: {"inline": True, "steal_backends": [stub()]}),
 }
 
 
