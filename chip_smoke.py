@@ -272,7 +272,18 @@ caught:
      node's dump must hold one `verifier.e2e_s` sample per verifier batch,
      but for those in flight at SIGTERM (at most NODE_IN_FLIGHT).
      Prints each node's snapshots, lanes, active and fired alerts and
-     `verifier.e2e_s` p50 / p99;
+     `verifier.e2e_s` p50 / p99. Each node also runs with `--trace-out`,
+     so its batch service feeds the anomaly watchdog a sample of each
+     card flush's per-signature cost: each node must write its flight
+     recorder's dump at SIGTERM and log the verify baseline its watchdog
+     took (`node_watchdog`); the phase prints each node's baseline (us a
+     signature), its `verify_regression` triggers and its auto-dump files,
+     and its committed tx/s and blocks a second with every node traced. A
+     trigger on this healthy run is reported, not failed. `--tracing-ab`
+     builds the kernels and runs this phase alone, six times in turns:
+     with `HOTSTUFF_TRACE=0`, with tracing on but no dump, and with
+     `--trace-out` (`tracing_ab`), so that what the tracing costs shows
+     beside the swing between runs;
  14. the port's tools and stealing: `python -m hotstuff_tpu_torch.latch_probe`
      (its `main`, in this process) on the card must report
      `contracts_held` (organic masks right with K2 launched and no
@@ -284,7 +295,16 @@ caught:
      both on cuda:0, takes a 4,096-lane bulk flood: `pipeline.steals`
      must move, every mask must be the expected one, and the backends'
      card lanes must add up to the lanes sent (one card: the accounting
-     only);
+     only); last, the forced watchdog check (`phase_watchdog`): a traced
+     `BatchVerificationService` over a `TorchBackend` on the card takes
+     WATCHDOG_CARD_FLUSHES (32) flushes of WATCHDOG_LANES (1,024) real
+     signatures (1/16 corrupted) on the card, then WATCHDOG_HOST_FLUSHES (8)
+     of the same size on OpenSSL (its crossover raised above the flush
+     size): the watchdog, reset before, must fire `verify_regression`
+     exactly once, on the last of the OpenSSL flushes, every mask must
+     equal OpenSSL's, and K2, K3, K1 and K4 must launch once a card flush
+     and nothing on the OpenSSL stretch. Prints both per-signature costs
+     and the launches;
  15. the port's client ingress and commit proofs: four port nodes as in
      phase 13 (`--crypto torch --crypto-crossover 1`, keys written in
      process), their parameters with `ingress_enabled`
@@ -330,6 +350,11 @@ caught:
      transactions a second, lanes, launches and where the time went.
 Before the kernels line, `phase seconds:` gives the wall seconds of each
 stretch of the run (`Laps`), so that two runs compare phase by phase.
+Not run here, because they reach no kernel by design (ROADMAP §C,
+departure 9): the scenario matrix (`python -m hotstuff_tpu_torch.chaos_run
+--matrix`), `python -m hotstuff_tpu_torch.loadgen --selftest` and the
+bench's `--ingress-backend pure` / `--sched-backend pure` legs, which all
+verify on the port's pure-Python verifier on the host.
 The last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX
 or of `hotstuff_tpu` (phase 7 runs the reference's node as processes;
 phases 13, 15 and 16 the port's). The bound column's model and constants come from
@@ -2077,7 +2102,10 @@ class _Sidecar:
     """The port's sidecar (`remote.start`, the reference's defaults unless
     given) on an event loop in a thread of this process, on a free port.
     What its loggers warn of and what its loop reports as unhandled lands
-    in `errors`."""
+    in `errors`, but for the anomaly watchdog's `verify_regression`
+    triggers (the batch service's samples of the card's flushes against
+    the reference's thresholds), whose details land in `watchdog` and are
+    reported (`watchdog_line`)."""
 
     def __init__(self, backend, **kw) -> None:
         import asyncio
@@ -2087,11 +2115,16 @@ class _Sidecar:
         from hotstuff_tpu_torch.crypto import remote
 
         self.errors: list[str] = []
-        errors = self.errors
+        self.watchdog: list[str] = []
+        errors, watchdog = self.errors, self.watchdog
 
         class Keep(logging.Handler):
             def emit(self, record):
-                errors.append(f"{record.name}: {record.getMessage()}")
+                msg = record.getMessage()
+                if record.name == "hotstuff.tracing" and msg.startswith("anomaly watchdog fired: verify_regression"):
+                    watchdog.append(record.args[1])
+                else:
+                    errors.append(f"{record.name}: {msg}")
 
         self._handler = Keep(logging.WARNING)
         logging.getLogger("hotstuff").addHandler(self._handler)
@@ -2102,6 +2135,20 @@ class _Sidecar:
         start = remote.start(("127.0.0.1", 0), backend, **kw)
         self.server, self.service = asyncio.run_coroutine_threadsafe(start, self.loop).result(60)
         self.port = self.server.sockets[0].getsockname()[1]
+
+    def watchdog_line(self, label: str, card_lanes: int, host_lanes: int) -> str:
+        """The process's verify baseline and each of the sidecar's
+        `verify_regression` triggers (its per-signature cost against the
+        baseline it was held to, in us) beside the lanes the phase verified
+        on the card and on the host: a fire over flushes of mixed sizes
+        with every lane on the card reads apart from a route change."""
+        from hotstuff_tpu_torch.utils import tracing
+
+        base = tracing.WATCHDOG._verify_baseline
+        fired = "; ".join(f"{1e6 * d['per_sig_s']:.3f} against {1e6 * d['baseline_s']:.3f}" for d in self.watchdog)
+        return (f"{label} watchdog: verify baseline {'none' if base is None else f'{1e6 * base:.3f}'} us a "
+                f"signature; verify_regression fired {len(self.watchdog)} times{f' ({fired} us)' if fired else ''}; "
+                f"{card_lanes} lanes on the card, {host_lanes} on the host")
 
     def thread_time(self) -> float:
         """CPU seconds of the sidecar's event-loop thread so far."""
@@ -2383,6 +2430,8 @@ def phase_sidecar(seed: int, backend, committee_path: dict, direct_rate: float, 
               f"{device} lanes on the card (its invalid lanes)", flush=True)
         if sidecar.errors:
             fail(f"the sidecar reported: {sidecar.errors[:5]}")
+        print(sidecar.watchdog_line("sidecar", backend.stats["device_sigs"] - stats0["device_sigs"],
+                                    backend.stats["host_sigs"] - stats0["host_sigs"]), flush=True)
     finally:
         for t in timers.values():
             t.restore()
@@ -2493,10 +2542,10 @@ def check_commits(logs: dict[str, str]) -> dict[str, dict[int, str]]:
     return commits
 
 
-def _spawn(cmd: list[str], log: Path, cwd: Path):
+def _spawn(cmd: list[str], log: Path, cwd: Path, env: dict | None = None):
     with open(log, "w") as out:
         return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=cwd,
-                                env=dict(os.environ, PYTHONPATH=str(REPO)), start_new_session=True)
+                                env=dict(os.environ, PYTHONPATH=str(REPO), **(env or {})), start_new_session=True)
 
 
 def _await_logs(waits: list, phrase: str, what: str) -> None:
@@ -2602,6 +2651,7 @@ def phase_committee_run(backend, qcs, run_dir: Path) -> dict:
         launches = _build.launches()
         device = backend.stats["device_sigs"] - stats0["device_sigs"]
         host = backend.stats["host_sigs"] - stats0["host_sigs"]
+        print(sidecar.watchdog_line("committee run's sidecar", device, host), flush=True)
         wall, node_s = time.monotonic() - t_run, time.monotonic() - t_nodes
     finally:
         _kill(procs + ([cli] if cli is not None else []))
@@ -2640,14 +2690,17 @@ NODE_KERNELS = frozenset(GENERIC_KERNELS) | frozenset(COMMITTEE_KERNELS)
 
 
 def port_node_cmd(py: str, i: int, committee: str, parameters: str, metrics_out: str,
-                  telemetry_port: int | None = None) -> list[str]:
+                  telemetry_port: int | None = None, trace_out: str | None = None) -> list[str]:
     """Node i of the port's committee: `--crypto torch` on the card (the
     default device), every batch of one signature or more on the card; its
-    telemetry plane on `telemetry_port` when given."""
+    telemetry plane on `telemetry_port` and its flight recorder's dump (and
+    the anomaly watchdog's dumps beside it) at `trace_out` when given."""
     cmd = [py, "-m", "hotstuff_tpu_torch.node.main", "-vv", "run", "--keys", f".node-{i}.json",
            "--committee", committee, "--store", f".db-{i}/log", "--parameters", parameters,
            "--crypto", "torch", "--crypto-crossover", "1", "--metrics-out", metrics_out]
-    return cmd if telemetry_port is None else [*cmd, "--telemetry-port", str(telemetry_port)]
+    if telemetry_port is not None:
+        cmd += ["--telemetry-port", str(telemetry_port)]
+    return cmd if trace_out is None else [*cmd, "--trace-out", trace_out]
 
 
 def port_client_cmd(py: str, front: int, consensus: list[str], n: int) -> list[str]:
@@ -2756,9 +2809,31 @@ def committed_txs(logs: dict[str, str], tx_size: int, window: tuple[float, float
     return out
 
 
-def phase_port_committee(run_dir: Path) -> dict:
+WATCHDOG_BASELINE_RE = re.compile(r"watchdog verify baseline: ([\d.]+) us a signature")
+
+
+def node_watchdog(run_dir: Path, trace_out: str, log_text: str) -> dict:
+    """What a traced node's anomaly watchdog did, from its log and its run
+    directory: the verify baseline it took (us a signature, None if it took
+    none), its `verify_regression` triggers and every trigger by reason,
+    and the auto-dump files written beside `trace_out`."""
+    base = WATCHDOG_BASELINE_RE.findall(log_text)
+    fired = re.findall(r"anomaly watchdog fired: (\w+)", log_text)
+    return dict(baseline_us=float(base[0]) if base else None, verify_regression=fired.count("verify_regression"),
+                triggers={r: fired.count(r) for r in sorted(set(fired))},
+                dumps=sorted(p.name for p in run_dir.glob(f"{trace_out}.watchdog-*.json")))
+
+
+# Phase 13's tracing: `dump` runs each node with `--trace-out` (the
+# phase's own), `on` with the recorder and the watchdog on but no dump
+# (`HOTSTUFF_TRACE` unset, as before the watchdog's feed), `off` with
+# `HOTSTUFF_TRACE=0`. `--tracing-ab` runs the three in turns.
+TRACING_MODES = ("dump", "on", "off")
+
+
+def phase_port_committee(run_dir: Path, tracing: str = "dump") -> dict:
     """Phase 13: four of the port's nodes commit on the card (see the
-    module docstring)."""
+    module docstring), traced as `tracing` (TRACING_MODES) says."""
     from hotstuff_tpu_torch.store import store as port_store
     from hotstuff_tpu_torch.utils import telemetry
 
@@ -2777,6 +2852,8 @@ def phase_port_committee(run_dir: Path) -> dict:
     committee, parameters = write_node_configs(run_dir, names, ports)
     telemetry_ports = ports[3 * n:]
     dumps = [run_dir / f"metrics-{i}.json" for i in range(n)]
+    traces = [f"trace-{i}.json" if tracing == "dump" else None for i in range(n)]
+    env = {"HOTSTUFF_TRACE": "0"} if tracing == "off" else None
     labels = [f".node-{i}" for i in range(n)]  # the keys-file stems
     scrapes: dict[str, list[dict]] = {label: [] for label in labels}
     procs = []
@@ -2784,8 +2861,9 @@ def phase_port_committee(run_dir: Path) -> dict:
         nodes = []
         for i in range(n):
             log = run_dir / f"node-{i}.log"
-            cmd = port_node_cmd(py, i, committee.name, parameters.name, dumps[i].name, telemetry_ports[i])
-            nodes.append((log, _spawn(cmd, log, run_dir)))
+            cmd = port_node_cmd(py, i, committee.name, parameters.name, dumps[i].name, telemetry_ports[i],
+                                traces[i])
+            nodes.append((log, _spawn(cmd, log, run_dir, env)))
         procs += [p for _, p in nodes]
         t_nodes = time.monotonic()
         _await_logs(nodes, "successfully booted", "port node")
@@ -2815,13 +2893,21 @@ def phase_port_committee(run_dir: Path) -> dict:
         if "synthetic batch verification failed" in text:
             fail(f"{name} logged a synthetic verification failure; see {run_dir}")
     commits = check_commits(logs)
-    errors, lanes, launches, timings, e2e = [], {}, {}, {}, {}
+    errors, lanes, launches, timings, e2e, watchdogs = [], {}, {}, {}, {}, {}
     for i, path in enumerate(dumps):
         name = f"node-{i}"
         try:
             dump = json.loads(path.read_text())
+            trace = json.loads((run_dir / traces[i]).read_text()) if traces[i] else None
         except (OSError, json.JSONDecodeError) as e:
-            fail(f"{name} left no metrics dump ({e!r}); see {run_dir}")
+            fail(f"{name} left no metrics or trace dump ({e!r}); see {run_dir}")
+        if trace is not None and (trace.get("node") != labels[i] or not trace.get("recorded")):
+            errors.append(f"{name}: its trace dump is labelled {trace.get('node')!r} with "
+                          f"{trace.get('recorded')} events")
+        if tracing != "off":
+            watchdogs[name] = node_watchdog(run_dir, traces[i] or f"trace-{i}.json", logs[name])
+            if watchdogs[name]["baseline_us"] is None:
+                errors.append(f"{name}: its anomaly watchdog took no verify baseline from the card's flushes")
         errors += node_dump_errors(name, dump)
         errors += node_scrape_errors(labels[i], scrapes[labels[i]])
         lanes[name], launches[name] = node_dump_lanes(dump), dump.get("launches", {})
@@ -2842,8 +2928,10 @@ def phase_port_committee(run_dir: Path) -> dict:
     result = dict(blocks=blocks, blocks_in_traffic=in_window, max_round=rounds,
                   commits_per_s=min(in_window.values()) / wall, committed_txs=txs, tx_per_s=min(txs.values()) / wall,
                   synthetic_sigs=synthetic, lanes=lanes, launches=launches, timings=timings, wall_s=wall,
-                  node_s=node_s, boot_s=boot_s)
-    print(f"port committee: {n} port nodes, --crypto torch --crypto-crossover 1, booted in {boot_s:.1f} s, "
+                  node_s=node_s, boot_s=boot_s, watchdogs=watchdogs)
+    flags = {"dump": " --trace-out", "on": "", "off": ", HOTSTUFF_TRACE=0"}[tracing]
+    print(f"port committee: {n} port nodes, --crypto torch --crypto-crossover 1{flags}, booted in "
+          f"{boot_s:.1f} s, "
           f"{wall:.1f} s of client traffic: blocks committed {blocks} in all (digests agree), "
           f"{in_window} within the traffic, round {rounds}, "
           f"{result['commits_per_s']:.2f} commits/s per node over the traffic (the slowest node's); "
@@ -2862,6 +2950,12 @@ def phase_port_committee(run_dir: Path) -> dict:
               f"{scrape_batches(last)}, active alerts {last['active_alerts']}, alerts fired "
               f"{[a['slo'] for a in last['alerts'] if a['event'] == 'fired']}; verifier.e2e_s (the "
               f"node's run) samples, p50 / p99 ms {e2e[f'node-{i}']}", flush=True)
+    for name, w in watchdogs.items():
+        print(f"port committee {name} watchdog: verify baseline {w['baseline_us']} us a signature, "
+              f"verify_regression triggers {w['verify_regression']} (all triggers {w['triggers']}), "
+              f"auto-dump files {len(w['dumps'])} {w['dumps']}", flush=True)
+    print(f"port committee with tracing {tracing}: {result['tx_per_s']:.1f} tx/s and "
+          f"{result['commits_per_s']:.2f} blocks a second a node (the slowest node's)", flush=True)
     result.update(scrapes=scrapes, e2e=e2e)
     return result
 
@@ -4639,6 +4733,129 @@ def phase_steal(batch, device: str = "cuda") -> dict:
     return dict(stats=stats, lanes=lanes, seconds=secs)
 
 
+WATCHDOG_LANES = 1024  # the forced watchdog check's flush size
+WATCHDOG_CARD_FLUSHES = 32  # the watchdog's BASELINE_SAMPLES
+WATCHDOG_HOST_FLUSHES = 8  # its REGRESSION_STREAK
+WATCHDOG_HOST_CROSSOVER = 2 * WATCHDOG_LANES  # above the flush size: every flush to the host route
+
+
+def watchdog_corpus(seed: int, lanes: int = WATCHDOG_LANES):
+    """`lanes` distinct triples signed through OpenSSL by 16 keys, a seeded
+    1/16 of them corrupted (`_corrupt_lanes`), and OpenSSL's mask of them.
+    Returns (M, K, S, mask)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 24)
+    n_keys = 16
+    seeds = [bytes(row) for row in rng.integers(0, 256, (n_keys, 32), np.uint8)]
+    M = [bytes(row) for row in rng.integers(0, 256, (lanes, 32), np.uint8)]
+    K, S = [b""] * lanes, [b""] * lanes
+    for j in range(n_keys):
+        pk, sigs = _openssl_sign((seeds[j], M[j::n_keys]))
+        K[j::n_keys], S[j::n_keys] = [pk] * len(sigs), sigs
+    _corrupt_lanes(M, K, S, np.sort(rng.choice(lanes, max(1, lanes // 16), replace=False)))
+    openssl = _openssl_verifier()
+    if openssl is None:
+        fail("the forced watchdog check needs OpenSSL (the cryptography wheel)")
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+
+    return M, K, S, openssl(M, [PublicKey(k) for k in K], [Signature(x) for x in S])
+
+
+def phase_watchdog(seed: int, device: str = "cuda", backend=None, lanes: int = WATCHDOG_LANES) -> dict:
+    """The forced check of the anomaly watchdog's verify-regression trigger
+    on the card: a traced `BatchVerificationService` over one `TorchBackend`
+    (crossover 1) takes WATCHDOG_CARD_FLUSHES flushes of `lanes` real
+    signatures on the card, then, its crossover raised above the flush size
+    (WATCHDOG_HOST_CROSSOVER), WATCHDOG_HOST_FLUSHES of the same size on
+    the host route (OpenSSL). The watchdog, reset before, must fire
+    `verify_regression` exactly once and only in the second stretch, every
+    mask must equal OpenSSL's, and on the card K2, K3, K1 and K4 must each
+    launch once a card flush and nothing else. Prints both per-signature
+    costs (the watchdog's baseline and trigger, and each stretch's median
+    flush) and the launches. `backend` stands in for the card's in a CPU
+    rehearsal."""
+    import asyncio
+
+    from hotstuff_tpu_torch.crypto.batch_service import BatchVerificationService
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.utils import tracing
+
+    M, K, S, want = watchdog_corpus(seed, lanes)
+    pairs = [(PublicKey(k), Signature(x)) for k, x in zip(K, S)]
+    own = backend is None
+    if own:
+        backend = TorchBackend(device=device, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    flush = {"i": -1}
+    fired, secs, masks = [], [], []
+
+    def hook(reason: str, detail: dict) -> None:
+        fired.append((flush["i"], reason, detail))
+
+    async def drive():
+        service = BatchVerificationService(backend, max_batch=lanes)
+        # one flush before the watchdog's reset: the width's first dispatch
+        await service.verify_group(M, pairs, source="mempool", dedup=False)
+        stats0.update(backend.stats)
+        tracing.WATCHDOG.reset()
+        _build.reset_launches()
+        tracing.WATCHDOG.add_dump_hook(hook)
+        for i in range(WATCHDOG_CARD_FLUSHES + WATCHDOG_HOST_FLUSHES):
+            if i == WATCHDOG_CARD_FLUSHES:
+                launches["card"] = _build.launches()
+                _build.reset_launches()
+                backend.crossover = WATCHDOG_HOST_CROSSOVER
+            flush["i"] = i
+            t0 = time.perf_counter()
+            masks.append(await service.verify_group(M, pairs, source="mempool", dedup=False))
+            secs.append(time.perf_counter() - t0)
+        launches["host"] = _build.launches()
+
+    launches: dict = {}
+    stats0: dict = {}
+    was = tracing.enabled()
+    tracing.enable(True)
+    try:
+        asyncio.run(drive())
+        baseline = tracing.WATCHDOG._verify_baseline
+    finally:
+        tracing.WATCHDOG.remove_dump_hook(hook)
+        tracing.WATCHDOG.reset()
+        tracing.enable(was)
+        if own:
+            backend.close()
+    card_n, host_n = WATCHDOG_CARD_FLUSHES, WATCHDOG_HOST_FLUSHES
+    moved = {k: backend.stats[k] - stats0[k] for k in ("device_batches", "device_sigs", "host_batches", "host_sigs")}
+    errors = []
+    if [(i, r) for i, r, _ in fired] != [(card_n + host_n - 1, "verify_regression")]:
+        errors.append(f"the watchdog fired {[(i, r) for i, r, _ in fired]} (flush, reason), not verify_regression "
+                      f"once at flush {card_n + host_n - 1}, the last of the host stretch")
+    if any(m != want for m in masks):
+        errors.append(f"{sum(m != want for m in masks)} flushes' masks differ from OpenSSL's")
+    if moved != {"device_batches": card_n, "device_sigs": card_n * lanes, "host_batches": host_n,
+                 "host_sigs": host_n * lanes}:
+        errors.append(f"routes moved {moved}, not {card_n} flushes on the card and {host_n} on the host")
+    card_launched = {k: v for k, v in launches["card"].items() if v}
+    host_launched = {k: v for k, v in launches["host"].items() if v}
+    if device == "cuda" and (card_launched != {k: card_n for k in PACKED_KERNELS} or host_launched):
+        errors.append(f"launched {card_launched} on the card stretch and {host_launched} on the host one, not "
+                      f"K2, K3, K1 and K4 {card_n} times each and nothing")
+    if errors:
+        fail(f"forced watchdog check: {errors}")
+    per_sig = [1e6 * statistics.median(secs[:card_n]) / lanes, 1e6 * statistics.median(secs[card_n:]) / lanes]
+    detail = fired[0][2]
+    print(f"forced watchdog check: {card_n} flushes of {lanes} lanes on the card then {host_n} on the "
+          f"{backend.host_route} route (crossover {WATCHDOG_HOST_CROSSOVER}): verify_regression fired once, at "
+          f"flush {fired[0][0]}; baseline {1e6 * baseline:.3f} us a signature, trigger "
+          f"{1e6 * detail['per_sig_s']:.3f} us; each stretch's median flush {per_sig[0]:.3f} / {per_sig[1]:.3f} us a "
+          f"signature; masks equal OpenSSL's ({want.count(False)} rejected lanes a flush); launches on the card "
+          f"stretch {card_launched}, on the host stretch {host_launched}", flush=True)
+    return dict(baseline_us=1e6 * baseline, trigger_us=1e6 * detail["per_sig_s"], median_us=per_sig,
+                fired_at=fired[0][0], launches=launches)
+
+
 REPLACES = {
     "ladder": "hotstuff_tpu/ops/pallas_ladder.py:144",
     "h_digits": "hotstuff_tpu/ops/sha512.py:448",
@@ -4660,6 +4877,25 @@ REPLACES = {
 }
 
 
+def tracing_ab(card: str) -> int:
+    """`--tracing-ab`: phase 13 under each of TRACING_MODES, in the turns
+    off, on, dump, dump, on, off on one card, so the cost of the flight
+    recorder, the watchdog's feed and the dump shows against the swing
+    between runs. Prints each run's and each mode's committed tx/s and
+    blocks a second a node (the slowest node's), then one JSON object."""
+    runs: dict[str, list[tuple[float, float]]] = {mode: [] for mode in TRACING_MODES}
+    for turn, mode in enumerate(("off", "on", "dump", "dump", "on", "off")):
+        r = phase_port_committee(REPO / ".chip_smoke" / f"tracing_ab_{turn}", tracing=mode)
+        runs[mode].append((r["tx_per_s"], r["commits_per_s"]))
+    for mode, pairs in runs.items():
+        print(f"tracing {mode}: tx/s {[round(t, 3) for t, _ in pairs]}, blocks a second a node "
+              f"{[round(b, 4) for _, b in pairs]}, means {sum(t for t, _ in pairs) / len(pairs):.3f} and "
+              f"{sum(b for _, b in pairs) / len(pairs):.4f}", flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"tracing_ab": runs}), flush=True)
+    return 0
+
+
 class Laps:
     """Wall seconds of each stretch of `main`, keyed by the phases it ran:
     `lap(label)` closes the stretch since the previous lap (or since the
@@ -4679,6 +4915,9 @@ class Laps:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tracing-ab", action="store_true",
+                    help="build the kernels, then run only phase 13 under each of TRACING_MODES in turns "
+                    "(off, on, dump, dump, on, off) and print each run's tx/s and blocks a second")
     args = ap.parse_args()
 
     import torch
@@ -4698,6 +4937,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     phase_build()
     laps.lap("1 build")
+    if args.tracing_ab:
+        return tracing_ab(card)
     kernels = phase_compare(args.seed)
     kernels.update(phase_reduce_compare())
     laps.lap("2 compare")
@@ -4775,9 +5016,10 @@ def main() -> int:
     phase_latch_probe()
     phase_roofline(main_path["sigs_per_s"], len(committee_path["table_keys"]), {**kernels, **committee_kernels})
     phase_steal(main_path["batch"])
-    laps.lap("14 latch_probe, roofline, stealing")
-    print(f"phase 14 (latch_probe, roofline, work stealing): {laps.seconds['14 latch_probe, roofline, stealing']:.1f} s",
-          flush=True)
+    phase_watchdog(args.seed)
+    laps.lap("14 latch_probe, roofline, stealing, watchdog")
+    print(f"phase 14 (latch_probe, roofline, work stealing, watchdog): "
+          f"{laps.seconds['14 latch_probe, roofline, stealing, watchdog']:.1f} s", flush=True)
     port_ingress = phase_port_ingress(REPO / ".chip_smoke" / "port_ingress")
     laps.lap("15 port ingress")
     port_deploy = phase_port_deploy(REPO / ".chip_smoke" / "port_deploy")

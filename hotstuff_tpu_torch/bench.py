@@ -73,10 +73,15 @@ Deliberate departures from the reference:
     It ends with a JSON line too (`value`: the committee of 64's rate),
     where the reference prints only the table.
   * `--ingress` and `--scheduler-ab` run `TorchBackend` on `--device` at
-    its default crossovers. The reference's probe that degrades to its
-    pure-Python verifier is not carried over, and `--ingress-backend pure`
-    and `--sched-backend pure` are refused. The scheduler A/B's downscale
-    (bulk 8, critical 3, 3 feeders) applies only under `--device cpu`.
+    its default crossovers (`auto`). `--ingress-backend pure` and
+    `--sched-backend pure` run their leg on the port's pure-Python verifier
+    (`crypto/pysigner.py` `PurePythonBackend`) on the host, as the
+    reference's `pure` does: no card, `--device` unused, `backend`
+    `pure-python` on the JSON line and no `routes`. The reference's `auto`
+    probes its device path and degrades to that verifier on an error; the
+    port's `auto` does not, a failing leg raises (ROADMAP §C). The
+    scheduler A/B's downscale (bulk 8, critical 3, 3 feeders) applies under
+    `--device cpu` and to `pure`.
   * The ingress load generator signs through OpenSSL where `cryptography`
     imports (`ingress/loadgen.py` `make_signer`), else the port's exact
     signer; the reference signs with its exact pure-Python signer, which
@@ -116,6 +121,7 @@ from . import resolve_device
 from .consensus.messages import QC, AggQC
 from .crypto import aggsig, pysigner
 from .crypto.batch_service import BatchVerificationService
+from .crypto.pysigner import PurePythonBackend
 from .crypto.primitives import Digest, PublicKey, Signature
 from .crypto.torch_backend import TorchBackend
 from .ingress import ArrivalCurve, IngressConfig, IngressPipeline, OpenLoopLoadGen
@@ -127,12 +133,6 @@ from .parallel.mesh import ShardedEd25519TorchVerifier, default_mesh
 from .utils import metrics, tracing
 from .utils.serde import Writer
 
-# What the port does not carry of the reference's flags: each flag's dest, the
-# flag, the value refused (None: any value) and what it would need.
-REFUSED = {
-    "ingress_backend": ("--ingress-backend", "pure", "the reference's pure-Python verifier"),
-    "sched_backend": ("--sched-backend", "pure", "the reference's pure-Python verifier"),
-}
 ROUTE_KEYS = ("host_batches", "host_sigs", "device_batches", "device_sigs")
 COMMITTEE_SIZES = (4, 10, 16, 64, 100)
 AB_ATTEMPTS = 3  # fixed, no early stop (`bench.py:885-896`)
@@ -455,22 +455,43 @@ def bench_pipeline_ab(args, device: torch.device) -> dict:
 # --- the client plane, the scheduler A/B and the AggQC A/B ------------------------
 
 
-def _routes(backend: TorchBackend) -> dict:
-    """The backend's host and card batches and lanes, and its host route."""
-    return {**{k: backend.stats[k] for k in ROUTE_KEYS}, "host_route": backend.host_route}
+def leg_backend(kind: str, device: str):
+    """The backend of the ingress and scheduler A/B legs: `pure` the port's
+    pure-Python verifier on the host (`bench.py:378-387`), with no device
+    resolved; `auto` `TorchBackend` on `--device`, with no probe and no
+    fallback."""
+    return PurePythonBackend() if kind == "pure" else TorchBackend(device=resolve_device(device))
 
 
-def bench_ingress(args, device: torch.device) -> dict:
+def leg_info(backend) -> dict:
+    """`backend`, `device` and `power_limit_w` of a leg's JSON line: its
+    device's (`card`), or the host's for the pure-Python verifier."""
+    device = getattr(backend, "device", None)
+    if device is None:
+        return {"backend": backend.name, "device": "cpu", "power_limit_w": None}
+    return card(device)
+
+
+def _routes(backend) -> dict:
+    """`routes`: the backend's host and card batches and lanes, and its
+    host route (none for the pure-Python verifier, which has no route)."""
+    host_route = getattr(backend, "host_route", None)
+    if host_route is None:
+        return {}
+    return {"routes": {**{k: backend.stats[k] for k in ROUTE_KEYS}, "host_route": host_route}}
+
+
+def bench_ingress(args, backend) -> dict:
     """`--ingress` (`bench.py:416-499`): the open-loop flash curve of
     signed client transactions (`random.Random(7)`) through an
-    `IngressPipeline` and a `BatchVerificationService` over `TorchBackend`
-    on `device`, the committed transactions counted off the sink. Prints
-    the signer and its rate on a line of its own. Raises if the pipeline
-    rejected a signature. Returns the reference's payload."""
+    `IngressPipeline` and a `BatchVerificationService` over `backend`
+    (`leg_backend` of `--ingress-backend`), the committed transactions counted
+    off the sink. Prints the signer and its rate on a line of its own.
+    Raises if the pipeline rejected a signature. Returns the reference's
+    payload."""
     duration = args.ingress_duration
     curve = ArrivalCurve(kind="flash", rate=args.ingress_rate, peak=args.ingress_rate * 5.0,
                          t_start=duration / 3.0, t_end=2.0 * duration / 3.0)
-    backend = TorchBackend(device=device)
     rejected0 = metrics.counter("ingress.rejected_sigs").value
 
     async def drive():
@@ -493,10 +514,7 @@ def bench_ingress(args, device: torch.device) -> dict:
         # pipeline's counts, with no await between.
         return summary, committed["n"] + sink.qsize(), gen, dict(pipeline.stats)
 
-    try:
-        summary, committed, gen, stats = asyncio.run(drive())
-    finally:
-        backend.close()
+    summary, committed, gen, stats = asyncio.run(drive())
     rejected = metrics.counter("ingress.rejected_sigs").value - rejected0
     sign_rate = gen.signed / gen.sign_s if gen.sign_s > 0 else None
     print(f"# ingress signer: {gen.signer}, {gen.signed} signatures in {gen.sign_s:.3f} s"
@@ -521,7 +539,7 @@ def bench_ingress(args, device: torch.device) -> dict:
         "signer": gen.signer,
         "signer_sigs_per_s": round(sign_rate, 1) if sign_rate else None,
         "pipeline": stats,
-        "routes": _routes(backend),
+        **_routes(backend),
     }
 
 
@@ -585,29 +603,27 @@ async def _sched_leg(backend, use_scheduler: bool, duration: float, bulk_size: i
     }
 
 
-def bench_scheduler_ab(args, device: torch.device) -> dict:
+def bench_scheduler_ab(args, backend) -> dict:
     """`--scheduler-ab` (`bench.py:585-655`): the legacy leg, then the
-    scheduler leg, on one `TorchBackend`; downscaled only under `--device
-    cpu`. Raises unless every mask was all True. Returns the reference's
-    payload."""
+    scheduler leg, on one `backend` (`leg_backend` of `--sched-backend`);
+    downscaled under `--device cpu` and for `pure`. Raises unless every
+    mask was all True. Returns the reference's payload."""
     bulk, critical = args.sched_bulk, args.sched_critical
     feeders, interval = args.sched_feeders, args.sched_interval
     duration = args.sched_duration
-    if device.type == "cpu":
-        # The plain versions and the host route: shrink the groups so each
-        # leg still turns over dozens of flushes in seconds.
+    device = getattr(backend, "device", None)
+    if device is None or device.type == "cpu":
+        # The plain versions, the host route or the pure-Python verifier:
+        # shrink the groups so each leg still turns over dozens of flushes
+        # in seconds.
         bulk, critical, feeders = min(bulk, 8), min(critical, 3), min(feeders, 3)
-    backend = TorchBackend(device=device)
 
     async def drive():
         legacy = await _sched_leg(backend, False, duration, bulk, feeders, critical, interval)
         sched = await _sched_leg(backend, True, duration, bulk, feeders, critical, interval)
         return legacy, sched
 
-    try:
-        legacy, sched = asyncio.run(drive())
-    finally:
-        backend.close()
+    legacy, sched = asyncio.run(drive())
     if not (legacy["masks_all_true"] and sched["masks_all_true"]):
         raise RuntimeError("scheduler A/B: a mask of the valid pool was not all True")
     p99_sched = sched["critical_queue_ms"].get("p99_ms", 0.0)
@@ -624,7 +640,7 @@ def bench_scheduler_ab(args, device: torch.device) -> dict:
         "verified_ratio": round(vps_sched / vps_legacy, 4) if vps_legacy > 0 else None,
         "workload": {"duration_s": duration, "bulk_size": bulk, "bulk_feeders": feeders,
                      "critical_size": critical, "critical_interval_s": interval},
-        "routes": _routes(backend),
+        **_routes(backend),
     }
 
 
@@ -788,7 +804,7 @@ def parser() -> argparse.ArgumentParser:
                     help="open-loop flash-crowd signed client traffic through an IngressPipeline: "
                     "offered against committed tx/s, shed, client latency")
     ap.add_argument("--ingress-backend", choices=["auto", "pure"], default="auto",
-                    help="auto: TorchBackend on --device ('pure' is the reference's and refused)")
+                    help="auto: TorchBackend on --device; pure: the pure-Python verifier on the host")
     ap.add_argument("--ingress-rate", type=float, default=100.0)
     ap.add_argument("--ingress-duration", type=float, default=10.0)
     ap.add_argument("--ingress-clients", type=int, default=8)
@@ -796,7 +812,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--scheduler-ab", action="store_true",
                     help="the legacy flush loop against the device scheduler on bulk + consensus groups")
     ap.add_argument("--sched-backend", choices=["auto", "pure"], default="auto",
-                    help="auto: TorchBackend on --device ('pure' is the reference's and refused)")
+                    help="auto: TorchBackend on --device; pure: the pure-Python verifier on the host")
     ap.add_argument("--sched-duration", type=float, default=6.0)
     ap.add_argument("--sched-bulk", type=int, default=512)
     ap.add_argument("--sched-critical", type=int, default=44)
@@ -813,21 +829,24 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> dict:
     """Run the legs `argv` asks for, print the JSON line and return it."""
-    ap = parser()
-    args = ap.parse_args(argv)
-    for dest, (flag, value, needs) in REFUSED.items():
-        given = getattr(args, dest)
-        if given is not None and value in (None, given):
-            ap.error(f"{flag if value is None else f'{flag} {value}'} is not ported: it needs {needs}")
+    args = parser().parse_args(argv)
     if args.telemetry_port is not None:
         start_telemetry(args.telemetry_port)
+    if args.ingress or args.scheduler_ab:
+        leg, kind = (bench_ingress, args.ingress_backend) if args.ingress else (bench_scheduler_ab, args.sched_backend)
+        backend = leg_backend(kind, args.device)
+        try:
+            payload = {**leg(args, backend), **leg_info(backend)}
+        finally:
+            close = getattr(backend, "close", None)
+            if close is not None:
+                close()
+        return emit(payload, args.metrics_out, args.trace_out)
+
     device = resolve_device(args.device)
     info = card(device)
-
-    for wanted, leg in ((args.ingress, bench_ingress), (args.scheduler_ab, bench_scheduler_ab),
-                        (args.aggregate_ab, bench_aggregate_ab)):
-        if wanted:
-            return emit({**leg(args, device), **info}, args.metrics_out, args.trace_out)
+    if args.aggregate_ab:
+        return emit({**bench_aggregate_ab(args, device), **info}, args.metrics_out, args.trace_out)
 
     if args.pipeline_ab:
         payload = bench_pipeline_ab(args, device)

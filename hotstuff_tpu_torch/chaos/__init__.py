@@ -13,15 +13,19 @@ Entry points:
   * `run_scenario(name, seed)` — execute one named scenario from
     `SCENARIOS` on a virtual-time loop; same seed => bit-identical fault
     trace and honest commit sequence.
+  * `scenarios.run_matrix_cell(scenario, seed, n)` — one cell of the
+    scenario matrix (`MATRIX_SCENARIOS` x `MATRIX_SEEDS` x
+    `MATRIX_SIZES`), distilled by `utils/telemetry.fleet_rollup`.
   * `python -m hotstuff_tpu_torch.chaos_run` — the CLI wrapper
-    (`--scenario`, `--seed`, `--report out.json`).
+    (`--scenario`, `--seed`, `--report out.json`; `--matrix` sweeps the
+    grid into one `chaos_matrix` artifact).
 
 Layering: plan.py (declarative fault schedules + seeded RNG streams +
 the WanMatrix per-region RTT classes) → transport.py (FaultyTransport
 at the NetSender/NetReceiver seam) → byzantine.py (adversary policies)
 → invariants.py (safety/liveness checkers) → orchestrator.py (node
-lifecycle, crash/restart) → scenarios.py (the library; the scenario
-matrix is not ported yet). vtime.py supplies the deterministic clock;
+lifecycle, crash/restart) → scenarios.py (the library and the scenario
+matrix's grid). vtime.py supplies the deterministic clock;
 trusted_crypto.py supplies the keyed-hash stub scheme that makes
 hundred-node fleets runnable on one box (see its trust model).
 """
@@ -51,6 +55,9 @@ from .plan import (
     WanMatrix,
 )
 from .scenarios import (
+    MATRIX_SCENARIOS,
+    MATRIX_SEEDS,
+    MATRIX_SIZES,
     SCENARIOS,
     SHORT_SCENARIOS,
     run_scenario,
@@ -72,6 +79,9 @@ __all__ = [
     "FaultyTransport",
     "LinkFaults",
     "LivenessChecker",
+    "MATRIX_SCENARIOS",
+    "MATRIX_SEEDS",
+    "MATRIX_SIZES",
     "NODE_LABEL",
     "Partition",
     "ReconfigDirective",

@@ -2197,13 +2197,163 @@ _register(
 # The short sweep tier-1 runs (and the CLI's --scenario all default).
 SHORT_SCENARIOS = [name for name, s in SCENARIOS.items() if not s.slow]
 
-# The scenario matrix (`MATRIX_*`, `run_matrix_cell`, the fleet rollup) is
-# not ported yet; `python -m hotstuff_tpu_torch.chaos_run --matrix` refuses.
+# Scenario-matrix grid (`python -m hotstuff_tpu_torch.chaos_run --matrix`):
+# the default sweep of scenarios x seeds x committee sizes whose consolidated
+# report (CHAOS_MATRIX_rN.json) is the regression harness for every scale claim
+# the ROADMAP makes. Grid scenarios must be COMMITTEE-SIZE-INVARIANT:
+# faults expressed as per-link defaults or single-node crash windows, no
+# hardcoded committee subsets (the reference's graftlint `matrix` pass
+# enforces both on its grid, which this one equals).
+# timeout_storm / timeout_storm_legacy are the storm cells: the
+# same size-parameterized half|half stall with the overlay on vs off, so
+# the artifact carries BOTH frames-per-stalled-round numbers (the
+# `timeout_plane` block per cell) and the O(n²) -> O(n·fanout) win is a
+# committed, regression-tracked delta.
+# rolling_churn is the grid's reconfig cell: committee-free
+# by construction (committee_n + rotation directives derive membership
+# from n), exact crypto at n=4, trusted-stub at n=64, with per-node
+# commit floors scaled by the committee geometry in its expectation.
+# wan_observatory is the measurement cell: probes on, clean
+# links — asserts the MEASURED per-peer RTT classes recover the seeded
+# WanMatrix geometry at every grid size (committee-free by construction;
+# the probe plane is size-agnostic).
+MATRIX_SCENARIOS = (
+    "baseline",
+    "lossy_links",
+    "leader_crash",
+    "timeout_storm",
+    "timeout_storm_legacy",
+    "rolling_churn",
+    "wan_observatory",
+    # The constant-size-certificate cells: aggregate QC/TC under
+    # the trusted-agg stub, extended to n=256 via its matrix_sizes
+    # override (the committee sizes the O(1) bytes-per-committed-round
+    # claim is about).
+    "agg_certs",
+    # The election cells: region-aware vs region-blind
+    # A/B inside one cell — the expectation replays the blind twin at
+    # the identical seed/size/window and pins the cross-region pivot-hop
+    # reduction plus the virtual-clock commit-latency win.
+    "wan_election",
+    # The commit-proof serving cells: the full
+    # submit→commit→proof loop at n=4 and n=64 — every served proof
+    # client-verified, none of the committed admissions unprovable.
+    "ingress_proofs",
+    # The flood cells (the flash-crowd residue):
+    # flash_crowd_ingress grid-shaped — shed with retry hints, plateau
+    # held, no starved node, the spike window pinned in the incident
+    # ledger — at n=4 and (trusted-stub) n=64.
+    "flood",
+)
+MATRIX_SEEDS = (1, 2)
+MATRIX_SIZES = (4, 64)
 # Cells at/above this committee size run the trusted-crypto stub
-# (chaos/trusted_crypto.py); wan_election's expectation keys its fleet-
-# scale floor on it too.
+# (chaos/trusted_crypto.py): exact-int pysigner at 64 nodes costs ~minutes
+# of wall time PER ROUND, which is exactly what the stub exists to remove.
+# wan_election's expectation keys its fleet-scale floor on it too.
 TRUSTED_CRYPTO_MIN_N = 16
+# Virtual-seconds cap per matrix cell: grid scenarios early-stop on their
+# commit floors well before this; the cap bounds a regressed cell's wall
+# cost instead of letting it soak its full scenario duration. 30 (not
+# 15): lossy links at 64 nodes can cost a multi-round pacemaker stall
+# with backed-off 8 s timeouts before healing (observed at seed 2 —
+# rounds 8-12, ~10 virtual seconds), and the cap must leave room for the
+# slowest node to reach the scenario's commit floor AFTER such a stall.
+MATRIX_CELL_DURATION_S = 30.0
 
+
+def matrix_telemetry_config() -> TelemetryConfig:
+    """Per-node telemetry for matrix cells: snapshots fast enough that a
+    short early-stopping cell still fills a few windows (the fleet rollup
+    merges these rings), rings small enough that a 100-node cell's report
+    stays tractable."""
+    return TelemetryConfig(interval_s=0.5, ring=64, dump_snapshots=4)
+
+
+def cell_name(scenario: str, seed: int, n: int) -> str:
+    """The stable cell key regression diffs join on."""
+    return f"{scenario}@s{seed}/n{n}"
+
+
+def run_matrix_cell(
+    scenario: str,
+    seed: int,
+    n: int,
+    trusted: str = "auto",
+    wan: bool = True,
+    duration: float | None = None,
+) -> dict:
+    """Execute one matrix cell and distill it to the committed record:
+    verdict + fleet telemetry rollup (utils/telemetry.fleet_rollup), with
+    the heavy per-scenario sections (fault trace, flight recorders, raw
+    telemetry rings) dropped — a 12-cell matrix with 64-node cells must
+    stay a reviewable artifact. `trusted` is auto|on|off; auto stubs
+    crypto from TRUSTED_CRYPTO_MIN_N nodes up (the committee size where
+    exact-int pysigner stops being runnable on one box)."""
+    import time as _time
+
+    from ..utils.telemetry import fleet_rollup
+    from .plan import WanMatrix
+
+    if trusted not in ("auto", "on", "off"):
+        raise ValueError(f"trusted must be auto|on|off, got {trusted!r}")
+    trusted_crypto = (
+        trusted == "on"
+        or (trusted == "auto" and n >= TRUSTED_CRYPTO_MIN_N)
+        or SCENARIOS[scenario].trusted_crypto
+    )
+    if duration is None:
+        # The cell cap bounds a REGRESSED cell's wall cost; only a
+        # scenario that declares a cell_duration (rolling_churn's three
+        # progress-gated boundaries) gets a longer budget — truncating
+        # it would fail the cell for want of virtual time, not health,
+        # while un-capping every long scenario would make legacy cells
+        # non-comparable across matrix revisions.
+        duration = SCENARIOS[scenario].cell_duration or MATRIX_CELL_DURATION_S
+    t0 = _time.perf_counter()
+    report = run_scenario(
+        scenario,
+        seed,
+        duration=duration,
+        n=n,
+        trusted_crypto=trusted_crypto,
+        wan=WanMatrix() if wan else None,
+        telemetry=matrix_telemetry_config(),
+    )
+    wall = _time.perf_counter() - t0
+    # Timeout-plane storm accounting: whenever the cell saw
+    # local timeouts, commit the frames-per-timeout ratio (and its
+    # per-stalled-round form, n× that) so the overlay-vs-legacy delta is
+    # diffable straight from the artifact.
+    cell_metrics = report.get("metrics", {})
+    timeouts = cell_metrics.get("consensus.timeouts", 0)
+    frames = cell_metrics.get("agg.timeout_frames", 0)
+    timeout_plane = None
+    if timeouts:
+        timeout_plane = {
+            "local_timeouts": timeouts,
+            "frames": frames,
+            "frames_per_timeout": round(frames / timeouts, 2),
+            "frames_per_stalled_round": round(n * frames / timeouts, 1),
+        }
+    return {
+        "cell": cell_name(scenario, seed, n),
+        "timeout_plane": timeout_plane,
+        "scenario": scenario,
+        "seed": seed,
+        "n": n,
+        "crypto_mode": report["crypto_mode"],
+        "wan": wan,
+        "green": bool(report["ok"]),
+        "wall_seconds": round(wall, 3),
+        "virtual_seconds": report["virtual_seconds"],
+        "violations": {
+            "safety": report["safety_violations"][:5],
+            "liveness": report["liveness_violations"][:5],
+            "expectations": report.get("expectation_failures", [])[:5],
+        },
+        "rollup": fleet_rollup(report),
+    }
 
 _DELTA_PREFIXES = (
     "chaos.", "verifier.", "consensus.", "net.", "ingress.", "scheduler.",

@@ -114,8 +114,10 @@ class Parameters:
     # Constant-size certificates (§5.5o): votes/timeouts carry aggregate
     # partials (one combined signature + committee bitmap) instead of
     # per-entry signature lists, and QC/TC wire forms become AggQC/AggTC.
-    # Not ported: Consensus.run refuses it, since no node process supplies
-    # an aggregate signer. Kept so a parameters file reads as the reference's.
+    # Requires an installed aggsig scheme + key registry and an aggregate
+    # signer (`Consensus.run(agg_signer=)`; the chaos orchestrator wires all
+    # three in trusted_crypto fleets). A node process supplies no signer,
+    # so its nodes take the flag and form no AggQC.
     aggregate_certs: bool = False
     agg_window: int = 8  # Handel score window: best-N partials kept per key
     # Network-observatory RTT probing (network/net.py peer ledger,

@@ -52,9 +52,12 @@ never depends on thread timing. `scheduler_config` passes the scheduler's
 knobs (`SchedulerConfig`: the chaos plane's `pace_s_per_sig`). The card's
 path keeps the defaults: a worker thread and no pacing.
 
-Not ported: the anomaly watchdog's verify samples (its per-signature baseline misreads a
-sidecar's mix of large and small flushes as a regression), and a cache
-size other than the reference's default (65,536 triples).
+With tracing on, each flush that reaches the backend feeds the anomaly
+watchdog one sample of its per-signature cost
+(`tracing.WATCHDOG.note_verify`), as the reference's does.
+
+Not ported: a cache size other than the reference's default (65,536
+triples).
 """
 
 from __future__ import annotations
@@ -372,13 +375,15 @@ class BatchVerificationService:
                         g.future.set_exception(exc)
                 return
             if tracing.enabled():
-                # One verify.batch event per traced group in the flush: the
-                # flush's time, the group's lane and its queueing delay.
+                # One verify.batch event per traced group in the flush (the
+                # flush's time, the group's lane and its queueing delay),
+                # plus a watchdog sample of the flush's per-signature cost.
                 dur = time.perf_counter() - t0
                 for g in groups:
                     if g.trace is not None:
                         tracing.event("verify.batch", g.trace, dur, n=len(g), flush=len(miss), lane=g.source,
                                       queue_s=round(max(0.0, g.t_dequeue - g.t_submit), 6))
+                tracing.WATCHDOG.note_verify(dur, len(miss))
             self._remember(mask, miss, sub, msgs, keys, sigs, eligible)
         self.stats["flushes"] += 1
         self.stats["size_flushes"] += total >= self.max_batch

@@ -7,9 +7,8 @@ A copy of `hotstuff_tpu/ingress/`:
   * `pipeline.py`  — admission → BatchVerificationService → sink
   * `server.py`    — the framed TCP front end (`IngressServer`,
                      `IngressClient`) a node serves with `--ingress`
-  * `loadgen.py`   — open-loop arrival curves, signed traffic, latency stats
-
-Not ported: the chaos scenarios' `IngressLoad`.
+  * `loadgen.py`   — open-loop arrival curves, signed traffic, latency stats,
+                     and the chaos scenarios' in-process `IngressLoad`
 """
 
 from .admission import AdmissionController, IngressConfig, LaneSpec

@@ -8,7 +8,14 @@
     # four generator processes, rates split, merged summary:
     python -m hotstuff_tpu_torch.loadgen --target 127.0.0.1:9100 --rate 5000 --procs 4
 
-The port's copy of the reference's `tools/loadgen.py` in its TCP mode.
+    # self-contained mode: an in-process ingress pipeline (the port's
+    # pure-Python verifier, inline, paced drain) on the chaos virtual-time
+    # loop; no node, no card, no OpenSSL, deterministic per --seed:
+    python -m hotstuff_tpu_torch.loadgen --selftest --curve flash --duration 20
+    python -m hotstuff_tpu_torch.loadgen --selftest --proofs --rate 50 --duration 10
+    python -m hotstuff_tpu_torch.loadgen --selftest --procs 4 --rate 400 --duration 10
+
+The port's copy of the reference's `tools/loadgen.py`.
 Traffic is OPEN loop (`ingress/loadgen.py`): arrivals follow the curve
 whatever the node answers, which is what makes admission control
 observable. Every transaction is ed25519-signed by one of `--clients`
@@ -21,17 +28,28 @@ port + 1,000, the `proofs_port_offset - ingress_port_offset` gap, or
 `--proofs-target`) for every ACCEPTED transaction and reports the
 submit-to-proof latency percentiles. Each proof is checked for what a
 client holding no committee file can check: the certificate binds the
-recomputed block digest at the block's round. Given a committee
-(`_ProofTracker`'s `committee`, in-process), each distinct certificate is
-also verified once against it. A node's block names payload digests
-(mempool batches), not transaction digests, so that a transaction rode
-the proved block is the serving node's pairing (`ProofRegistry.note_payload`)
-and not checkable from the proof: the reference's tracker also requires
-the transaction's digest among the payload digests, which holds only
-where transaction digests ride blocks directly (its in-process selftest),
-and so counts every proof a node serves as failed. `--proofs-out PATH`
+recomputed block digest at the block's round. A node's block names
+payload digests (mempool batches), not transaction digests, so that a
+transaction rode the proved block is the serving node's pairing
+(`ProofRegistry.note_payload`) and not checkable from the proof: the
+reference's tracker also requires the transaction's digest among the
+payload digests, which holds only where transaction digests ride blocks
+directly, and so counts every proof a node serves as failed. The
+selftest's tracker holds the committee and its blocks carry transaction
+digests: it makes the reference's full check, the digest among the
+payload and each distinct certificate verified once against the
+committee. `--proofs-out PATH`
 writes one JSON line a distinct certificate (the first proof that carried
 it, hex, and the transaction it answered), for a full check elsewhere.
+
+`--selftest` is the reference's design: `IngressPipeline` over a
+`BatchVerificationService(PurePythonBackend(), inline=True)` with small
+fee lanes and a drain paced to `--capacity` tx/s, so overload, shedding
+and retry hints show without a node; with `--proofs` a synthetic 4-key
+committee (`_SelftestCommitter`) certifies the admitted digests every
+`--commit-interval` virtual seconds into real signed blocks and 3-of-4
+QCs, and the tracker verifies every served proof statelessly. It runs on
+the host by design and never reaches the card (ROADMAP §C, departure 9).
 
 `--procs N` shards the curve over N subprocesses of this module: the rates
 split evenly, the seeds disjoint (each shard's clients, and so their
@@ -50,10 +68,6 @@ Exit codes: 0 = ran (sheds are a measurement, not a failure); 2 =
 transport errors (a refused connection included), unresolved
 submissions, or bad flags (argparse); 3 = malformed --target or
 --proofs-target.
-
-Not ported yet: `--selftest` (and its `--capacity`, `--commit-interval`),
-which runs an in-process pipeline and a synthetic committer on the chaos
-virtual clock; it is refused with an error (ROADMAP A.11.4c).
 """
 
 from __future__ import annotations
@@ -67,12 +81,15 @@ import sys
 import time
 from pathlib import Path
 
-from .ingress import ArrivalCurve, IngressClient, OpenLoopLoadGen
+from collections import deque
+
+from .ingress import ArrivalCurve, IngressClient, IngressConfig, IngressPipeline, LaneSpec, OpenLoopLoadGen
 from .ingress import messages as ingress_messages
 from .proofs import MODE_SUBSCRIBE, PROOF_OK, ProofClient, ProofQuery
 from .utils.actors import spawn
 from .utils.metrics import percentile
 from .utils.telemetry import merge_lane_summaries
+
 
 def _curve_from_args(args) -> ArrivalCurve:
     return ArrivalCurve(
@@ -82,6 +99,22 @@ def _curve_from_args(args) -> ArrivalCurve:
         t_start=args.spike_start,
         t_end=args.spike_end,
         period=args.period,
+    )
+
+
+def _selftest_config(capacity: float) -> IngressConfig:
+    """Small lanes + a paced drain (`capacity` tx/s) so overload, and
+    therefore shedding and retry-after hints, shows without a real
+    backend behind the pipeline."""
+    batch = 8
+    return IngressConfig(
+        lanes=(
+            LaneSpec("priority", min_fee=1_000, capacity=32),
+            LaneSpec("standard", min_fee=1, capacity=64),
+            LaneSpec("bulk", min_fee=0, capacity=64),
+        ),
+        verify_batch=batch,
+        verify_interval=batch / max(capacity, 1.0),
     )
 
 
@@ -121,10 +154,12 @@ class _ProofTracker:
     also subscribes for its commit proof, then checks what a client CAN
     check: without `committee` (TCP: the generator holds no committee
     file) the digest-binding subset (certificate hash == recomputed block
-    digest, certificate round == block round); with it, also the
-    certificate against the committee keys, once per distinct certificate
-    (proofs from one block share it). The tx digest is not looked for among
-    the payload digests: a node's payloads are batches (module docstring)."""
+    digest, certificate round == block round; the tx digest is not looked
+    for among the payload digests, since a node's payloads are batches);
+    with it (the selftest, whose blocks carry tx digests) the reference's
+    full check: the tx digest in the payload, and the certificate against
+    the committee keys once per distinct certificate (proofs from one
+    block share it)."""
 
     def __init__(self, subscribe, committee=None) -> None:
         self._subscribe = subscribe  # async ProofQuery -> ProofReply
@@ -183,6 +218,8 @@ class _ProofTracker:
             if proof.cert.round != proof.round:
                 return False
             if self.committee is not None:
+                if digest not in proof.payload:
+                    return False
                 key = (proof.cert.hash.data, proof.cert.round)
                 if key not in self._verified_certs:
                     proof.cert.verify(self.committee)
@@ -227,6 +264,126 @@ class _ProofTracker:
                 w = Writer()
                 proof.encode(w)
                 f.write(json.dumps({"proof": w.bytes().hex(), "tx": digest.data.hex()}) + "\n")
+
+
+class _SelftestCommitter:
+    """--selftest --proofs commit plane: a seeded 4-key pysigner
+    committee whose synthetic leader drains admitted tx digests into REAL
+    signed Blocks certified by REAL 3-of-4 QCs every `interval`, feeding
+    ProofRegistry.note_commit, so the served proofs verify under the
+    stateless check a client runs, with no consensus stack in the loop."""
+
+    QUORUM = 3  # 2f+1 of 4
+
+    def __init__(self, registry, rng, interval: float = 0.25) -> None:
+        from .consensus.config import Committee
+        from .consensus.messages import QC
+        from .crypto import pysigner
+        from .crypto.primitives import PublicKey
+
+        self.registry = registry
+        self.interval = interval
+        pairs = sorted(pysigner.keypair_from_seed(rng.randbytes(32)) for _ in range(4))
+        self._keys = [(PublicKey(pk), seed) for pk, seed in pairs]
+        self.committee = Committee.new([(pk, 1, ("127.0.0.1", 0)) for pk, _ in self._keys])
+        self.pending: deque = deque(maxlen=65_536)
+        self._qc = QC.genesis()
+        self._round = 0
+        self.blocks = 0
+
+    async def run(self) -> None:
+        # Signing through pysigner, not OpenSSL: the selftest needs no
+        # `cryptography`.
+        from .consensus.messages import QC, Block
+        from .crypto import pysigner
+        from .crypto.primitives import Signature
+
+        while True:
+            await asyncio.sleep(self.interval)
+            if not self.pending:
+                continue
+            payload = tuple(self.pending.popleft() for _ in range(min(len(self.pending), 8)))
+            self._round += 1
+            author_pk, author_seed = self._keys[self._round % len(self._keys)]
+            digest = Block.make_digest(author_pk, self._round, list(payload), self._qc)
+            block = Block(self._qc, None, author_pk, self._round, payload,
+                          Signature(pysigner.sign(author_seed, digest.data)))
+            vote_digest = QC(block.digest(), self._round, ()).signed_digest()
+            qc = QC(block.digest(), self._round,
+                    tuple((pk, Signature(pysigner.sign(seed, vote_digest.data)))
+                          for pk, seed in self._keys[: self.QUORUM]))
+            await self.registry.note_commit(block, qc)
+            self._qc = qc
+            self.blocks += 1
+
+
+def _run_selftest(args) -> dict:
+    """The in-process pipeline on the virtual-time loop (module docstring):
+    the port's `PurePythonBackend`, inline, as the process's backend too
+    (the proof tracker's certificate checks dispatch through it)."""
+    import random
+
+    from .chaos import vtime
+    from .crypto.backend import set_backend
+    from .crypto.batch_service import BatchVerificationService
+    from .crypto.pysigner import PurePythonBackend
+
+    async def body() -> dict:
+        prev_backend = set_backend(PurePythonBackend())
+        service = BatchVerificationService(backend=PurePythonBackend(), inline=True)
+        sink: asyncio.Queue = asyncio.Queue(100_000)
+
+        async def drain() -> None:
+            while True:
+                await sink.get()
+
+        drainer = spawn(drain(), name="loadgen-selftest-drain")
+        pipeline = IngressPipeline(service, sink, _selftest_config(args.capacity))
+        submit = pipeline.submit
+        tracker = committer_task = None
+        if args.proofs:
+            from .proofs import ProofRegistry, ProofService
+
+            registry = ProofRegistry()
+            proof_service = ProofService(registry)
+            # Its own stream: the traffic's replay must not shift when
+            # --proofs toggles.
+            committer = _SelftestCommitter(registry, random.Random(args.seed ^ 0x5051),
+                                           interval=args.commit_interval)
+            loop = asyncio.get_running_loop()
+            tracker = _ProofTracker(lambda q: proof_service.handle(q, loop.time()), committee=committer.committee)
+            committer_task = spawn(committer.run(), name="loadgen-committer")
+            base_submit = submit
+
+            async def submit_with_proofs(tx):
+                resp = await base_submit(tx)
+                if resp.status == ingress_messages.ACCEPTED:
+                    # The admitted digest rides the next synthetic block
+                    # and a proof client subscribes for it.
+                    registry.note_tx(tx.client, tx.nonce, tx.digest())
+                    committer.pending.append(tx.digest())
+                    tracker.track(tx)
+                return resp
+
+            submit = submit_with_proofs
+        try:
+            summary = await _drive(submit, args, random.Random(args.seed))
+            if tracker is not None:
+                await tracker.settle()
+        finally:
+            drainer.cancel()
+            if committer_task is not None:
+                committer_task.cancel()
+            set_backend(prev_backend)
+        summary["mode"] = "selftest"
+        if tracker is not None:
+            summary["proofs"] = tracker.summary()
+            summary["proofs"]["blocks"] = committer.blocks
+            if args.proofs_out:
+                tracker.write_certs(args.proofs_out)
+        return summary
+
+    return vtime.run(body(), timeout=args.duration * 20 + 600, wall_timeout=600)
 
 
 def _split_target(target: str) -> tuple[str, int] | None:
@@ -289,8 +446,8 @@ def _shard_argv(args, index: int, procs: int, json_path: str, proofs_path: str |
     """Per-shard CLI: the curve is split 1/procs per process (open-loop
     rates add), seeds are disjoint (so each shard signs with clients of its
     own), summaries land in per-shard files."""
-    argv = [
-        "--target", args.target,
+    argv = ["--selftest"] if args.selftest else ["--target", args.target]
+    argv += [
         "--curve", args.curve,
         "--rate", str(args.rate / procs),
         "--peak", str(args.peak / procs if args.peak else 0.0),
@@ -301,6 +458,8 @@ def _shard_argv(args, index: int, procs: int, json_path: str, proofs_path: str |
         "--clients", str(max(1, args.clients // procs)),
         "--tx-bytes", str(args.tx_bytes),
         "--seed", str(args.seed + index),
+        "--capacity", str(args.capacity / procs),
+        "--commit-interval", str(args.commit_interval),
         "--json-out", json_path,
     ]
     if args.proofs:
@@ -433,7 +592,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--target", default=None, help="ingress address host:port of a live node")
-    mode.add_argument("--selftest", action="store_true", help="not ported: refused")
+    mode.add_argument("--selftest", action="store_true",
+                      help="drive an in-process ingress pipeline on the virtual-time loop")
     ap.add_argument("--curve", default="sustained", choices=["sustained", "diurnal", "flash"])
     ap.add_argument("--rate", type=float, default=100.0, help="base tx/s")
     ap.add_argument("--peak", type=float, default=0.0, help="spike/ramp peak tx/s (default 5x rate)")
@@ -444,24 +604,26 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--clients", type=int, default=8, help="signing identities")
     ap.add_argument("--tx-bytes", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--capacity", type=float, default=80.0,
+                    help="selftest drain capacity (tx/s) the curve runs against")
     ap.add_argument("--json-out", default=None, help="also write the summary here")
     ap.add_argument("--proofs", action="store_true",
                     help="subscribe for a commit proof on every ACCEPTED tx and report submit-to-proof "
-                    "latency percentiles (queries the node's proof port)")
+                    "latency percentiles (selftest: a synthetic 4-key committer certifies admitted digests "
+                    "with real QCs and proofs verify statelessly; tcp: queries the node's proof port)")
     ap.add_argument("--proofs-target", default=None,
                     help="proof port host:port (default: ingress port + 1000, the "
                     "proofs_port_offset - ingress_port_offset gap)")
     ap.add_argument("--proofs-out", default=None,
                     help="with --proofs: write one JSON line a distinct certificate received "
                     "(its first proof, hex, and that proof's tx digest) to this path")
+    ap.add_argument("--commit-interval", type=float, default=0.25,
+                    help="selftest --proofs: synthetic commit tick (virtual seconds)")
     ap.add_argument("--procs", type=int, default=1,
                     help="shard the curve across N loadgen subprocesses (rates split evenly, seeds "
                     "disjoint) and merge the summaries")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.selftest:
-        ap.error("--selftest is not ported yet (ROADMAP A.11.4c); use --target against a node started "
-                 "with --ingress")
     if args.procs < 1:
         ap.error("--procs must be >= 1")
     if args.proofs_out and not args.proofs:
@@ -486,6 +648,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     if args.procs > 1:
         summary, rc = _run_procs(args)
+    elif args.selftest:
+        summary = _run_selftest(args)
+        rc = 2 if summary.get("errors") or summary.get("unresolved") else 0
     else:
         try:
             summary = _run_tcp(args)

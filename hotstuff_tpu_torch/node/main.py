@@ -30,6 +30,8 @@ included), with the kernel launch counts of `ops/_build.launches()` under
 `launches`; `--trace-out` writes the flight recorder's dump, and arms the
 anomaly watchdog's dumps beside it. A `METRICS {json}` line is logged
 every `HOTSTUFF_METRICS_INTERVAL` seconds (default 5; 0 disables).
+`HOTSTUFF_PROFILE=<path>` runs `run` under cProfile and dumps the stats
+to `<path>.<pid>` on exit or SIGTERM (`pstats.Stats` loads them).
 `--telemetry-port PORT` serves the live telemetry plane
 (`utils/telemetry.py`) on 0.0.0.0:PORT, as the reference node does: a
 delta snapshot of the registry every 5 s, the SLO burn evaluation over
@@ -55,8 +57,7 @@ reference's deploy registers none, so committee-tagged batches take the
 generic kernels. `--metrics-out` and `HOTSTUFF_METRICS_INTERVAL` work as
 for `run`; a `--crypto remote` deploy uses the sidecar at 127.0.0.1:9700.
 
-Refused with an error, not ported: the reference's `--crypto tpu` (use
-`torch`) and `HOTSTUFF_PROFILE`.
+Refused with an error: the reference's `--crypto tpu` (use `torch`).
 """
 
 from __future__ import annotations
@@ -328,9 +329,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.command == "run":
         if args.crypto_sharded and (args.crypto != "torch" or args.device != "cuda"):
             parser.error("--crypto-sharded requires --crypto torch on --device cuda")
-    if args.command in ("run", "deploy"):
-        if os.environ.get("HOTSTUFF_PROFILE"):
-            parser.error("HOTSTUFF_PROFILE is not ported")
     return args
 
 
@@ -387,6 +385,20 @@ def main(argv: list[str] | None = None) -> None:
                 logging.getLogger("hotstuff.tracing").warning("failed to write trace dump: %r", e)
 
         flushers.append(_write_trace)
+    # HOTSTUFF_PROFILE=<path>: run the node under cProfile and dump the
+    # stats to <path>.<pid> on SIGTERM or exit (the reference's).
+    if args.command == "run" and os.environ.get("HOTSTUFF_PROFILE"):
+        import cProfile
+
+        profile_path = f"{os.environ['HOTSTUFF_PROFILE']}.{os.getpid()}"
+        profiler = cProfile.Profile()
+        profiler.enable()
+
+        def _dump_profile():
+            profiler.disable()
+            profiler.dump_stats(profile_path)
+
+        flushers.append(_dump_profile)
     # Drain the dispatch pipelines' workers on SIGTERM too: the handler
     # exits by os._exit, which skips the pipeline's own atexit hook.
     from ..ops.pipeline import close_all

@@ -40,13 +40,14 @@ A plane registered with `attach_watchdog` feeds the watchdog's context
 hooks: every `<path>.watchdog-<reason>-<n>.json` auto-dump embeds the last
 `dump_snapshots` ring entries.
 
-`default_slos` keeps the reference's set. `proofs.serve` reads no events
-in the port until the commit-proof plane is ported (`proofs.serve_s` is
-never recorded), and `reconfig.handoff` reads `reconfig.handoff_lag_rounds`
-from the port's epoch manager. `peer_latency_map` (RTT EWMA per directed link, which the chaos
-plane's WAN scenarios read) is copied; `fleet_rollup`, which distils a
-chaos report into the scenario matrix's cell record, waits for the port's
-scenario matrix.
+`default_slos` keeps the reference's set: `proofs.serve` reads the proof
+server's `proofs.serve_s` and `reconfig.handoff` reads
+`reconfig.handoff_lag_rounds` from the port's epoch manager.
+`peer_latency_map` (RTT EWMA per directed link, which the chaos plane's
+WAN scenarios read) is copied, and so is `fleet_rollup`, which distils a chaos report into the scenario matrix's
+cell record (`chaos/scenarios.py` `run_matrix_cell`): the same keys and
+values as the reference's, so its `tools/telemetry_dash.py --matrix`
+renders a port matrix.
 
 Imports only the standard library and the port's `utils.metrics` /
 `utils.tracing` (`crypto.scheduler`, `network.net` and `utils.actors`
@@ -84,6 +85,7 @@ __all__ = [
     "serve_in_thread",
     "weighted_percentile",
     "merge_lane_summaries",
+    "fleet_rollup",
 ]
 
 _M_SNAPSHOTS = metrics.counter("telemetry.snapshots")
@@ -159,9 +161,8 @@ def default_slos() -> tuple[SLOSpec, ...]:
         )
     )
     # Commit-proof serving: time from a proof query arriving to the proof
-    # in the reply (the sub-second finality-read contract). The port
-    # records no proofs.serve_s until it has the commit-proof plane, so
-    # this SLO reads no events.
+    # in the reply (the sub-second finality-read contract;
+    # proofs/server.py records it).
     slos.append(
         SLOSpec(
             name="proofs.serve",
@@ -639,8 +640,8 @@ class TelemetryPlane:
 
 
 # ---------------------------------------------------------------------------
-# Fleet merges: many nodes' lane summaries into one record (a dashboard
-# polling several nodes; the reference's `fleet_rollup` builds on them).
+# Fleet rollups: merge many nodes' telemetry into one cell record (the
+# scenario matrix's per-cell summary, `chaos_run --matrix`).
 #
 # Cross-node percentile merge rule (documented because it is an
 # approximation, not magic): true percentiles are not mergeable from
@@ -808,11 +809,6 @@ def infer_fleet_regions(
     return {n: labels[find(n)] for n in nodes}
 
 
-# ---------------------------------------------------------------------------
-# Scrape endpoint: framed JSON request/response on the stack's 4-byte
-# length framing (network/net.py), one response per request frame.
-
-
 def peer_latency_map(peers: dict[str, dict]) -> dict[str, dict[str, float]]:
     """{node: {peer: link snapshot}} -> {node: {peer: RTT EWMA ms}},
     keeping only links with at least one closed probe loop."""
@@ -826,6 +822,216 @@ def peer_latency_map(peers: dict[str, dict]) -> dict[str, dict[str, float]]:
         if row:
             out[str(a)] = row
     return out
+
+
+# Counter prefixes a matrix cell keeps from the scenario's metric deltas:
+# the scale/health counters a regression diff is judged on, not the full
+# delta dump (which stays in the per-scenario report).
+_ROLLUP_COUNTER_PREFIXES = (
+    "sync.", "reconfig.", "wan.", "chaos.", "agg.", "elect.", "incident.",
+)
+
+
+def fleet_rollup(report: dict) -> dict:
+    """Distill one chaos report (ChaosOrchestrator._report shape) into
+    the fleet-wide cell summary the scenario matrix commits: safety/
+    liveness verdict, commit rate, cross-node lane-percentile merge,
+    worst-node occupancy, alert totals, and the sync/epoch/wan counters.
+    Pure function of the report, so offline tooling (the reference's
+    `tools/telemetry_dash.py --matrix`) reproduces the runner's numbers from the artifact alone."""
+    span = float(report.get("virtual_seconds") or 0.0)
+    # Per-node counts from the report's `commits` map when present: the
+    # orchestrator builds it over EVERY node, so a fully-starved node
+    # contributes its 0 to min_node. commit_times only lists nodes that
+    # committed at least once — using it alone would report a healthy
+    # floor while a node sat at zero.
+    commits_map = report.get("commits")
+    per_node_commits = {
+        str(k): len(v)
+        for k, v in (
+            commits_map if commits_map else report.get("commit_times") or {}
+        ).items()
+    }
+    total_commits = sum(per_node_commits.values())
+
+    telem = report.get("telemetry") or {}
+    # Lane summaries: prefer the telemetry dumps' cumulative LaneStats;
+    # telemetry-less reports degrade to the scheduler section's
+    # queue_delay (same {count, p50_ms, p99_ms, max_ms} shape).
+    lane_src = (
+        {label: dump.get("lanes") or {} for label, dump in telem.items()}
+        if telem
+        else {
+            label: (s or {}).get("queue_delay") or {}
+            for label, s in (report.get("scheduler") or {}).items()
+        }
+    )
+    occupancies = {
+        str(label): dump["device"]["occupancy"]
+        for label, dump in telem.items()
+        if isinstance(dump.get("device"), dict)
+        and dump["device"].get("occupancy") is not None
+    }
+    worst_occ = min(occupancies.items(), key=lambda kv: kv[1], default=None)
+    alerts_fired = sum(
+        1
+        for dump in telem.values()
+        for a in dump.get("alerts") or ()
+        if a.get("event") == "fired"
+    )
+    alerts_cleared = sum(
+        1
+        for dump in telem.values()
+        for a in dump.get("alerts") or ()
+        if a.get("event") == "cleared"
+    )
+    active = sorted(
+        {
+            f"{label}:{name}"
+            for label, dump in telem.items()
+            for name in dump.get("active_alerts") or ()
+        }
+    )
+    metrics_delta = report.get("metrics") or {}
+    # Fleet latency map (network observatory): prefer the report's
+    # top-level `peers` section (present even without telemetry planes);
+    # degrade to the per-dump `peers` embeds.
+    peers = report.get("peers") or {
+        str(label): dump.get("peers") or {} for label, dump in telem.items()
+    }
+    latency = peer_latency_map(peers)
+    peer_rtt = None
+    if latency:
+        links = sum(len(row) for row in latency.values())
+        # Region inference needs the FULL fleet mesh: with a partial
+        # latency map (probe plane off on some nodes, or loops not yet
+        # closed) the union-find only sees the measured nodes and its
+        # region_count misleads — one sub-threshold link reads as "one
+        # region". Honest answer: report the raw links/worst columns
+        # always, the inference columns only at full coverage, and the
+        # coverage fraction so dashboards can say WHY they're absent.
+        n = int(report.get("nodes") or 0)
+        expected_links = n * (n - 1)
+        full_coverage = (
+            n > 1 and len(latency) == n and links >= expected_links
+        )
+        peer_rtt = {
+            "links": links,
+            "coverage": (
+                round(min(1.0, links / expected_links), 3)
+                if expected_links
+                else None
+            ),
+            "worst_ewma_ms": round(
+                max(rtt for row in latency.values() for rtt in row.values()),
+                3,
+            ),
+            "worst_cross_region_ewma_ms": None,
+            "inferred_regions": None,
+            "region_count": None,
+        }
+        if full_coverage:
+            inferred = infer_fleet_regions(latency)
+            cross = [
+                rtt
+                for a, row in latency.items()
+                for b, rtt in row.items()
+                if inferred.get(a) != inferred.get(b)
+            ]
+            peer_rtt["worst_cross_region_ewma_ms"] = (
+                round(max(cross), 3) if cross else None
+            )
+            peer_rtt["inferred_regions"] = inferred
+            peer_rtt["region_count"] = len(set(inferred.values()))
+    # Election attribution: the elect.* counters accrue once per
+    # node per committed round whenever a region map is wired, so the
+    # per-commit averages divide fleet totals by fleet round-commits.
+    # None when no elect.rounds moved (region-less run or old report) —
+    # absence, not a zero claim.
+    elect_rounds = int(metrics_delta.get("elect.rounds") or 0)
+    election = None
+    if elect_rounds:
+        matches = int(metrics_delta.get("elect.leader_region_matches") or 0)
+        hops = int(metrics_delta.get("elect.cross_region_hops") or 0)
+        blind = int(metrics_delta.get("elect.cross_region_hops_blind") or 0)
+        election = {
+            "rounds": elect_rounds,
+            "leader_region_matches": matches,
+            "match_rate": round(matches / elect_rounds, 4),
+            "cross_region_hops": hops,
+            "hops_per_commit": round(hops / elect_rounds, 3),
+            "cross_region_hops_blind": blind,
+            "blind_hops_per_commit": round(blind / elect_rounds, 3),
+        }
+    return {
+        "nodes": report.get("nodes"),
+        "crypto_mode": report.get("crypto_mode", "exact"),
+        "wan_regions": sorted(set((report.get("wan_regions") or {}).values())),
+        "virtual_seconds": span,
+        "verdict": {
+            "ok": bool(report.get("ok")),
+            "safety_violations": len(report.get("safety_violations") or ()),
+            "liveness_violations": len(report.get("liveness_violations") or ()),
+            "expectation_failures": len(
+                report.get("expectation_failures") or ()
+            ),
+        },
+        "commits": {
+            "total": total_commits,
+            "rate_per_s": round(total_commits / span, 3) if span > 0 else 0.0,
+            "min_node": min(per_node_commits.values(), default=0),
+            "max_node": max(per_node_commits.values(), default=0),
+            # Certificate-plane payoff column: certificate bytes
+            # per committed round, averaged fleet-wide. Both terms scale
+            # with n, so a flat value across n = 4..128 is the O(1)
+            # constant-size-certificate claim in one number; entry-list
+            # fleets grow linearly here. The counter is maintained in
+            # every crypto mode, so legacy and aggregate cells compare;
+            # None = the report predates the counter (not "0 bytes").
+            "bytes_per_committed_round": (
+                round(
+                    float(metrics_delta["agg.cert_bytes_committed"])
+                    / total_commits,
+                    1,
+                )
+                if total_commits and "agg.cert_bytes_committed" in metrics_delta
+                else None
+            ),
+        },
+        "lanes": merge_lane_summaries(lane_src),
+        "occupancy": {
+            "worst_node": worst_occ[0] if worst_occ else None,
+            "worst": round(worst_occ[1], 6) if worst_occ else None,
+        },
+        "alerts": {
+            "fired": alerts_fired,
+            "cleared": alerts_cleared,
+            "active": active,
+        },
+        "snapshots": sum(
+            len(dump.get("snapshots") or ()) for dump in telem.values()
+        ),
+        "epoch_switches": sum(
+            len(v) for v in (report.get("epoch_switches") or {}).values()
+        ),
+        "counters": {
+            k: v
+            for k, v in sorted(metrics_delta.items())
+            if k.startswith(_ROLLUP_COUNTER_PREFIXES)
+        },
+        "peer_rtt": peer_rtt,
+        "election": election,
+        # Incident-ledger health verdict (utils/incidents.py):
+        # MTTD/MTTR percentiles per fault class, burn budget, and the
+        # unattributed-alert count — the matrix cell's operations view.
+        "health": report.get("health"),
+        "fault_trace_truncated": bool(report.get("fault_trace_truncated")),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Scrape endpoint: framed JSON request/response on the stack's 4-byte
+# length framing (network/net.py), one response per request frame.
 
 
 class TelemetryServer:

@@ -18,9 +18,11 @@ trace id and a frame trailer of either package read the same:
     elsewhere).
   * **Anomaly watchdog** (`WATCHDOG`): dumps the ring when a round stalls
     past N timeouts (the consensus core), egress backpressure is
-    sustained (the payload maker), an epoch handoff breaks its contract
-    (the epoch manager), or an SLO burns its error budget (the telemetry
-    plane, `note_slo_burn`). `node/main.py --trace-out` arms its
+    sustained (the payload maker), the per-signature verification cost
+    regresses against the run's own baseline (the batch service,
+    `note_verify`), an epoch handoff breaks its contract (the epoch
+    manager), or an SLO burns its error budget (the telemetry plane,
+    `note_slo_burn`). `node/main.py --trace-out` arms its
     file-writing hook. Context hooks (`add_context_hook`) add sections to
     every auto-dump: a telemetry plane's `attach_watchdog` registers one,
     so each dump carries the plane's last snapshots.
@@ -29,10 +31,8 @@ The chaos runner's parts are copied too: the `chaos.fault`, `chaos.crash`
 and `chaos.restart` event kinds, an explicit `record` label (an in-process
 node's index) and the per-node filter and cap of `events`.
 
-Not copied: the ring size from `HOTSTUFF_TRACE_RING`, the per-node
-filters of `dump` / `write_json` (the chaos runner reads `events`), and the
-watchdog's verify-regression trigger (`note_verify`,
-`HOTSTUFF_TRACE_P99_FACTOR`), which nothing of the port feeds.
+Not copied: the ring size from `HOTSTUFF_TRACE_RING` and the per-node
+filters of `dump` / `write_json` (the chaos runner reads `events`).
 """
 
 from __future__ import annotations
@@ -111,6 +111,7 @@ EVENT_KINDS: frozenset[str] = frozenset(STAGES) | {
     "chaos.crash",
     "chaos.restart",
     "watchdog.round_stall",
+    "watchdog.verify_regression",
     "watchdog.backpressure",
     "watchdog.slo_burn",
     "slo.clear",
@@ -400,9 +401,14 @@ class AnomalyWatchdog:
       * `note_backpressure(active)` — egress cold-lane backpressure
         transitions from the payload maker; active for longer than
         `backpressure_s` means gossip fan-out cannot reach a majority.
+      * `note_verify(dur_s, n)` — per-flush verification cost from the
+        BatchVerificationService; a sustained per-signature cost above
+        `p99_factor` x the run's own baseline (the MEDIAN of the first
+        BASELINE_SAMPLES flushes, so cold-compile outliers do not poison
+        it) is a verify regression (the card's route fell to the host, a
+        relay degraded, ...).
       * `note_handoff_violation(...)` — an epoch handoff that broke its
         contract, from the epoch manager.
-
       * `note_slo_burn(slo, burn_short, burn_long)` — an SLO burn-rate
         alert from the telemetry plane (`utils/telemetry.py`).
 
@@ -413,10 +419,16 @@ class AnomalyWatchdog:
     hook under `context`.
     """
 
+    # note_verify: samples whose median is the baseline, and consecutive
+    # regressed flushes required before firing (one slow flush is noise).
+    BASELINE_SAMPLES = 32
+    REGRESSION_STREAK = 8
+
     def __init__(
         self,
         stall_timeouts: int | None = None,
         backpressure_s: float | None = None,
+        p99_factor: float | None = None,
         cooldown_s: float | None = None,
     ) -> None:
         env = os.environ.get
@@ -425,6 +437,9 @@ class AnomalyWatchdog:
         )
         self.backpressure_s = backpressure_s if backpressure_s is not None else float(
             env("HOTSTUFF_TRACE_BACKPRESSURE_S", "5")
+        )
+        self.p99_factor = p99_factor if p99_factor is not None else float(
+            env("HOTSTUFF_TRACE_P99_FACTOR", "4")
         )
         self.cooldown_s = cooldown_s if cooldown_s is not None else float(
             env("HOTSTUFF_TRACE_COOLDOWN_S", "30")
@@ -435,6 +450,9 @@ class AnomalyWatchdog:
         self._context_hooks: list[Callable[[], dict]] = []
         self._last_fired: dict[str, float] = {}
         self._bp_since: float | None = None
+        self._verify_samples: list[float] = []
+        self._verify_baseline: float | None = None
+        self._verify_streak = 0
         self.triggers: list[dict] = []
 
     # -- hooks ---------------------------------------------------------------
@@ -575,10 +593,42 @@ class AnomalyWatchdog:
             trigger_round=trigger_round,
         )
 
+    def note_verify(self, dur_s: float, n: int) -> None:
+        if not _enabled or n <= 0:
+            return
+        per_sig = dur_s / n
+        if self._verify_baseline is None:
+            # Median, not mean: the first flushes may include a cold
+            # kernel build; a mean baseline would sit far above the warm
+            # cost and the trigger would never fire for the runs it is for.
+            self._verify_samples.append(per_sig)
+            if len(self._verify_samples) >= self.BASELINE_SAMPLES:
+                ordered = sorted(self._verify_samples)
+                self._verify_baseline = ordered[len(ordered) // 2]
+                self._verify_samples = []
+                log.info("watchdog verify baseline: %.3f us a signature (the median of %d flushes)",
+                         1e6 * self._verify_baseline, len(ordered))
+            return
+        baseline = self._verify_baseline
+        if baseline > 0 and per_sig > self.p99_factor * baseline:
+            self._verify_streak += 1
+            if self._verify_streak >= self.REGRESSION_STREAK:
+                self._verify_streak = 0
+                self._trigger(
+                    "verify_regression",
+                    per_sig_s=round(per_sig, 9),
+                    baseline_s=round(baseline, 9),
+                )
+        else:
+            self._verify_streak = 0
+
     def reset(self) -> None:
         self._last_fired.clear()
         self._context_hooks = []
         self._bp_since = None
+        self._verify_samples = []
+        self._verify_baseline = None
+        self._verify_streak = 0
         self.triggers = []
 
 

@@ -148,12 +148,44 @@ def test_telemetry_port_serves_the_plane(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--ingress-backend", "--sched-backend"])
-def test_pure_python_backends_are_refused(flag, capsys):
-    leg = "--ingress" if flag == "--ingress-backend" else "--scheduler-ab"
-    with pytest.raises(SystemExit) as e:
-        bench.main(["--device", "cpu", leg, flag, "pure"])
-    assert e.value.code == 2
-    assert f"{flag} pure is not ported" in capsys.readouterr().err
+def test_pure_python_backends_are_refused(flag, monkeypatch, capsys):
+    """`pure` runs its leg (0.5 s) on the port's pure-Python verifier on
+    the host, as the reference's `pure` does: no card is asked for (none
+    is visible here and `--device` is left at its default), the line has
+    the reference's keys with `backend` `pure-python` and no `routes`, and
+    every mask holds."""
+    from hotstuff_tpu_torch.crypto.pysigner import PurePythonBackend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    verify = PurePythonBackend.verify_batch_mask
+    monkeypatch.setattr(PurePythonBackend, "verify_batch_mask", lambda self, *a: calls.append(len(a[0])) or
+                        verify(self, *a))
+    if flag == "--ingress-backend":
+        line = bench.main(["--ingress", flag, "pure", "--ingress-duration", "0.5", "--ingress-rate", "20"])
+        keys, extra = INGRESS_KEYS, {"committed", "signer", "signer_sigs_per_s", "pipeline"}
+        assert line["committed"] == line["accepted"] == line["offered"] == sum(calls) > 0
+    else:
+        line = bench.main(["--scheduler-ab", flag, "pure", "--sched-duration", "0.5"])
+        keys, extra = SCHED_KEYS, set()
+        assert line["workload"]["bulk_size"] == 8 and line["workload"]["critical_size"] == 3
+        assert line["legacy"]["masks_all_true"] and line["scheduler"]["masks_all_true"] and calls
+    assert keys <= set(line) and set(line) - keys == extra | {"device", "power_limit_w"}
+    assert line["backend"] == "pure-python" and line["device"] == "cpu" and line["power_limit_w"] is None
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == line
+
+
+@pytest.mark.parametrize("leg", ["--ingress", "--scheduler-ab"])
+def test_auto_leg_without_a_card_raises_and_does_not_degrade(leg, monkeypatch):
+    """`auto` is the card: without one the leg raises before any
+    verification, where the reference's `auto` degrades to its pure-Python
+    verifier (`bench.py:388-413`)."""
+    from hotstuff_tpu_torch.crypto.pysigner import PurePythonBackend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(PurePythonBackend, "verify_batch_mask", lambda *a: pytest.fail("degraded to pure"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([leg, "--ingress-duration", "0.2", "--sched-duration", "0.2"])
 
 
 # The reference's keys of the --ingress payload (`bench.py:480-495`) and of

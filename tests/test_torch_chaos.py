@@ -15,6 +15,10 @@ oracle:
     anchors' `wall`, and the `dur` of the flight recorders' and the
     watchdog dumps' events);
   * a same-seed replay on the port is bit-identical but for those;
+  * gauges left set in the process reach both packages' telemetry alike
+    (each run here starts from zeroed gauges and with the watchdog's
+    wall-clock verify trigger held off in both packages:
+    `tests/common_torch_chaos.py`);
   * `TrustedCryptoScheme` / `TrustedAggScheme`, the `SafetyChecker`'s
     committed-QC audit, `incidents.build_ledger` / `report_ledger` and the
     AggQC / AggTC that `AggCertAggregator` forms for a 4-node fleet agree
@@ -38,6 +42,7 @@ from hotstuff_tpu.crypto import aggsig as r_aggsig
 from hotstuff_tpu.crypto import primitives as r_primitives
 from hotstuff_tpu.crypto import pysigner as r_pysigner
 from hotstuff_tpu.utils import incidents as r_incidents
+from hotstuff_tpu.utils import metrics as r_metrics
 from hotstuff_tpu.utils.serde import Writer as RWriter
 from hotstuff_tpu_torch.chaos import invariants as p_invariants
 from hotstuff_tpu_torch.chaos import run_scenario as p_run_scenario
@@ -49,7 +54,9 @@ from hotstuff_tpu_torch.crypto import aggsig as p_aggsig
 from hotstuff_tpu_torch.crypto import primitives as p_primitives
 from hotstuff_tpu_torch.crypto import pysigner as p_pysigner
 from hotstuff_tpu_torch.utils import incidents as p_incidents
+from hotstuff_tpu_torch.utils import metrics as p_metrics
 from hotstuff_tpu_torch.utils.serde import Writer as PWriter
+from tests.common_torch_chaos import chaos_process_state, zero_gauges  # noqa: F401
 
 PKGS = {
     "reference": dict(trusted=r_trusted, invariants=r_invariants, aggregator=r_aggregator, config=r_config,
@@ -98,7 +105,10 @@ _REPORTS: dict[str, tuple[dict, dict]] = {}
 def _reports(name: str) -> tuple[dict, dict]:
     """(reference, port) reports of `name` at seed 1, run once a module."""
     if name not in _REPORTS:
-        _REPORTS[name] = r_run_scenario(name, 1), p_run_scenario(name, 1)
+        zero_gauges()
+        ref = r_run_scenario(name, 1)
+        zero_gauges()
+        _REPORTS[name] = ref, p_run_scenario(name, 1)
     return _REPORTS[name]
 
 
@@ -118,9 +128,33 @@ def test_scenario_matches_the_reference(name):
         assert port["metrics"]["agg.qcs_formed"] == ref["metrics"]["agg.qcs_formed"]
 
 
+def test_a_run_ignores_the_gauges_the_process_left():
+    """Gauges left set in the process before a run (as an earlier test in
+    the worker leaves them) ride the run's telemetry snapshots in both
+    packages alike: neither orchestrator clears them, and the two reports
+    are equal but for the wall clock."""
+    from hotstuff_tpu.chaos.scenarios import TelemetryConfig as RTelemetryConfig
+    from hotstuff_tpu_torch.utils.telemetry import TelemetryConfig
+
+    reports = []
+    for metrics, run, config in ((r_metrics, r_run_scenario, RTelemetryConfig(interval_s=0.05)),
+                                 (p_metrics, p_run_scenario, TelemetryConfig(interval_s=0.05))):
+        for name, level in (("proofs.registry_size", 17), ("verifier.committee_size", 64),
+                            ("consensus.round", 900)):
+            metrics.gauge(name).set(level)
+        reports.append(run("baseline", 3, telemetry=config))  # snapshots before the early stop
+    ref, port = reports
+    assert port["ok"] and port["telemetry"] and all(t["snapshots"] for t in port["telemetry"].values())
+    assert all(snap["gauges"]["proofs.registry_size"] == 17
+               for t in port["telemetry"].values() for snap in t["snapshots"])
+    assert _without_wall_clock(port) == _without_wall_clock(ref)
+
+
 @pytest.mark.parametrize("name, seed", [("lossy_links", 42), ("agg_certs", 21)])
 def test_same_seed_replays_bit_identically(name, seed):
-    a, b = p_run_scenario(name, seed), p_run_scenario(name, seed)
+    a = p_run_scenario(name, seed)
+    zero_gauges()
+    b = p_run_scenario(name, seed)
     assert a["ok"] and b["ok"]
     assert _without_wall_clock(a) == _without_wall_clock(b)
     c = p_run_scenario(name, seed + 1)

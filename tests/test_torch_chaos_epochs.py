@@ -12,6 +12,7 @@ from __future__ import annotations
 import pytest
 
 from hotstuff_tpu_torch.chaos.scenarios import SCENARIOS, SHORT_SCENARIOS, run_scenario
+from tests.common_torch_chaos import chaos_process_state  # noqa: F401  (autouse)
 
 NAMES = [
     "epoch_reconfig", "genesis_catchup", "long_offline_catchup", "agg_epoch_boundary",

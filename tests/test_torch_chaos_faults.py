@@ -10,6 +10,7 @@ from __future__ import annotations
 import pytest
 
 from hotstuff_tpu_torch.chaos.scenarios import SCENARIOS, run_scenario
+from tests.common_torch_chaos import chaos_process_state  # noqa: F401  (autouse)
 
 NAMES = [
     "lossy_links", "partition_heal", "leader_crash", "timeout_storm", "agg_collector_crash",

@@ -11,6 +11,7 @@ from __future__ import annotations
 import pytest
 
 from hotstuff_tpu_torch.chaos.scenarios import SCENARIOS, run_scenario
+from tests.common_torch_chaos import chaos_process_state  # noqa: F401  (autouse)
 
 NAMES = [
     "flash_crowd_ingress", "bulk_flood_priority", "slo_burn_bulk", "ingress_proofs", "proof_squatter",

@@ -1063,3 +1063,116 @@ def test_laps_split_the_run_by_phase(monkeypatch):
     labels = re.findall(r'laps\.lap\("([^"]+)"\)', src)
     assert labels[0] == "1 build" and labels[-1] == "16 port deploy" and len(labels) == len(set(labels)) == 16
     assert src.index("phase seconds:") < src.index('json.dumps({"kernels": rows})')
+
+
+def test_port_committee_traces_each_node_and_reads_its_watchdog(tmp_path):
+    """Phase 13's nodes run with `--trace-out`; `node_watchdog` reads the
+    baseline the port's watchdog logs, its triggers and the auto-dumps
+    written beside the trace file."""
+    import logging
+
+    from hotstuff_tpu_torch.node import main as node_main
+    from hotstuff_tpu_torch.utils import tracing
+
+    cmd = chip_smoke.port_node_cmd("py", 1, ".c.json", ".p.json", "metrics-1.json", 9100, "trace-1.json")
+    args = node_main.parse_args(cmd[4:])
+    assert (args.telemetry_port, args.trace_out, args.metrics_out) == (9100, "trace-1.json", "metrics-1.json")
+    assert "--trace-out" not in chip_smoke.port_node_cmd("py", 1, ".c.json", ".p.json", "m.json")
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(f"[t INFO {record.name}] {record.getMessage()}")
+    logger = logging.getLogger("hotstuff.tracing")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    was = tracing.enabled()
+    tracing.enable(True)
+    try:
+        wd = tracing.AnomalyWatchdog(p99_factor=4.0, cooldown_s=0.0)
+        for _ in range(wd.BASELINE_SAMPLES):
+            wd.note_verify(0.0025, 1000)
+        for _ in range(wd.REGRESSION_STREAK):
+            wd.note_verify(0.1, 1000)
+    finally:
+        tracing.enable(was)
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    (tmp_path / "trace-1.json.watchdog-verify_regression-1.json").write_text("{}")
+    (tmp_path / "trace-2.json.watchdog-slo_burn-1.json").write_text("{}")
+    log = "\n".join(records + ["[t WARNING hotstuff.tracing] anomaly watchdog fired: slo_burn {}"])
+    assert chip_smoke.node_watchdog(tmp_path, "trace-1.json", log) == dict(
+        baseline_us=2.5, verify_regression=1, triggers={"slo_burn": 1, "verify_regression": 1},
+        dumps=["trace-1.json.watchdog-verify_regression-1.json"])
+    assert chip_smoke.node_watchdog(tmp_path, "trace-3.json", "") == dict(
+        baseline_us=None, verify_regression=0, triggers={}, dumps=[])
+
+
+def test_phase_watchdog_on_cpu(monkeypatch, capsys):
+    """The forced watchdog check's control flow at 64 lanes: a plain-kernel
+    `TorchBackend` whose verifier answers OpenSSL's mask at once stands in
+    for the card, so the OpenSSL stretch's flushes cost far more a
+    signature than the baseline and the watchdog fires once, on the last."""
+    pytest.importorskip("cryptography")
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+
+    M, K, S, want = chip_smoke.watchdog_corpus(0, 64)
+    assert len(set(zip(M, K, S))) == 64 and want.count(False) == 4
+    backend = TorchBackend(device="cpu", crossover=1)
+    monkeypatch.setattr(backend._verifier, "verify_batch_mask", lambda *a: np.array(want))
+    out = chip_smoke.phase_watchdog(0, device="cpu", backend=backend, lanes=64)
+    assert out["fired_at"] == chip_smoke.WATCHDOG_CARD_FLUSHES + chip_smoke.WATCHDOG_HOST_FLUSHES - 1
+    assert out["trigger_us"] > 4 * out["baseline_us"]
+    assert backend.stats["device_batches"] == chip_smoke.WATCHDOG_CARD_FLUSHES + 1
+    assert backend.stats["host_batches"] == chip_smoke.WATCHDOG_HOST_FLUSHES
+    assert "verify_regression fired once" in capsys.readouterr().out
+    monkeypatch.setattr(backend._verifier, "verify_batch_mask", lambda *a: ~np.array(want))
+    backend.crossover = 1
+    with pytest.raises(SystemExit, match="masks differ from OpenSSL's"):
+        chip_smoke.phase_watchdog(0, device="cpu", backend=backend, lanes=64)
+
+
+def test_sidecar_reports_watchdog_triggers_beside_its_lanes():
+    """Phases 6 and 7: a `verify_regression` warning of the sidecar's
+    process lands in `watchdog` with its details and is printed with the
+    baseline and the phase's lanes; any other warning still lands in
+    `errors`."""
+    import logging
+
+    from hotstuff_tpu_torch.crypto.pysigner import PurePythonBackend
+
+    sidecar = chip_smoke._Sidecar(PurePythonBackend())
+    try:
+        logging.getLogger("hotstuff.tracing").warning(
+            "anomaly watchdog fired: %s %s", "verify_regression", {"per_sig_s": 1.5e-05, "baseline_s": 2.25e-06})
+        logging.getLogger("hotstuff.remote").warning("something else")
+    finally:
+        sidecar.stop()
+    assert sidecar.watchdog == [{"per_sig_s": 1.5e-05, "baseline_s": 2.25e-06}]
+    assert sidecar.errors == ["hotstuff.remote: something else"]
+    line = sidecar.watchdog_line("sidecar", 4096, 0)
+    assert line.startswith("sidecar watchdog: verify baseline ")
+    assert line.endswith("us a signature; verify_regression fired 1 times (15.000 against 2.250 us); "
+                         "4096 lanes on the card, 0 on the host")
+
+
+def test_tracing_ab_runs_phase_13_in_turns(monkeypatch, capsys):
+    """`--tracing-ab`: phase 13 under each tracing mode, in the turns off,
+    on, dump, dump, on, off, each in a run directory of its own; each
+    mode's rates are printed and the last line holds them all."""
+    seen = []
+
+    def fake(run_dir, tracing):
+        seen.append((run_dir.name, tracing))
+        return {"tx_per_s": 900.0 + len(seen), "commits_per_s": 30.0 + len(seen)}
+
+    monkeypatch.setattr(chip_smoke, "phase_port_committee", fake)
+    assert chip_smoke.tracing_ab("NVIDIA H100 80GB HBM3, 700.00 W") == 0
+    assert seen == [(f"tracing_ab_{i}", m) for i, m in enumerate(("off", "on", "dump", "dump", "on", "off"))]
+    out = capsys.readouterr().out.splitlines()
+    assert "tracing dump: tx/s [903.0, 904.0], blocks a second a node [33.0, 34.0], means 903.500 and 33.5000" in out
+    assert json.loads(out[-1]) == {"tracing_ab": {"dump": [[903.0, 33.0], [904.0, 34.0]],
+                                                  "on": [[902.0, 32.0], [905.0, 35.0]],
+                                                  "off": [[901.0, 31.0], [906.0, 36.0]]}}

@@ -10,12 +10,16 @@ against an in-process port `IngressServer` over localhost TCP:
     3-of-4 pysigner QCs): every accepted transaction proved, and each
     written certificate verifies fully under both packages;
   * `--procs 2`: a merged summary whose counts are the shards' sums;
-  * `--selftest` refused with exit 2, a malformed `--target` exit 3.
+  * `--selftest` (plain, `--proofs`, `--procs 2`): the in-process pipeline
+    on the virtual clock, equal to the reference tool's selftest but for
+    the port's extra keys;
+  * a malformed `--target` exits 3.
 """
 
 from __future__ import annotations
 
 import asyncio
+import importlib.util
 import json
 import sys
 import time
@@ -212,15 +216,79 @@ def test_loadgen_procs_merges_its_shards(run_async, tmp_path):
 
 
 @pytest.mark.parametrize("argv, rc, said", [
-    (["--selftest"], 2, "A.11.4"),
+    pytest.param(["--selftest", "--duration", "1", "--rate", "10"], 0, '"mode": "selftest"', id="argv0-2-A.11.4"),
     (["--target", "no-port-here"], 3, "malformed target"),
     (["--target", "127.0.0.1:9", "--proofs-target", "x:y"], 3, "malformed target"),
 ])
 def test_loadgen_refusals(argv, rc, said, capsys):
+    """A malformed `--target` or `--proofs-target` exits 3 naming it;
+    `--selftest` exits 0 with its summary on stdout."""
     from hotstuff_tpu_torch import loadgen
 
     try:
         code = loadgen.main(argv)
     except SystemExit as e:
         code = e.code
-    assert code == rc and said in capsys.readouterr().err
+    out, err = capsys.readouterr()
+    assert code == rc and said in out + err
+
+
+def _ref_loadgen():
+    spec = importlib.util.spec_from_file_location("ref_loadgen", REPO / "tools" / "loadgen.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# What the port's summary adds to the reference's: the wall clock at the
+# curve's start, the last answer's lag past the curve's end, and the
+# distinct certificates the proof tracker saw.
+PORT_EXTRA = {"curve_t0_unix", "answer_tail_s"}
+
+
+@pytest.mark.parametrize("extra", [[], ["--proofs"]], ids=["plain", "proofs"])
+def test_selftest_equals_the_reference_tools(extra, capsys):
+    """`--selftest` (a flash curve past the paced drain's capacity, so some
+    transactions are shed with retry hints) through both tools in this
+    process: exit 0, the reference's keys, and equal numbers, since both
+    run on the virtual clock; with `--proofs` every admitted transaction
+    is proved and verified statelessly."""
+    from hotstuff_tpu_torch import loadgen
+
+    argv = ["--selftest", "--curve", "flash", "--rate", "20", "--peak", "200", "--duration", "2",
+            "--capacity", "40", "--seed", "3", *extra]
+    summaries = {}
+    for name, main in (("port", loadgen.main), ("reference", _ref_loadgen().main)):
+        assert main(argv) == 0
+        summaries[name] = _summary(capsys.readouterr().out)
+    port, ref = summaries["port"], summaries["reference"]
+    assert set(port) == set(ref) | PORT_EXTRA and port["mode"] == ref["mode"] == "selftest"
+    assert port["shed"] > 0 and port["retry_hints"] > 0 and port["accepted"] > 0
+    assert port["unresolved"] == port["errors"] == 0
+    if extra:
+        assert set(port["proofs"]) == set(ref["proofs"]) | {"certificates"}
+        proofs = port.pop("proofs")
+        assert proofs.pop("certificates") == proofs["blocks"] > 0
+        assert proofs == ref.pop("proofs")
+        assert proofs["verified_ok"] == proofs["served"] == port["accepted"] and proofs["verified"] == "stateless"
+    assert {k: v for k, v in port.items() if k not in PORT_EXTRA} == ref
+
+
+def test_selftest_procs_merges_its_shards(run_async):
+    """`--selftest --procs 2` through both tools: exit 0, two selftest
+    shards each, and equal merged counts and percentiles."""
+    argv = ("--selftest", "--rate", "20", "--duration", "1", "--clients", "4", "--procs", "2")
+
+    async def body():
+        return await asyncio.gather(_run(*argv), _run(str(REPO / "tools" / "loadgen.py"), *argv, module=""))
+
+    (rc, out, err), (ref_rc, ref_out, ref_err) = run_async(body(), timeout=240)
+    assert rc == 0, err
+    assert ref_rc == 0, ref_err
+    port, ref = _summary(out), _summary(ref_out)
+    assert port["mode"] == "sharded" and port["shard_rcs"] == [0, 0]
+    assert [s["mode"] for s in port["shards"]] == ["selftest", "selftest"]
+    assert set(port) == set(ref) | PORT_EXTRA
+    strip = lambda d: {k: v for k, v in d.items() if k not in PORT_EXTRA | {"shards"}}  # noqa: E731
+    assert strip(port) == strip(ref) and port["accepted"] == port["offered"] > 0
+    assert [strip(s) for s in port["shards"]] == [strip(s) for s in ref["shards"]]

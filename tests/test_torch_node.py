@@ -18,7 +18,7 @@
     torch` asks for the card, so on a host without one it exits non-zero,
     and never falls back to the CPU; `--ingress` turns the client plane on;
     `aggregate_certs` and `deploy` are taken; what is not ported is
-    refused.
+    refused; `HOTSTUFF_PROFILE` dumps cProfile stats at SIGTERM.
 """
 
 from __future__ import annotations
@@ -287,10 +287,9 @@ def test_node_asks_for_the_card_and_never_falls_back(tmp_path):
     assert "successfully booted" not in proc.stderr
 
 
-def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
-    """`node.main run --crypto cpu` as a process, a committee of one: it
-    boots, commits, and on SIGTERM writes its metrics dump with the
-    launch counts (none: OpenSSL verifies) and its trace dump."""
+def _run_node_of_one(tmp_path, base_port, *extra: str, env: dict | None = None) -> int:
+    """`node.main run --crypto cpu` as a process, a committee of one, until
+    it commits, then SIGTERM; returns its pid."""
     import signal
     import time
 
@@ -311,9 +310,8 @@ def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
         proc = subprocess.Popen(
             [sys.executable, "-m", "hotstuff_tpu_torch.node.main", "-vv", "run", "--keys", str(key),
              "--committee", str(committee), "--store", str(tmp_path / "db" / "log"), "--parameters", str(params),
-             "--crypto", "cpu", "--metrics-out", str(tmp_path / "metrics.json"),
-             "--trace-out", str(tmp_path / "trace.json")],
-            cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+             "--crypto", "cpu", *extra],
+            cwd=REPO, stdout=out, stderr=subprocess.STDOUT, env=None if env is None else {**os.environ, **env})
     try:
         deadline = time.monotonic() + 120
         while "Committed B" not in log.read_text() and proc.poll() is None and time.monotonic() < deadline:
@@ -323,11 +321,35 @@ def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
         proc.send_signal(signal.SIGTERM)
         proc.wait(30)
     assert proc.returncode == 0
+    return proc.pid
+
+
+def test_node_cli_commits_and_dumps_at_sigterm(tmp_path, base_port):
+    """`node.main run --crypto cpu` as a process, a committee of one: it
+    boots, commits, and on SIGTERM writes its metrics dump with the
+    launch counts (none: OpenSSL verifies) and its trace dump."""
+    _run_node_of_one(tmp_path, base_port, "--metrics-out", str(tmp_path / "metrics.json"),
+                     "--trace-out", str(tmp_path / "trace.json"))
     dump = json.loads((tmp_path / "metrics.json").read_text())
     assert dump["counters"]["consensus.commits"] > 0
     assert set(dump["launches"]) == set(_build.KERNELS) and not any(dump["launches"].values())
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert trace["node"] == "node" and trace["recorded"] > 0
+
+
+def test_node_profile_dumps_its_stats_at_sigterm(tmp_path, base_port):
+    """`HOTSTUFF_PROFILE=<path>`: the node runs under cProfile and, on
+    SIGTERM, dumps the stats to `<path>.<pid>`, which `pstats` loads with
+    the node's own consensus code among the profiled functions."""
+    import pstats
+
+    prefix = tmp_path / "node.prof"
+    pid = _run_node_of_one(tmp_path, base_port, env={"HOTSTUFF_PROFILE": str(prefix)})
+    assert [p.name for p in tmp_path.glob("node.prof*")] == [f"node.prof.{pid}"]
+    stats = pstats.Stats(str(tmp_path / f"node.prof.{pid}"))
+    files = {fn for fn, _line, _name in stats.stats}
+    assert any("hotstuff_tpu_torch/consensus/" in f for f in files)
+    assert stats.total_calls > 0
 
 
 @pytest.mark.parametrize("argv, said", [

@@ -11,7 +11,11 @@ inputs, with an exact tolerance (byte and verdict identity).
   * the registry's ring eviction, persistence written through each
     package's `Store` and reloaded by the other's registry, bounded waiters;
   * `ProofService`: the same reply states and retry hints for the same
-    sequence of queries, commits and `now`.
+    sequence of queries, commits and `now`;
+  * the reference's two chaos cases (`ingress_proofs`, `proof_squatter` at
+    seed 11) through both packages' chaos planes: the reference's checks
+    hold on the port's report, and its `proofs` and `proof_squat`
+    sections and `proofs.*` deltas equal the reference's.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from hotstuff_tpu_torch.store import Store
 from hotstuff_tpu_torch.utils import metrics
 from hotstuff_tpu_torch.utils.serde import Reader, SerdeError, Writer
 from tests.common_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.common_torch_chaos import chaos_process_state  # noqa: F401  (autouse)
 
 
 def _fleet(n: int = 4, tag: bytes = b"proof", epoch: int = 1):
@@ -462,3 +467,59 @@ def test_service_counts_under_the_reference_names(run_async):
     assert {"proofs.serve_s", "proofs.proof_bytes"} <= set(dump["histograms"])
     assert {"proofs.indexed", "proofs.resolved", "proofs.evicted", "proofs.cert_mismatch"} <= set(dump["counters"])
     assert "proofs.registry_size" in dump["gauges"]
+
+
+# --- the end-to-end chaos cases (tests/test_proofs.py) -------------------------
+
+
+def _chaos_reports(name: str) -> tuple[dict, dict]:
+    from hotstuff_tpu.chaos import run_scenario as ref_run_scenario
+    from hotstuff_tpu_torch.chaos import run_scenario
+
+    return ref_run_scenario(name, seed=11), run_scenario(name, seed=11)
+
+
+def _proofs_deltas(report: dict) -> dict:
+    return {k: v for k, v in report["metrics"].items() if k.startswith("proofs.")}
+
+
+def test_ingress_proofs_scenario_closes_the_loop():
+    """Under link faults every transaction the ingress plane admits and
+    consensus commits is provable: each tracked client holds a verified
+    proof, none is left unproved, and the worst proof stays inside the
+    O(1) byte envelope; the port's sections equal the reference's."""
+    from hotstuff_tpu_torch.chaos.scenarios import _proof_bytes_bound
+
+    ref, report = _chaos_reports("ingress_proofs")
+    assert report["ok"], report.get("expectation_failures")
+    assert report.get("expectation_failures", []) == [] and report["safety_violations"] == []
+    summaries = report["proofs"].values()
+    assert summaries
+    for s in summaries:
+        assert s["tracked"] > 0
+        assert s["served"] == s["verified_ok"] > 0
+        assert s["verify_failed"] == 0 and s["unproved_committed"] == 0
+        assert 0 < s["proof_bytes_max"] <= _proof_bytes_bound(4)
+        assert s["latency_ms"]["p99"] >= s["latency_ms"]["p50"] > 0
+    assert report["metrics"]["proofs.served"] >= 4
+    assert report["metrics"].get("proofs.cert_mismatch", 0) == 0
+    assert report["proofs"] == ref["proofs"] and _proofs_deltas(report) == _proofs_deltas(ref)
+
+
+def test_proof_squatter_sheds_without_allocating():
+    """A nonce-squatting flood of never-admitted subscriptions is shed to
+    the last query while honest clients still get their proofs and every
+    registry stays bounded; the port's sections equal the reference's."""
+    ref, report = _chaos_reports("proof_squatter")
+    assert report["ok"], report.get("expectation_failures")
+    assert report.get("expectation_failures", []) == []
+    squat = report["proof_squat"].values()
+    assert squat
+    for s in squat:
+        assert s["sent"] > 0 and s["shed"] == s["sent"]
+    assert report["metrics"]["proofs.subs_shed"] >= 200
+    for s in report["proofs"].values():
+        assert s["served"] == s["verified_ok"] > 0
+        assert s["registry_size"] <= 3_000
+    assert report["proof_squat"] == ref["proof_squat"] and report["proofs"] == ref["proofs"]
+    assert _proofs_deltas(report) == _proofs_deltas(ref)
