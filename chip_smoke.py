@@ -106,6 +106,28 @@ caught:
      QCs (each padded to 44 lanes) must give the expected masks and per-QC
      counts, and the sidecar CLI with `--sharded --committee` (every
      visible GPU) must boot and answer one QC with the expected mask;
+  5c. the multi-process mesh (`parallel.init_multihost`): two worker
+     processes of this script (`--multihost-worker`), rank 0 and rank 1,
+     join over gloo on 127.0.0.1, each with a virtual mesh of 2 shards on
+     `cuda:0` (a global mesh of 4 entries, the 2 x 2 of
+     tests/test_multihost.py), both on the one card. From one file of
+     inputs (phase 3's batch, phase 5's votes and table), each rank runs
+     `TorchBackend(mesh=...)` on the generic batch and the committee votes
+     and a `packed=False` verifier on the batch's first 4,096 lanes. On
+     both ranks each mask must equal the one-process backend's of phases 3
+     and 5 lane for lane; each rank must launch each kernel of the path
+     (K2, K3, K1, K4; K2g, K5, K4; K3, K1, K4) chunks x 2 times, for its own
+     2 shards only, and nothing else; each batch must end in exactly one
+     gather (`mesh.gathers`). Then 3 timed batches a rank: the gather's ms
+     a batch and the two processes' sigs/s beside the one-process
+     backend's on the same batch, timed just before (two processes sharing
+     one card: the cost of the split, not a scaling figure). Last, two
+     sidecars (`python -m hotstuff_tpu_torch.crypto.remote --multihost
+     --committee`, warmed up, on adjacent ports, one a rank) are each sent
+     the same two 976-item requests in lock step, a genuine one and one
+     with forged lanes; both must answer the same bytes, the expected
+     masks. A worker or sidecar that fails, or outlives MULTIHOST_TIMEOUT_S,
+     fails the phase; every process it started is killed;
   6. the crypto sidecar under full-width load: `remote.start` with the
      reference's defaults (max_batch 8,192, urgent_below 256) on an event
      loop in a thread of this process, around a fresh
@@ -1667,6 +1689,7 @@ def check_default_routing(card, M, K, S, expected, ok_lanes) -> dict:
 MESH_ATTEMPTS = 3  # in turns with the single-device backend; medians
 MESH_ITERS = 3  # batches per attempt, leg and path
 COMMITTEE_KERNELS = ("h_digits_idx", "committee_ladder", "compress_eq")
+UNPACKED_KERNELS = ("decompress_table", "ladder", "compress_eq")  # packed=False, kernel "w4": K3, K1, K4
 
 
 def meshes(device: str = "cuda") -> dict:
@@ -1950,6 +1973,260 @@ def phase_mesh(batch, committee_path: dict, main_launches: dict, kernels: dict, 
             _kill([cli])
         single.close()
     return dict(meshes=results, qc_launches=qlaunches)
+
+
+# --- phase 5c: the multi-process mesh -----------------------------------------
+
+MULTIHOST_SHARDS = 2  # each rank's virtual shards on cuda:0: a 2 x 2 global mesh
+MULTIHOST_UNPACKED = 4096  # lanes of the packed=False batch (one f32 piece)
+MULTIHOST_ITERS = 3  # timed generic batches a rank, and of the one-process backend
+MULTIHOST_TIMEOUT_S = 180  # the workers' and the sidecars' limit, each
+
+
+def multihost_worker(rank: int, run_dir: Path) -> int:
+    """One rank of phase 5c (`python3 chip_smoke.py --multihost-worker
+    RANK --multihost-dir DIR`, with MASTER_ADDR, MASTER_PORT and WORLD_SIZE
+    in the environment): joins the job, runs the phase's batches and writes
+    `rank<RANK>.json` in DIR. Any failure raises."""
+    import pickle
+
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+    from hotstuff_tpu_torch.ops import _build
+    from hotstuff_tpu_torch.parallel import ShardedEd25519TorchVerifier, init_multihost
+    from hotstuff_tpu_torch.parallel.mesh import LANE
+    from hotstuff_tpu_torch.utils import metrics
+
+    with open(run_dir / "inputs.pkl", "rb") as f:
+        inputs = pickle.load(f)
+    M, K, S = inputs["batch"]
+    CM, CK, CS = inputs["votes"]
+    device = inputs["device"]
+    if device == "cuda" and not _build.all_built():
+        fail("a multihost worker found the kernels unbuilt (phase 1 builds them)")
+    mesh = init_multihost(os.environ["MASTER_ADDR"] + ":" + os.environ["MASTER_PORT"], 2, rank,
+                          device="cuda:0" if device == "cuda" else device, local_shards=MULTIHOST_SHARDS)
+    if mesh.ranks != (0,) * MULTIHOST_SHARDS + (1,) * MULTIHOST_SHARDS:
+        fail(f"rank {rank}: the global mesh is {mesh}")
+    gathers, gather_s = metrics.counter("mesh.gathers"), metrics.histogram("mesh.gather_s")
+    backend = TorchBackend(mesh=mesh, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    v = backend._verifier
+    if not v._defer_readback or v.pipeline.depth != 1 or v.mesh_alignment != LANE * mesh.size:
+        fail(f"rank {rank}: the verifier is not in multi-process mode ({v.pipeline.depth}, {v.mesh_alignment})")
+    backend.register_committee(inputs["table_keys"])
+    pks, sgs = [PublicKey(k) for k in K], [Signature(s) for s in S]
+    cpks, csgs = [PublicKey(k) for k in CK], [Signature(s) for s in CS]
+    unpacked = ShardedEd25519TorchVerifier(mesh=mesh, packed=False, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    out = {"rank": rank, "mesh": repr(mesh), "masks": {}, "launches": {}, "gathers": {}}
+    n = MULTIHOST_UNPACKED
+    legs = (("generic", lambda: backend.verify_batch_mask(M, pks, sgs)),
+            ("committee", lambda: backend.verify_batch_mask(CM, cpks, csgs, committee=True)),
+            ("unpacked", lambda: unpacked.verify_batch_mask(M[:n], K[:n], S[:n])))
+    for leg, run in legs:
+        _build.reset_launches()
+        g0 = gathers.value
+        mask = np.asarray(run(), bool)
+        out["launches"][leg] = {k: n for k, n in _build.launches().items() if n}
+        out["gathers"][leg] = gathers.value - g0
+        out["masks"][leg] = np.packbits(mask).tobytes().hex()
+    if backend.stats["host_sigs"]:
+        fail(f"rank {rank}: lanes verified on the host: {backend.stats}")
+    g0, s0 = gathers.value, gather_s.summary()["sum"]
+    t0 = time.perf_counter()
+    for _ in range(MULTIHOST_ITERS):
+        backend.verify_batch_mask(M, pks, sgs)
+    wall = time.perf_counter() - t0
+    out["timed"] = {"sigs_per_s": len(M) * MULTIHOST_ITERS / wall, "gathers": gathers.value - g0,
+                    "gather_ms": (gather_s.summary()["sum"] - s0) * 1e3 / max(1, gathers.value - g0)}
+    unpacked.close()
+    backend.close()
+    if {"jax", "hotstuff_tpu"} & set(sys.modules):
+        fail(f"rank {rank} imported JAX or the JAX package")
+    (run_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _wait_all(procs: list, logs: list[Path], what: str) -> None:
+    """Until every process exits; fails when one exits non-zero or the
+    phase's limit passes (every process is killed first)."""
+    deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+    try:
+        for proc, log in zip(procs, logs):
+            proc.wait(max(0.0, deadline - time.monotonic()))
+            if proc.returncode != 0:
+                fail(f"{what} exited with rc {proc.returncode}; see {log}:\n{log.read_text()[-3000:]}")
+    except subprocess.TimeoutExpired:
+        fail(f"{what} outlived {MULTIHOST_TIMEOUT_S} s (a collective out of step?); see {[str(p) for p in logs]}")
+    finally:
+        _kill([p for p in procs if p.poll() is None])
+
+
+def multihost_errors(res: dict, expected: dict, chunks: dict) -> list[str]:
+    """What in one rank's result is not the phase's: a mask that is not the
+    one-process backend's, a leg that launched a kernel off its path or its
+    path's kernels other than chunks x the rank's shards, or a batch that did
+    not end in exactly one gather."""
+    import numpy as np
+
+    bad = []
+    kernels = {"generic": GENERIC_KERNELS, "committee": COMMITTEE_KERNELS, "unpacked": UNPACKED_KERNELS}
+    for leg, want in expected.items():
+        mask = np.unpackbits(np.frombuffer(bytes.fromhex(res["masks"][leg]), np.uint8))[: len(want)].astype(bool)
+        if mask.tolist() != np.asarray(want, bool).tolist():
+            bad.append(f"{leg}: mask differs on {int((mask != np.asarray(want, bool)).sum())} lanes")
+        launches = {k: n for k, n in res["launches"][leg].items() if n}
+        if chunks[leg] is not None and launches != dict.fromkeys(kernels[leg], chunks[leg] * MULTIHOST_SHARDS):
+            bad.append(f"{leg}: launches {launches}, not {chunks[leg]} x {MULTIHOST_SHARDS} of {kernels[leg]}")
+        if res["gathers"][leg] != 1:
+            bad.append(f"{leg}: {res['gathers'][leg]} gathers")
+    if res["timed"]["gathers"] != MULTIHOST_ITERS:
+        bad.append(f"timed: {res['timed']['gathers']} gathers for {MULTIHOST_ITERS} batches")
+    return [f"rank {res['rank']}: {b}" for b in bad]
+
+
+def _lock_step(clients: list, args: tuple) -> list:
+    """The same request to every client at once (each sidecar's answer
+    waits in a gather for the others); their answers."""
+    import threading
+
+    answers: list = [None] * len(clients)
+
+    def ask(i: int) -> None:
+        answers[i] = clients[i].verify_batch_mask(*args)
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(clients))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(MULTIHOST_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        fail("a multihost sidecar never answered")
+    return answers
+
+
+def phase_multihost(batch, committee_path: dict, card: str, device: str = "cuda") -> dict:
+    """Phase 5c (see the module docstring). Returns each rank's launches of
+    each kernel, over the three legs. On the CPU (a rehearsal) nothing
+    launches, so the launch counts are not held, and the sidecars run the
+    plain versions without a warm-up."""
+    import pickle
+
+    from hotstuff_tpu_torch.crypto.primitives import PublicKey, Signature
+    from hotstuff_tpu_torch.crypto.remote import RemoteBackend
+    from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
+
+    M, K, S, expected = batch
+    CM, CK, CS, cexpected = committee_path["votes"]
+    table_keys = committee_path["table_keys"]
+    run_dir = REPO / ".chip_smoke" / "multihost"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    with open(run_dir / "inputs.pkl", "wb") as f:
+        pickle.dump({"batch": (M, K, S), "votes": (CM, CK, CS), "table_keys": table_keys, "device": device}, f)
+
+    single = TorchBackend(device=device, crossover=1, max_bucket=MAX_BUCKET, chunk=CHUNK)
+    pks, sgs = [PublicKey(k) for k in K], [Signature(s) for s in S]
+    try:
+        if single.verify_batch_mask(M, pks, sgs) != expected.tolist():
+            fail("the one-process backend's mask differs from phase 3's")
+        t0 = time.perf_counter()
+        for _ in range(MULTIHOST_ITERS):
+            single.verify_batch_mask(M, pks, sgs)
+        single_rate = len(M) * MULTIHOST_ITERS / (time.perf_counter() - t0)
+    finally:
+        single.close()
+
+    coordinator = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_ports(1)[0]), "WORLD_SIZE": "2"}
+    logs = [run_dir / f"rank{r}.log" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [_spawn([sys.executable, str(REPO / "chip_smoke.py"), "--multihost-worker", str(r),
+                     "--multihost-dir", str(run_dir)], logs[r], REPO, env=coordinator) for r in range(2)]
+    _wait_all(procs, logs, "a multihost worker")
+    worker_s = time.perf_counter() - t0
+    results = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    on_card = device == "cuda"
+    chunks = {"generic": -(-len(M) // CHUNK), "committee": -(-len(CM) // CHUNK), "unpacked": 1}
+    if not on_card:
+        chunks = dict.fromkeys(chunks)
+    want = {"generic": expected, "committee": cexpected, "unpacked": expected[:MULTIHOST_UNPACKED]}
+    bad = [e for res in results for e in multihost_errors(res, want, chunks)]
+    if bad:
+        fail(f"multihost: {bad}")
+    launches = {}
+    for res in results:
+        total = launches[f"rank {res['rank']}"] = {}
+        for leg in res["launches"].values():
+            for k, n in leg.items():
+                total[k] = total.get(k, 0) + n
+        print(f"multihost rank {res['rank']} ({res['mesh']}): generic, committee and packed=False masks == the "
+              f"one-process backend's lane for lane; launches {json.dumps(res['launches'])} (chunks x "
+              f"{MULTIHOST_SHARDS} own shards); one gather a batch", flush=True)
+    rates = [res["timed"]["sigs_per_s"] for res in results]
+    print(f"multihost timing ({card}): gather ms a batch {[round(r['timed']['gather_ms'], 3) for r in results]}; "
+          f"{len(M)}-signature batches x {MULTIHOST_ITERS}: two processes {[round(x, 1) for x in rates]} sigs/s "
+          f"against the one-process backend's {single_rate:.1f} sigs/s (two processes sharing one card: the cost "
+          f"of the split, not a scaling figure); workers {worker_s:.1f} s from spawn to exit", flush=True)
+
+    names = [base64.standard_b64encode(k).decode() for k in table_keys]
+    committee_file, _ = write_node_configs(run_dir, names, list(range(9000, 9000 + 3 * len(names))))
+    ports = free_adjacent_ports(2)
+    coordinator["MASTER_PORT"] = str(_free_ports(1)[0])
+    logs = [run_dir / f"sidecar{r}.log" for r in range(2)]
+    t0 = time.perf_counter()
+    cpu_flags = [] if on_card else ["--device", "cpu", "--no-warmup"]
+    procs = [_spawn([sys.executable, "-m", "hotstuff_tpu_torch.crypto.remote", "-vv", "--port", str(ports[r]),
+                     "--multihost", "--committee", str(committee_file), *cpu_flags], logs[r], run_dir,
+                    env={**coordinator, "RANK": str(r)}) for r in range(2)]
+    try:
+        _await_logs(list(zip(logs, procs)), "successfully booted", "the multihost sidecars")
+        boot_s = time.perf_counter() - t0
+        clients = [RemoteBackend(("127.0.0.1", p), crossover=1) for p in ports]
+        request = min(SIDECAR_REQUEST, len(M) // 2)
+        genuine = [i for i in range(len(M)) if expected[i]][:request]
+        forged = list(range(len(M) - request, len(M)))
+        if expected[forged].all():
+            fail("the forged request has no forged lane")
+        for lanes in (genuine, forged):
+            args = ([M[i] for i in lanes], [PublicKey(K[i]) for i in lanes], [Signature(S[i]) for i in lanes])
+            answers = _lock_step(clients, args)
+            if not answers[0] == answers[1] == expected[lanes].tolist():
+                fail(f"the multihost sidecars answered {[a == expected[lanes].tolist() for a in answers]} "
+                     f"(equal to the expected mask)")
+        for c in clients:
+            c.close()
+            if c.stats["remote_sigs"] != 2 * request:
+                fail(f"a multihost sidecar's client verified lanes itself: {c.stats}")
+        for log in logs:
+            text = log.read_text()
+            if f"registered {len(set(table_keys))}-key committee" not in text or "ranks [0, 1]" not in text:
+                fail(f"a multihost sidecar did not join the job or register the committee; see {log}")
+    finally:
+        _kill(procs)
+    print(f"multihost sidecars --multihost --committee on ports {ports}: booted (warm-up and registration "
+          f"included) in {boot_s:.1f} s; each sent the same two {request}-item requests (genuine, "
+          f"{int((~expected[forged]).sum())} forged lanes) in lock step; both answered the same bytes, the "
+          f"expected masks", flush=True)
+    return dict(launches=launches, single_rate=single_rate, rates=rates, boot_s=boot_s)
+
+
+def free_adjacent_ports(n: int) -> list[int]:
+    """n consecutive ports that are free now."""
+    while True:
+        base = _free_ports(1)[0]
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return list(range(base, base + n))
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
 
 
 # --- phases 6 and 7: the crypto sidecar --------------------------------------
@@ -4915,6 +5192,8 @@ class Laps:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--multihost-worker", type=int, default=None, metavar="RANK", help=argparse.SUPPRESS)
+    ap.add_argument("--multihost-dir", type=Path, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tracing-ab", action="store_true",
                     help="build the kernels, then run only phase 13 under each of TRACING_MODES in turns "
                     "(off, on, dump, dump, on, off) and print each run's tx/s and blocks a second")
@@ -4922,6 +5201,9 @@ def main() -> int:
 
     import torch
 
+    if args.multihost_worker is not None:  # phase 5c's rank: the phase checked the card and the package
+        sys.path.insert(0, str(REPO))
+        return multihost_worker(args.multihost_worker, args.multihost_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4952,6 +5234,8 @@ def main() -> int:
     laps.lap("5 committee path and compare")
     mesh = phase_mesh(main_path["batch"], committee_path, main_path["launches"], kernels, committee_kernels, card)
     laps.lap("mesh")
+    multihost = phase_multihost(main_path["batch"], committee_path, card)
+    laps.lap("5c multihost")
 
     from hotstuff_tpu_torch.crypto.torch_backend import TorchBackend
     from hotstuff_tpu_torch.ops import _build
@@ -5026,6 +5310,7 @@ def main() -> int:
     laps.lap("16 port deploy")
     node_launches = lambda name: {node: d.get(name, 0) for node, d in port_committee["launches"].items()}  # noqa: E731
     ingress_launches = lambda name: {node: d.get(name, 0) for node, d in port_ingress["launches"].items()}  # noqa: E731
+    multihost_launches = lambda name: {rank: d.get(name, 0) for rank, d in multihost["launches"].items()}  # noqa: E731
 
     rows = []
     for results, path in ((kernels, main_path), (committee_kernels, committee_path)):
@@ -5039,6 +5324,7 @@ def main() -> int:
                 mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                                for label, m in mesh["meshes"].items()},
                 node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
+                multihost_launches=multihost_launches(name),
                 deploy_launches=port_deploy["launches"].get(name, 0),
                 matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
                 ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
@@ -5056,6 +5342,7 @@ def main() -> int:
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
             node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
+            multihost_launches=multihost_launches(name),
             deploy_launches=port_deploy["launches"].get(name, 0),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
@@ -5069,6 +5356,7 @@ def main() -> int:
         bench_launches={label: n["bit_ladder"] for label, n in bench_launches.items()},
         mesh_launches=f32["mesh_launches"],  # phase 9's ShardedEd25519TorchVerifier(packed=False) runs
         node_launches=node_launches("bit_ladder"), ingress_node_launches=ingress_launches("bit_ladder"),
+        multihost_launches=multihost_launches("bit_ladder"),
         deploy_launches=port_deploy["launches"].get("bit_ladder", 0),
         matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
@@ -5086,6 +5374,7 @@ def main() -> int:
             mesh_launches={label: m["launches"][name] + m["committee_launches"][name]
                            for label, m in mesh["meshes"].items()},
             node_launches=node_launches(name), ingress_node_launches=ingress_launches(name),
+            multihost_launches=multihost_launches(name),
             deploy_launches=port_deploy["launches"].get(name, 0),
             matches_plain=res["max_abs_err"] == 0, max_abs_err=res["max_abs_err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],

@@ -26,11 +26,31 @@ accepts connections (the benchmark harness waits for "successfully
 booted"). `--sharded` splits every batch over every visible GPU
 (`parallel/mesh.py`), the counterpart of the reference node's
 `--crypto-sharded`; with `--committee` each GPU then holds a replica of the
-committee's tables. The reference's `--multihost` is not ported, nor its
-`--max-delay`, which bound only the reference service's single-queue
-flush loop: the port's scheduler sets every flush deadline per source
-class. The wire carries the urgent bit alone, so requests take the
-consensus lane (under `urgent_below` items) or the mempool lane.
+committee's tables. The reference's `--max-delay` is not ported: it bound
+only the reference service's single-queue flush loop, and the port's
+scheduler sets every flush deadline per source class. The wire carries the
+urgent bit alone, so requests take the consensus lane (under
+`urgent_below` items) or the mempool lane.
+
+`--multihost` (the reference's `:340-345`, `:378-387`) joins a job of
+several sidecar processes (`parallel.init_multihost`; the job's address,
+size and this process's rank from `MASTER_ADDR`, `MASTER_PORT`,
+`WORLD_SIZE` and `RANK`) and serves a backend over the job's global mesh:
+every batch is split over every process's devices (its visible GPUs; one
+CPU shard with `--device cpu`, which runs the plain versions), and with
+`--committee` each process registers one table replica per device of its
+own. The job is SPMD, as the reference's: every sidecar of it must be sent
+the same requests in the same order, one at a time, since each batch's
+masks are gathered from every process; a sidecar sent a request the others
+were not waits in that gather forever. Start one sidecar a rank:
+
+    MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 WORLD_SIZE=2 RANK=0 \
+        python -m hotstuff_tpu_torch.crypto.remote --port 9700 --multihost
+    MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 WORLD_SIZE=2 RANK=1 \
+        python -m hotstuff_tpu_torch.crypto.remote --port 9701 --multihost
+
+`--sharded` splits over this process's GPUs alone and is refused beside
+`--multihost`.
 
 On a normal exit (the server's end or an interrupt) the dispatch pipelines'
 worker threads are drained by `ops.pipeline.close_all`, which that module
@@ -355,14 +375,25 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--sharded", action="store_true",
                    help="split every batch over every visible GPU (needs --device cuda); "
                    "--committee then registers one table replica per GPU")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a job of several sidecars (parallel.init_multihost: MASTER_ADDR, MASTER_PORT, "
+                   "WORLD_SIZE, RANK from the environment) and split every batch over every process's "
+                   "devices; every sidecar of the job must be sent the same requests in the same order")
     p.add_argument("--no-warmup", action="store_true", help="skip the bucket warmup")
     args = p.parse_args(argv)
     if args.chunk is not None and args.chunk <= 0:
         p.error("--chunk must be positive")
     if args.sharded and args.device != "cuda":
         p.error("--sharded needs --device cuda")
+    if args.multihost and args.sharded:
+        p.error("--multihost splits over every process's devices; it cannot be given with --sharded")
     setup_logging(args.verbose)
-    placement = dict(sharded=True) if args.sharded else dict(device=args.device)
+    if args.multihost:
+        from ..parallel.mesh import init_multihost
+
+        placement = dict(mesh=init_multihost(device=None if args.device == "cuda" else args.device))
+    else:
+        placement = dict(sharded=True) if args.sharded else dict(device=args.device)
     backend = make_backend("torch", min_bucket=args.min_bucket, chunk=args.chunk, **placement)
     if not args.no_warmup:
         warmup_backend(backend)

@@ -56,6 +56,12 @@ when asked for.
 the devices of a `parallel.DeviceMesh` (`tpu_backend.py:74-86`): the
 verifier is then `ShardedEd25519TorchVerifier`, buckets are multiples of its
 `mesh_alignment`, and a registered committee has a table replica per device.
+The mesh may span processes (`mesh=parallel.init_multihost()`, as the
+reference's `make_backend("tpu", mesh=init_multihost())`): then every
+process must call the backend with the same batches in the same order
+(SPMD), since each batch that reaches the card ends in a gather across the
+processes; the routing (crossovers, committee resolution) depends on the
+batch alone, so every process routes a batch alike.
 """
 
 from __future__ import annotations

@@ -83,9 +83,18 @@ K1 on digits or K7 `bit_ladder` on bits, then K4), read back and ANDed with
 s < L. There is no device hash on this path.
 
 The mesh verifier (`parallel/mesh.py`) splits each chunk over the devices
-of a mesh through the hooks here (`shard_devices`, `_build_committee_table`);
-the reference's deferred readback (`_defer_readback`, the multi-process
-mesh) is not ported.
+of a mesh through the hooks here (`shard_devices`, `local_shards`,
+`_build_committee_table`, `_verify_args`, `_materialize`).
+
+Deferred readback (`_defer_readback`, the reference's `:908-918`, `:1250-
+1270`; on by itself on a mesh over several processes): each chunk's
+readback returns the lanes of this process's shards, un-ANDed, and once
+the pipeline's run has returned, on the calling thread, ONE
+`_materialize_deferred` call turns every chunk's lanes into whole masks
+(one gather a batch on a multi-process mesh; here the lanes are already
+whole), which are then ANDed with s < L. The generic path, the committee
+path and `packed=False` all take it. On one process it gives the same
+masks, bit for bit, as the streamed readback.
 """
 
 from __future__ import annotations
@@ -175,11 +184,14 @@ class Ed25519TorchVerifier:
         # The owned dispatch pipeline; its worker threads start on the first
         # run at depth > 1, and close() (or GC, or atexit) reaps them.
         self.pipeline = DispatchPipeline(depth=pipeline_depth, name="ed25519-torch", pin=on_card)
-        # Two streams per shard; chunk k runs on stream k % 2 of each.
+        # Two streams per local shard; chunk k runs on stream k % 2 of each.
         self._streams = (
-            [(torch.cuda.Stream(d), torch.cuda.Stream(d)) for d in self.shard_devices] if on_card else None
+            [(torch.cuda.Stream(self.shard_devices[s]), torch.cuda.Stream(self.shard_devices[s]))
+             for s in self.local_shards] if on_card else None
         )
         self._committee: ed.CommitteeTable | None = None
+        # One gather a batch instead of a mask per chunk (module docstring).
+        self._defer_readback = False
         self._device_hash_ok = True
         self.device_hash_fallbacks = 0  # batches redone with host hashing (CPU only)
         # Callers on several threads (the sidecar's dispatches) share one
@@ -191,6 +203,13 @@ class Ed25519TorchVerifier:
         """The device of each shard a chunk is split over, in lane order:
         this verifier's one device (the mesh verifier: its mesh's devices)."""
         return (self.device,)
+
+    @property
+    def local_shards(self) -> tuple[int, ...]:
+        """The shards this process uploads, launches and reads back, as
+        indices into `shard_devices`: every one (the mesh verifier on a mesh
+        over several processes: this process's entries)."""
+        return tuple(range(len(self.shard_devices)))
 
     def close(self) -> None:
         """Drain the owned pipeline's worker threads. Safe to call more than
@@ -284,9 +303,15 @@ class Ed25519TorchVerifier:
         n = len(messages)
         if not self.packed:
             out = np.empty(n, bool)
-            for lo in range(0, n, self.max_bucket):
-                hi = min(lo + self.max_bucket, n)
-                out[lo:hi] = self._run_chunk(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
+            spans = [(lo, min(lo + self.max_bucket, n)) for lo in range(0, n, self.max_bucket)]
+            if not self._defer_readback:
+                for lo, hi in spans:
+                    out[lo:hi] = self._run_chunk(messages[lo:hi], keys[lo:hi], signatures[lo:hi])
+                return out
+            pieces = [self._verify_piece(messages[lo:hi], keys[lo:hi], signatures[lo:hi]) for lo, hi in spans]
+            masks = self._materialize_deferred([p for p, _, _ in pieces], [w for _, _, w in pieces])
+            for (lo, hi), (_, s_ok, _), mask in zip(spans, pieces, masks):
+                out[lo:hi] = mask[: hi - lo] & s_ok
             return out
 
         def run(device_hash: bool) -> np.ndarray:
@@ -309,12 +334,20 @@ class Ed25519TorchVerifier:
     def _run_chunk(self, messages, keys, signatures) -> np.ndarray:
         """One piece of at most `max_bucket` lanes on the f32-argument path
         (the reference's `_run_chunk`, :1273-1297), serially on the caller's
-        thread: stage (`ed.prepare_batch`, bits for `kernel="bits"`), pad to
-        the bucket, upload and verify (`_verify_args`) on the verifier's
-        own streams, read the mask back, AND it with s < L. Counts one
-        chunk, one table build and n decompressions, and records the
-        timeline's stage, dispatch and readback spans (no upload span: the
-        upload is part of the dispatch, as in the reference)."""
+        thread: `_verify_piece`, then its lanes made whole (`_materialize`)
+        and ANDed with s < L."""
+        local, s_ok, width = self._verify_piece(messages, keys, signatures)
+        return self._materialize([local], [width])[0][: len(messages)] & s_ok
+
+    def _verify_piece(self, messages, keys, signatures) -> tuple[np.ndarray, np.ndarray, int]:
+        """Stage one f32-path piece (`ed.prepare_batch`, bits for
+        `kernel="bits"`), pad it to its bucket, upload and verify it
+        (`_verify_args`) on the verifier's own streams and read this
+        process's lanes of the mask back. Returns (those lanes, the piece's
+        s < L mask, the bucket width). Counts one chunk, one table build and
+        n decompressions, and records the timeline's stage, dispatch and
+        readback spans (no upload span: the upload is part of the dispatch,
+        as in the reference)."""
         n = len(messages)
         _M_CHUNKS.inc()
         _M_TABLE_BUILDS.inc()
@@ -330,12 +363,13 @@ class Ed25519TorchVerifier:
                 mask = self._verify_args(ed.kernel_args(staged, width, self.kernel))
             with metrics.span(_M_READBACK), timeline.span_for("readback", tlkey):
                 host = mask.cpu().numpy()
-        return host[:n] & staged["s_ok"]
+        return host, staged["s_ok"], width
 
     def _verify_args(self, args: tuple) -> torch.Tensor:
         """Upload the padded f32-form arrays to this verifier's device and
         run `ladder.verify_args`; the (W,) device mask (the mesh verifier
-        splits the lanes over its mesh, `parallel/mesh.py`)."""
+        splits the lanes over its mesh, `parallel/mesh.py`, and returns its
+        own shards' lanes, in mesh order)."""
         tensors = [torch.from_numpy(a).to(self.device) for a in args]
         return ladder.verify_args(*tensors, kernel=self.kernel)
 
@@ -345,9 +379,35 @@ class Ed25519TorchVerifier:
         on a default stream. Nothing on the CPU."""
         stack = contextlib.ExitStack()
         if self._streams:
-            for pair in dict(zip(self.shard_devices, self._streams)).values():
+            local = [self.shard_devices[s] for s in self.local_shards]
+            for pair in dict(zip(local, self._streams)).values():
                 stack.enter_context(torch.cuda.stream(pair[0]))
         return stack
+
+    # -- deferred readback ---------------------------------------------------
+
+    def _local_lanes(self, mask_buf: np.ndarray) -> np.ndarray:
+        """A fresh copy of this process's shards' lanes of a chunk's pooled
+        (W,) mask buffer, in mesh order (every lane on one process)."""
+        shards, local = len(self.shard_devices), self.local_shards
+        if len(local) == shards:
+            return mask_buf.copy()
+        w = mask_buf.shape[0] // shards
+        return np.concatenate([mask_buf[s * w : (s + 1) * w] for s in local])
+
+    def _materialize(self, pieces: list[np.ndarray], widths: list[int]) -> list[np.ndarray]:
+        """Each chunk's lanes of this process (`pieces`, at bucket widths
+        `widths`) -> each chunk's whole (W,) mask. On one process the lanes
+        are whole already; the mesh verifier gathers them from every process
+        of its mesh, once for all the chunks given."""
+        return pieces
+
+    def _materialize_deferred(self, pieces: list[np.ndarray], widths: list[int]) -> list[np.ndarray]:
+        """The deferred readback's tail (the reference's `:1254-1270`): ONE
+        `_materialize` over every chunk of the batch, on the calling thread,
+        after the pipeline's run has returned."""
+        with metrics.span(_M_READBACK):
+            return self._materialize(pieces, widths)
 
     # -- the chunk loop both paths share ------------------------------------
 
@@ -407,6 +467,7 @@ class Ed25519TorchVerifier:
         tl_batch = timeline.TIMELINE.next_batch() if tl_on else 0
         streams = self._streams
         shards = len(self.shard_devices)
+        defer = self._defer_readback
 
         def make_task(ci: int, lo: int, hi: int) -> ChunkTask:
             tlkey = (tl_batch, ci, hi - lo) if tl_on else None
@@ -430,7 +491,7 @@ class Ed25519TorchVerifier:
 
             def submit(payload):
                 bufs, mask_buf, s_ok = payload
-                chunk_streams = [pair[ci % 2] for pair in streams] if streams else [None] * shards
+                chunk_streams = [pair[ci % 2] for pair in streams] if streams else [None] * len(self.local_shards)
                 return dispatch(bufs, mask_buf, chunk_streams, tlkey), mask_buf, s_ok
 
             def readback(handle):
@@ -438,33 +499,41 @@ class Ed25519TorchVerifier:
                 with metrics.span(_M_READBACK):
                     for event in events:
                         event.synchronize()
-                    # A fresh array: mask_buf goes back to the pool next.
+                    # Fresh arrays: mask_buf goes back to the pool next.
+                    if defer:
+                        return self._local_lanes(mask_buf), s_ok
                     return mask_buf[: hi - lo] & s_ok
 
             return ChunkTask(stage=stage_chunk, submit=submit, readback=readback, tlkey=tlkey, release=release)
 
-        tasks = [make_task(ci, lo, min(lo + self.chunk, n)) for ci, lo in enumerate(range(0, n, self.chunk))]
-        return np.concatenate(self.pipeline.run(tasks))
+        spans = [(lo, min(lo + self.chunk, n)) for lo in range(0, n, self.chunk)]
+        results = self.pipeline.run([make_task(ci, lo, hi) for ci, (lo, hi) in enumerate(spans)])
+        if not defer:
+            return np.concatenate(results)
+        masks = self._materialize_deferred([p for p, _ in results], [self._bucket(hi - lo) for lo, hi in spans])
+        return np.concatenate([m[: hi - lo] & ok for (lo, hi), (_, ok), m in zip(spans, results, masks)])
 
     def _upload_dispatch(self, verify, bufs, mask_buf, streams, tlkey):
         """Upload-worker leg of a chunk (the seam of the reference's
-        `_upload_dispatch`): upload each shard's block of the pooled
+        `_upload_dispatch`): upload each local shard's block of the pooled
         shard-major wire buffers to its device, launch `verify(device,
         *tensors)` there and queue the shard's mask's copy into its slice of
-        the pooled `mask_buf`, all on the shard's stream (None on the CPU).
-        Every shard's upload is issued before any shard's kernels. Returns
-        the events recorded after each shard's copy: none on the CPU, where
-        everything has run by the time this returns."""
-        devices = self.shard_devices
-        width = mask_buf.shape[0] // len(devices)
+        the pooled `mask_buf`, all on the shard's stream (None on the CPU;
+        `streams` follows `local_shards`). Every shard's upload is issued
+        before any shard's kernels. Returns the events recorded after each
+        shard's copy: none on the CPU, where everything has run by the time
+        this returns."""
+        local = self.local_shards
+        devices = [self.shard_devices[s] for s in local]
+        width = mask_buf.shape[0] // len(self.shard_devices)
         with metrics.span(_M_UPLOAD), timeline.span_for("upload", tlkey):
             uploads = []
-            for s, (dev, stream) in enumerate(zip(devices, streams)):
+            for s, dev, stream in zip(local, devices, streams):
                 with _on(stream):
                     uploads.append([torch.from_numpy(b[s]).to(dev, non_blocking=True) for b in bufs])
         with metrics.span(_M_DISPATCH), timeline.span_for("dispatch", tlkey):
             events = []
-            for s, (dev, stream, tensors) in enumerate(zip(devices, streams, uploads)):
+            for s, dev, stream, tensors in zip(local, devices, streams, uploads):
                 with _on(stream):
                     mask = verify(dev, *tensors)
                     torch.from_numpy(mask_buf[s * width : (s + 1) * width]).copy_(mask, non_blocking=True)

@@ -1,13 +1,16 @@
 """Device-mesh parallelism for the port's crypto plane: batches split over a
 mesh of devices, committee tables replicated per device, per-QC quorum
-counts, the f32-argument form (`sharded_verify`)
-(`hotstuff_tpu/parallel/__init__.py`, without `init_multihost`, which is not
-ported)."""
+counts, the f32-argument form (`sharded_verify`), and meshes that span
+processes (`init_multihost`, with their gloo collectives, `HostCollectives`)
+(`hotstuff_tpu/parallel/__init__.py`)."""
 
 from .mesh import (
     DeviceMesh,
+    HostCollectives,
     ShardedEd25519TorchVerifier,
     default_mesh,
+    gather_chunks,
+    init_multihost,
     mesh_2d,
     replicate,
     sharded_committee,
@@ -18,8 +21,11 @@ from .mesh import (
 
 __all__ = [
     "DeviceMesh",
+    "HostCollectives",
     "ShardedEd25519TorchVerifier",
     "default_mesh",
+    "gather_chunks",
+    "init_multihost",
     "mesh_2d",
     "replicate",
     "sharded_committee",

@@ -338,6 +338,60 @@ def test_mesh_phase_meshes_and_launch_check():
         "ladder: 4 != 2 x 4", "committee_ladder: 1 launches off the path"]
 
 
+def _multihost_result(masks: dict, launches: dict, gathers: dict, timed_gathers: int = 3) -> dict:
+    import numpy as np
+
+    return {"rank": 1, "masks": {leg: np.packbits(np.asarray(m, bool)).tobytes().hex() for leg, m in masks.items()},
+            "launches": launches, "gathers": gathers, "timed": {"gathers": timed_gathers}}
+
+
+def test_multihost_errors_gate_each_rank():
+    """Phase 5c's check of one rank: masks equal to the one-process
+    backend's lane for lane, each path's kernels at chunks x the rank's 2
+    shards and nothing else, exactly one gather a batch and one a timed
+    batch; on the CPU (chunks None) the launches are not held."""
+    import numpy as np
+
+    want = {"generic": np.array([True, False, True] * 5), "committee": np.array([False, True] * 4),
+            "unpacked": np.array([True, True, False])}
+    chunks = {"generic": 4, "committee": 4, "unpacked": 1}
+    launches = {"generic": dict.fromkeys(chip_smoke.GENERIC_KERNELS, 8),
+                "committee": dict.fromkeys(chip_smoke.COMMITTEE_KERNELS, 8),
+                "unpacked": dict.fromkeys(chip_smoke.UNPACKED_KERNELS, 2)}
+    ones = dict.fromkeys(want, 1)
+    assert chip_smoke.multihost_errors(_multihost_result(want, launches, ones), want, chunks) == []
+    flipped = dict(want, committee=~want["committee"])
+    off_path = dict(launches, unpacked={**launches["unpacked"], "h_digits": 2})
+    res = _multihost_result(flipped, off_path, dict(ones, generic=2), timed_gathers=1)
+    assert chip_smoke.multihost_errors(res, want, chunks) == [
+        "rank 1: generic: 2 gathers",
+        "rank 1: committee: mask differs on 8 lanes",
+        f"rank 1: unpacked: launches {off_path['unpacked']}, not 1 x 2 of {chip_smoke.UNPACKED_KERNELS}",
+        "rank 1: timed: 1 gathers for 3 batches"]
+    cpu = _multihost_result(want, dict.fromkeys(want, {}), ones)
+    assert chip_smoke.multihost_errors(cpu, want, dict.fromkeys(chunks)) == []
+
+
+def test_multihost_launches_ride_every_row_of_the_kernels_line():
+    """Each row of the kernels line carries `multihost_launches`, each
+    rank's launches in phase 5c, which runs after phase 5b."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert src.count("multihost_launches=multihost_launches(") == src.count("ingress_node_launches=")
+    assert src.index("phase_mesh(") < src.index("phase_multihost(") < src.index("phase_sidecar(")
+
+
+def test_free_adjacent_ports_bind():
+    import socket
+
+    ports = chip_smoke.free_adjacent_ports(2)
+    assert ports[1] == ports[0] + 1
+    for p in ports:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", p))
+
+
 def test_mesh_phase_qc_wire_pads_each_qc_to_the_dp_axis():
     """`qc_wire`: QC-major (Q, 128, B) wire lanes equal to the staged votes,
     each QC padded to a multiple of the "dp" size with lanes whose s < L bit
@@ -1061,7 +1115,8 @@ def test_laps_split_the_run_by_phase(monkeypatch):
     assert laps.seconds == {"1 build": 2.5, "2 compare": 0.0, "3 main path": 7.5}
     src = inspect.getsource(chip_smoke.main)
     labels = re.findall(r'laps\.lap\("([^"]+)"\)', src)
-    assert labels[0] == "1 build" and labels[-1] == "16 port deploy" and len(labels) == len(set(labels)) == 16
+    assert labels[0] == "1 build" and labels[-1] == "16 port deploy" and len(labels) == len(set(labels)) == 17
+    assert labels.index("mesh") + 1 == labels.index("5c multihost")
     assert src.index("phase seconds:") < src.index('json.dumps({"kernels": rows})')
 
 

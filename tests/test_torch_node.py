@@ -24,9 +24,11 @@
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import os
 import random
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -84,6 +86,41 @@ PLAIN = {
     "committee_ladder": (ops_committee, "committee_ladder_plain"),
     "compress_eq": (ops_ed25519, "compress_eq_plain"),
 }
+
+
+# This file's committees listen on ports that no other test and no outgoing
+# connection can hold: below Linux's ephemeral range (32,768 and up), where
+# a connect() of any process on the host may take a node's port as its
+# source port, and below the 11,000 and up of tests/conftest.py's
+# `base_port`, whose blocks (keyed by pid % 500) overlap between xdist
+# workers. Each worker has its own range, and a block is handed out only
+# when every port of it binds (the receivers bind 0.0.0.0 with
+# SO_REUSEADDR, as the probe does).
+PORTS_FROM, WORKER_PORTS, BLOCK_PORTS = 4_000, 500, 20
+_blocks = itertools.count()
+
+
+def _binds(port: int) -> bool:
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("0.0.0.0", port))
+        except OSError:
+            return False
+    return True
+
+
+@pytest.fixture
+def base_port():
+    """The first of BLOCK_PORTS free ports in this worker's range (this
+    file's own `base_port`, in place of tests/conftest.py's)."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    lo = PORTS_FROM + int(worker.removeprefix("gw") or 0) % 6 * WORKER_PORTS
+    for _ in range(WORKER_PORTS // BLOCK_PORTS):
+        base = lo + next(_blocks) % (WORKER_PORTS // BLOCK_PORTS) * BLOCK_PORTS
+        if all(_binds(p) for p in range(base, base + BLOCK_PORTS)):
+            return base
+    raise RuntimeError(f"no block of {BLOCK_PORTS} free ports in [{lo}, {lo + WORKER_PORTS})")
 
 
 def _keys(n: int, seed: int):
