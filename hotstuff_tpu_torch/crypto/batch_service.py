@@ -56,6 +56,18 @@ With tracing on, each flush that reaches the backend feeds the anomaly
 watchdog one sample of its per-signature cost
 (`tracing.WATCHDOG.note_verify`), as the reference's does.
 
+The service times its own host work into the metrics registry, each a
+`metrics.span` (so a `record_function` range while a torch profiler
+records): `service.submit_s` (`verify_group`'s copies and admission, on
+the loop), `service.assemble_s` (a dispatch from its entry to the backend
+call: the flush's lists, the dedup scan, the miss subset, the committee
+tag) and `service.resolve_s` (from the loop's resumption after the call to
+the last future set). A backend call on a worker thread also records its
+hand-off, (worker start - hand-off) + (loop resumption - worker end), into
+`service.handoff_critical_s` or `service.handoff_bulk_s` by its class;
+an inline call records none. With tracing on, the service also starts the
+process's collector watch (`metrics.watch_collector`).
+
 Not ported: a cache size other than the reference's default (65,536
 triples).
 """
@@ -82,6 +94,14 @@ _M_DEDUP_HITS = metrics.counter("verifier.dedup_hits")
 _M_DEDUP_MISSES = metrics.counter("verifier.dedup_misses")
 _M_DEDUP_INSERTS = metrics.counter("verifier.dedup_inserts")
 _M_DEDUP_EVICTIONS = metrics.counter("verifier.dedup_evictions")
+# The service's own host time around each backend call, and the hand-off to
+# and from the worker thread that runs it (one sample a threaded call, by
+# the call's class).
+_M_SUBMIT = metrics.histogram("service.submit_s")
+_M_ASSEMBLE = metrics.histogram("service.assemble_s")
+_M_RESOLVE = metrics.histogram("service.resolve_s")
+_M_HANDOFF_BULK = metrics.histogram("service.handoff_bulk_s")
+_M_HANDOFF_CRITICAL = metrics.histogram("service.handoff_critical_s")
 
 # The reference service's default, which its sidecar runs with.
 DEDUP_CACHE_SIZE = 65536
@@ -89,6 +109,14 @@ DEDUP_CACHE_SIZE = 65536
 # concurrent non-urgent dispatches (`max_delay`, `max_concurrent_dispatches`).
 LEGACY_MAX_DELAY_S = 0.002
 MAX_CONCURRENT_DISPATCHES = 4
+
+
+def _stamped(call, m, k, s, kwargs):
+    """`call(m, k, s, **kwargs)` on a worker thread -> (its result, its
+    start, its end) on `time.perf_counter`."""
+    t_start = time.perf_counter()
+    out = call(m, k, s, **kwargs)
+    return out, t_start, time.perf_counter()
 
 
 class VerifiedSigCache:
@@ -199,6 +227,8 @@ class BatchVerificationService:
             "urgent_flushes": 0,
             "verified": 0,
         }
+        if tracing.enabled():
+            metrics.watch_collector()
 
     def _ensure_task(self) -> None:
         if self._task is None or self._task.done():
@@ -236,23 +266,24 @@ class BatchVerificationService:
         flight recorder."""
         if not messages:
             return []
-        self._ensure_task()
-        cls = resolve_source(source, urgent)
-        group = _Group(
-            list(messages),
-            [pk for pk, _ in pairs],
-            [sig for _, sig in pairs],
-            cls.preemptive,
-            committee,
-            dedup,
-            trace,
-            cls.name,
-            asyncio.get_running_loop().time(),
-        )
-        if self.scheduler is not None:
-            self.scheduler.submit(group)
-        else:
-            await self._queue.put(group)
+        with metrics.span(_M_SUBMIT):
+            self._ensure_task()
+            cls = resolve_source(source, urgent)
+            group = _Group(
+                list(messages),
+                [pk for pk, _ in pairs],
+                [sig for _, sig in pairs],
+                cls.preemptive,
+                committee,
+                dedup,
+                trace,
+                cls.name,
+                asyncio.get_running_loop().time(),
+            )
+            if self.scheduler is not None:
+                self.scheduler.submit(group)
+            else:
+                self._queue.put_nowait(group)  # unbounded: never waits
         return await group.future
 
     async def verify(
@@ -341,60 +372,66 @@ class BatchVerificationService:
         return spawn(self._dispatch(groups, total, urgent, backend_idx), name="verify-dispatch")
 
     async def _dispatch(self, groups: list[_Group], total: int, urgent: bool, backend_idx: int = 0) -> None:
-        msgs = [m for g in groups for m in g.messages]
-        keys = [k for g in groups for k in g.keys]
-        sigs = [s for g in groups for s in g.signatures]
-        # backend_idx > 0 is a steal; committee routing still resolves per
-        # backend (a steal target without the committee takes the generic
-        # kernels).
-        backend = self.backend if backend_idx == 0 else self._steal_backends[backend_idx - 1]
-        # Lanes of dedup=False groups neither hit nor enter the cache; a
-        # flush with no cached group skips the scan.
-        eligible = None if all(g.dedup for g in groups) else [g.dedup for g in groups for _ in range(len(g))]
-        if any(g.dedup for g in groups):
-            mask, miss = self._lookup(msgs, keys, sigs, eligible)
-        else:
-            mask, miss = [False] * len(msgs), range(len(msgs))
+        with metrics.span(_M_ASSEMBLE):
+            msgs = [m for g in groups for m in g.messages]
+            keys = [k for g in groups for k in g.keys]
+            sigs = [s for g in groups for s in g.signatures]
+            # backend_idx > 0 is a steal; committee routing still resolves per
+            # backend (a steal target without the committee takes the generic
+            # kernels).
+            backend = self.backend if backend_idx == 0 else self._steal_backends[backend_idx - 1]
+            # Lanes of dedup=False groups neither hit nor enter the cache; a
+            # flush with no cached group skips the scan.
+            eligible = None if all(g.dedup for g in groups) else [g.dedup for g in groups for _ in range(len(g))]
+            if any(g.dedup for g in groups):
+                mask, miss = self._lookup(msgs, keys, sigs, eligible)
+            else:
+                mask, miss = [False] * len(msgs), range(len(msgs))
+            if miss:
+                full = len(miss) == len(msgs)
+                kwargs = {}
+                if all(g.committee for g in groups) and getattr(backend, "supports_committee_routing", False):
+                    kwargs["committee"] = True
+                m = msgs if full else [msgs[i] for i in miss]
+                k = keys if full else [keys[i] for i in miss]
+                s = sigs if full else [sigs[i] for i in miss]
         if miss:
-            full = len(miss) == len(msgs)
-            kwargs = {}
-            if all(g.committee for g in groups) and getattr(backend, "supports_committee_routing", False):
-                kwargs["committee"] = True
-            m = msgs if full else [msgs[i] for i in miss]
-            k = keys if full else [keys[i] for i in miss]
-            s = sigs if full else [sigs[i] for i in miss]
             t0 = time.perf_counter()
             try:
                 if self.inline:
                     sub = backend.verify_batch_mask(m, k, s, **kwargs)
                 else:
-                    sub = await asyncio.to_thread(backend.verify_batch_mask, m, k, s, **kwargs)
+                    sub, t_start, t_end = await asyncio.to_thread(_stamped, backend.verify_batch_mask, m, k, s, kwargs)
+                    (_M_HANDOFF_CRITICAL if urgent else _M_HANDOFF_BULK).record(
+                        (t_start - t0) + (time.perf_counter() - t_end))
             except Exception as exc:  # a backend failure must not hang callers
                 for g in groups:
                     if not g.future.done():
                         g.future.set_exception(exc)
                 return
-            if tracing.enabled():
-                # One verify.batch event per traced group in the flush (the
-                # flush's time, the group's lane and its queueing delay),
-                # plus a watchdog sample of the flush's per-signature cost.
-                dur = time.perf_counter() - t0
-                for g in groups:
-                    if g.trace is not None:
-                        tracing.event("verify.batch", g.trace, dur, n=len(g), flush=len(miss), lane=g.source,
-                                      queue_s=round(max(0.0, g.t_dequeue - g.t_submit), 6))
-                tracing.WATCHDOG.note_verify(dur, len(miss))
-            self._remember(mask, miss, sub, msgs, keys, sigs, eligible)
-        self.stats["flushes"] += 1
-        self.stats["size_flushes"] += total >= self.max_batch
-        self.stats["urgent_flushes"] += urgent
-        self.stats["verified"] += total
-        lo = 0
-        for g in groups:
-            hi = lo + len(g)
-            if not g.future.cancelled():
-                g.future.set_result([bool(b) for b in mask[lo:hi]])
-            lo = hi
+        with metrics.span(_M_RESOLVE):
+            if miss:
+                if tracing.enabled():
+                    # One verify.batch event per traced group in the flush (the
+                    # flush's time, the group's lane and its queueing delay),
+                    # plus a watchdog sample of the flush's per-signature cost.
+                    dur = time.perf_counter() - t0
+                    for g in groups:
+                        if g.trace is not None:
+                            tracing.event("verify.batch", g.trace, dur, n=len(g), flush=len(miss), lane=g.source,
+                                          queue_s=round(max(0.0, g.t_dequeue - g.t_submit), 6))
+                    tracing.WATCHDOG.note_verify(dur, len(miss))
+                self._remember(mask, miss, sub, msgs, keys, sigs, eligible)
+            self.stats["flushes"] += 1
+            self.stats["size_flushes"] += total >= self.max_batch
+            self.stats["urgent_flushes"] += urgent
+            self.stats["verified"] += total
+            lo = 0
+            for g in groups:
+                hi = lo + len(g)
+                if not g.future.cancelled():
+                    g.future.set_result([bool(b) for b in mask[lo:hi]])
+                lo = hi
 
     def _lookup(self, msgs, keys, sigs, eligible=None) -> tuple[list[bool], list[int]]:
         """The dedup scan: a mask with every eligible triple that verified

@@ -44,7 +44,10 @@ card's batches, `crypto.cpu_*` the host's; `crypto.batch_size`,
 `verifier.crossover_fallbacks`, `verifier.committee_misses`,
 `verifier.rejected_sigs`, `verifier.committee_rejected_sigs`), so a dump of
 either package reads the same; the first, tenth, hundredth, ... fallback
-and miss are logged.
+and miss are logged. Each route's verification is also a `metrics.span`:
+`backend.generic_s` and `backend.committee_s` on the card, each around the
+verifier's `verifier.e2e_s` and the lists the seam builds for it and from
+its mask, and `backend.host_s` around the host verifier's call.
 
 The verifier's dispatch pipeline runs at `HOTSTUFF_PIPELINE_DEPTH` chunks in
 flight (default 2; 1 runs every chunk inline on the caller's thread);
@@ -109,6 +112,12 @@ _M_CROSSOVER_FALLBACKS = metrics.counter("verifier.crossover_fallbacks")
 _M_COMMITTEE_MISSES = metrics.counter("verifier.committee_misses")
 _M_REJECTED = metrics.counter("verifier.rejected_sigs")
 _M_COMMITTEE_REJECTED = metrics.counter("verifier.committee_rejected_sigs")
+# Each route's verification, a span around the host verifier's call or, on
+# the card, around the verifier's `verifier.e2e_s` with the seam's own host
+# work: the lists handed to the verifier, and the mask's `.tolist()`.
+_M_GENERIC_S = metrics.histogram("backend.generic_s")
+_M_COMMITTEE_S = metrics.histogram("backend.committee_s")
+_M_HOST_S = metrics.histogram("backend.host_s")
 
 
 def _is_decade(count: int) -> bool:
@@ -275,7 +284,8 @@ class TorchBackend(CryptoBackend):
             if _is_decade(count):
                 log.info("sub-crossover fallback #%d: batch of %d < crossover %d verified on the host (%s)",
                          count, n, threshold, self.host_route)
-            mask = self._host.verify_batch_mask(messages, keys, signatures)
+            with metrics.span(_M_HOST_S):
+                mask = self._host.verify_batch_mask(messages, keys, signatures)
             _count_rejections(mask, resolved is not None)
             return mask
         with self._lock:
@@ -290,13 +300,15 @@ class TorchBackend(CryptoBackend):
             indices, table = resolved
             # `table` is pinned through the dispatch: a re-registration
             # cannot swap it under these indices.
-            mask = self._verifier.verify_batch_mask_committee(
-                list(messages), indices, [s.data for s in signatures], table=table
-            ).tolist()
+            with metrics.span(_M_COMMITTEE_S):
+                mask = self._verifier.verify_batch_mask_committee(
+                    list(messages), indices, [s.data for s in signatures], table=table
+                ).tolist()
         else:
-            mask = self._verifier.verify_batch_mask(
-                list(messages), [k.data for k in keys], [s.data for s in signatures]
-            ).tolist()
+            with metrics.span(_M_GENERIC_S):
+                mask = self._verifier.verify_batch_mask(
+                    list(messages), [k.data for k in keys], [s.data for s in signatures]
+                ).tolist()
         _count_rejections(mask, resolved is not None)
         return mask
 

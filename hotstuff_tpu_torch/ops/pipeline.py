@@ -22,7 +22,8 @@ Counterpart of `hotstuff_tpu/ops/pipeline.py`, with the same semantics:
     upload order is dispatch order is readback order, and results come
     back in task order. Concurrent `run` calls (the sidecar's dispatch
     threads share one backend) each keep their own window and share the
-    two workers.
+    two workers. The time a chunk waits for each worker, from the end of
+    its previous leg to the start of the next, is `pipeline.wait_s`.
   * **Owned, closeable workers**, created on the first depth > 1 run;
     `close()` shuts them down, `weakref.finalize` reaps them when the owner
     is collected, and one atexit hook (`close_all`) drains every live
@@ -73,6 +74,11 @@ _M_DEPTH = metrics.gauge("pipeline.depth")
 _M_INFLIGHT = metrics.gauge("pipeline.inflight")
 _M_STALLS = metrics.counter("pipeline.stalls")
 _M_STALL_S = metrics.histogram("pipeline.stall_s")
+# One sample a chunk of the windowed path: (upload leg's start - stage's end)
+# + (readback leg's start - submit's end), the chunk's wait between the
+# threads (a busy worker, its wake-up, the interpreter lock); a histogram
+# alone, since its two pieces lie on two threads.
+_M_WAIT_S = metrics.histogram("pipeline.wait_s")
 _M_BUF_REUSE = metrics.counter("pipeline.buffer_reuse")
 _M_BUF_ALLOC = metrics.counter("pipeline.buffer_allocs")
 
@@ -268,8 +274,11 @@ class DispatchPipeline:
         with self._span("stage", task.tlkey):
             return task.stage()
 
-    def _submitted(self, task: ChunkTask, payload):
-        return task.submit(payload), time.monotonic()
+    def _submitted(self, task: ChunkTask, payload, staged_t: float | None = None):
+        """(the submit's handle, its end, the upload worker's wait since the
+        stage ended at `staged_t`: 0 inline)."""
+        up_wait = 0.0 if staged_t is None else time.monotonic() - staged_t
+        return task.submit(payload), time.monotonic(), up_wait
 
     def _release_buffers(self, task: ChunkTask) -> None:
         """Hand the chunk's pooled staging buffers back — only once its
@@ -281,7 +290,8 @@ class DispatchPipeline:
 
     def _read(self, task: ChunkTask, handle_fut: "Future") -> Any:
         try:
-            handle, dispatched_t = handle_fut.result()
+            handle, dispatched_t, up_wait = handle_fut.result()
+            _M_WAIT_S.record(up_wait + time.monotonic() - dispatched_t)
             # The readback span opens at dispatch completion: the device has
             # been computing since the launches returned, so the readback
             # worker's dequeue latency is not device idle.
@@ -306,7 +316,7 @@ class DispatchPipeline:
         """The inline leg: caller-thread stage -> submit -> readback."""
         try:
             payload = self._staged(task)
-            handle, dispatched_t = self._submitted(task, payload)
+            handle, dispatched_t, _ = self._submitted(task, payload)
             # The same backdate rule as the windowed path (a fair A/B).
             with self._span("readback", task.tlkey, start=dispatched_t):
                 return task.readback(handle)
@@ -345,7 +355,7 @@ class DispatchPipeline:
                 handle_fut = None
                 try:
                     payload = self._staged(task)
-                    handle_fut = up.submit(self._submitted, task, payload)
+                    handle_fut = up.submit(self._submitted, task, payload, time.monotonic())
                     res_fut = rb.submit(self._read, task, handle_fut)
                     res_fut.add_done_callback(_release)
                     attached = True

@@ -18,7 +18,10 @@ bench's `--metrics-out`, in the reference's layout,
     histograms use fixed bucket bounds and derive p50/p95/p99 by
     interpolation inside the owning bucket.
   * `span(histogram)` — a context manager timing its block into a
-    histogram.
+    histogram; while a torch profiler records, also a `record_function`
+    range of the histogram's name on the thread that runs the block.
+  * `watch_collector()` — each garbage collection's pause into
+    `runtime.gc_s` and `runtime.gc_collections` (`gc.callbacks`).
   * `percentile(values, q)` — the nearest-rank percentile over raw samples
     (the scheduler's `LaneStats`, the timeline's idle gaps);
     `bucket_percentile` — the interpolated one over bucket counts (the
@@ -26,9 +29,10 @@ bench's `--metrics-out`, in the reference's layout,
 
 Metric names are the reference's (`scheduler.*`, `verifier.*`,
 `pipeline.*`, `timeline.*`, `bls.*`), so a dump of either package reads the
-same. Every metric guards its state with its own lock: the service's
-dispatch threads, the pipeline's workers and the event loop record
-concurrently.
+same; the port's own (`service.*`, `backend.*`, `pipeline.wait_s`,
+`runtime.*`) have no counterpart there. Every metric guards its state with
+its own lock: the service's dispatch threads, the pipeline's workers and
+the event loop record concurrently.
 
 `start_periodic_emitter(interval_s)` logs the dump without bucket counts
 as one `METRICS {json}` line on `hotstuff.metrics` every `interval_s`
@@ -44,9 +48,11 @@ not ported: a dump's `enabled` is always true.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import math
+import sys
 import threading
 import time
 from bisect import bisect_left
@@ -73,6 +79,7 @@ __all__ = [
     "reset",
     "span",
     "start_periodic_emitter",
+    "watch_collector",
 ]
 
 # Re-entrant: a SIGTERM handler that dumps on the main thread must not
@@ -292,27 +299,82 @@ def histogram(name: str, buckets: Sequence[float] = TIME_BUCKETS_S) -> Histogram
     return REGISTRY.histogram(name, buckets)
 
 
+def _profiler():
+    """`torch.autograd.profiler` while a torch profiler records, else None.
+
+    Read from `sys.modules`, so this module imports no torch. The flag is
+    torch's process-wide one, true on every thread from a profiler's start
+    to its stop: `torch.autograd._profiler_enabled()` reads the calling
+    thread's profiler state, which is false on threads the profiler did not
+    start on and, with `profile_all_threads`, on every thread."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
 class _Span:
     """Context manager timing one stage into a histogram (see `span`)."""
 
-    __slots__ = ("_hist", "_t0")
+    __slots__ = ("_hist", "_t0", "_range")
 
     def __init__(self, hist: Histogram) -> None:
         self._hist = hist
         self._t0 = 0.0
+        self._range = None
 
     def __enter__(self) -> "_Span":
+        prof = _profiler()
+        if prof is not None:
+            self._range = prof.record_function(self._hist.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         self._hist.record(time.perf_counter() - self._t0)
+        if self._range is not None:
+            self._range.__exit__(*exc)
 
 
 def span(hist: Histogram) -> _Span:
     """`with metrics.span(h): ...` — time the block's wall seconds into
-    histogram `h`."""
+    histogram `h`. While a torch profiler records, the block is also a
+    `record_function` range named as the histogram, on the thread that runs
+    it, so the registry's spans lie on the device trace's clock."""
     return _Span(hist)
+
+
+class _CollectorWatch:
+    """A `gc.callbacks` entry: each collection's pause into `runtime.gc_s`
+    (a `span`, so a range on the collecting thread while a profiler records)
+    and one count into `runtime.gc_collections`. CPython runs one collection
+    at a time, so one open span suffices."""
+
+    def __init__(self) -> None:
+        self._pause = histogram("runtime.gc_s")
+        self._collections = counter("runtime.gc_collections")
+        self._open: _Span | None = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._open = span(self._pause).__enter__()
+        elif self._open is not None:
+            s, self._open = self._open, None
+            s.__exit__(None, None, None)
+            self._collections.inc()
+
+
+_collector_watch: _CollectorWatch | None = None
+_watch_lock = threading.Lock()
+
+
+def watch_collector() -> None:
+    """Time every collection of the process from now on (idempotent). The
+    `runtime.*` metrics exist from the first call."""
+    global _collector_watch
+    with _watch_lock:
+        if _collector_watch is None:
+            _collector_watch = _CollectorWatch()
+            gc.callbacks.append(_collector_watch)
 
 
 def dump(include_buckets: bool = True) -> dict:
